@@ -1,0 +1,230 @@
+"""HRNetV2-W48 encoder — port of pixelspointspolygons_tpu/models/hrnet.py
+(`HRNetEncoder`, :165-229, and the blocks it is built from).
+
+Module names are the JAX package's (`stage3_m2.branch1_b0.conv1`,
+`fuse2_0_1_conv`, `last_conv2`, ...), so `utils/bridge.py` maps a flax tree
+leaf for leaf. The public forward takes and returns NHWC as the JAX module
+does; inside, tensors are NCHW (the NHWC input viewed as NCHW is already in
+torch's channels_last layout, which the convolutions keep).
+
+The align-corners bilinear resize (JAX: two interpolation matmuls,
+hrnet.py:39-66) is `F.interpolate(..., align_corners=True)`.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .layers import BatchNorm
+
+
+def _conv(cin: int, cout: int, k: int, stride: int = 1, bias: bool = False, device=None) -> nn.Conv2d:
+    # explicit symmetric k//2 padding: torch's pad-1 grid at stride 2
+    return nn.Conv2d(cin, cout, k, stride, padding=k // 2, bias=bias, device=device)
+
+
+def resize_align_corners(x: torch.Tensor, out_hw: Sequence[int]) -> torch.Tensor:
+    if tuple(x.shape[2:]) == tuple(out_hw):
+        return x
+    return F.interpolate(x, size=tuple(int(s) for s in out_hw), mode="bilinear", align_corners=True)
+
+
+class BasicBlock(nn.Module):
+    """Two 3x3 convs + residual (reference hrnet48v2.py:37-66)."""
+
+    def __init__(self, cin: int, ch: int, stride: int = 1, device=None):
+        super().__init__()
+        self.conv1 = _conv(cin, ch, 3, stride, device=device)
+        self.bn1 = BatchNorm(ch, device=device)
+        self.conv2 = _conv(ch, ch, 3, device=device)
+        self.bn2 = BatchNorm(ch, device=device)
+        self.down = stride != 1 or cin != ch
+        if self.down:
+            self.down_conv = _conv(cin, ch, 1, stride, device=device)
+            self.down_bn = BatchNorm(ch, device=device)
+
+    def forward(self, x):
+        h = F.relu(self.bn1(self.conv1(x)))
+        h = self.bn2(self.conv2(h))
+        if self.down:
+            x = self.down_bn(self.down_conv(x))
+        return F.relu(x + h)
+
+
+class Bottleneck(nn.Module):
+    """1x1 → 3x3 → 1x1(×4) + residual (reference hrnet48v2.py:69-107)."""
+
+    def __init__(self, cin: int, planes: int, stride: int = 1, device=None):
+        super().__init__()
+        out_ch = planes * 4
+        self.conv1 = _conv(cin, planes, 1, device=device)
+        self.bn1 = BatchNorm(planes, device=device)
+        self.conv2 = _conv(planes, planes, 3, stride, device=device)
+        self.bn2 = BatchNorm(planes, device=device)
+        self.conv3 = _conv(planes, out_ch, 1, device=device)
+        self.bn3 = BatchNorm(out_ch, device=device)
+        self.down = stride != 1 or cin != out_ch
+        if self.down:
+            self.down_conv = _conv(cin, out_ch, 1, stride, device=device)
+            self.down_bn = BatchNorm(out_ch, device=device)
+
+    def forward(self, x):
+        h = F.relu(self.bn1(self.conv1(x)))
+        h = F.relu(self.bn2(self.conv2(h)))
+        h = self.bn3(self.conv3(h))
+        if self.down:
+            x = self.down_bn(self.down_conv(x))
+        return F.relu(x + h)
+
+
+class HRModule(nn.Module):
+    """One HighResolutionModule: per-branch residual blocks, then full
+    cross-resolution fusion (reference hrnet48v2.py:110-254)."""
+
+    def __init__(self, widths: Sequence[int], num_blocks: int = 4, device=None):
+        super().__init__()
+        self.widths = list(widths)
+        self.num_blocks = num_blocks
+        n = len(widths)
+        for i, w in enumerate(widths):
+            for k in range(num_blocks):
+                self.add_module(f"branch{i}_b{k}", BasicBlock(w, w, device=device))
+        if n == 1:
+            return
+        for i in range(n):
+            for j in range(n):
+                if j > i:  # coarser → finer: 1x1 conv + BN, then upsample
+                    self.add_module(f"fuse{i}_{j}_conv", _conv(widths[j], widths[i], 1, device=device))
+                    self.add_module(f"fuse{i}_{j}_bn", BatchNorm(widths[i], device=device))
+                elif j < i:  # finer → coarser: chain of stride-2 3x3 convs
+                    for k in range(i - j):
+                        ch = widths[i] if k == i - j - 1 else widths[j]
+                        self.add_module(f"fuse{i}_{j}_{k}_conv", _conv(widths[j], ch, 3, 2, device=device))
+                        self.add_module(f"fuse{i}_{j}_{k}_bn", BatchNorm(ch, device=device))
+
+    def forward(self, xs: list[torch.Tensor]) -> list[torch.Tensor]:
+        n = len(self.widths)
+        xs = list(xs)
+        for i in range(n):
+            for k in range(self.num_blocks):
+                xs[i] = getattr(self, f"branch{i}_b{k}")(xs[i])
+        if n == 1:
+            return xs
+        outs = []
+        for i in range(n):
+            acc = None
+            for j in range(n):
+                if j == i:
+                    t = xs[j]
+                elif j > i:
+                    t = getattr(self, f"fuse{i}_{j}_bn")(getattr(self, f"fuse{i}_{j}_conv")(xs[j]))
+                    t = resize_align_corners(t, xs[i].shape[2:])
+                else:
+                    t = xs[j]
+                    for k in range(i - j):
+                        t = getattr(self, f"fuse{i}_{j}_{k}_bn")(getattr(self, f"fuse{i}_{j}_{k}_conv")(t))
+                        if k != i - j - 1:
+                            t = F.relu(t)
+                acc = t if acc is None else acc + t
+            outs.append(F.relu(acc))
+        return outs
+
+
+class HRNetEncoder(nn.Module):
+    """HRNetV2 trunk + head: (B, S, S, 3) NHWC → (B, S/4, S/4, out_dim) NHWC.
+
+    Defaults are HRNetV2-W48; the size knobs let tests build a tiny variant
+    with the same topology (as in the JAX module)."""
+
+    def __init__(
+        self,
+        in_size: int = 224,
+        out_dim: int = 256,
+        width: int = 48,
+        stage1_planes: int = 64,
+        stage1_blocks: int = 4,
+        num_blocks: int = 4,
+        num_modules: Sequence[int] = (1, 4, 3),
+        stem_ch: int = 64,
+        in_ch: int = 3,
+        device=None,
+    ):
+        super().__init__()
+        self.in_size = in_size
+        self.stage1_blocks = stage1_blocks
+        self.num_modules = tuple(num_modules)
+        self.conv1 = _conv(in_ch, stem_ch, 3, 2, device=device)
+        self.bn1 = BatchNorm(stem_ch, device=device)
+        self.conv2 = _conv(stem_ch, stem_ch, 3, 2, device=device)
+        self.bn2 = BatchNorm(stem_ch, device=device)
+        cin = stem_ch
+        for k in range(stage1_blocks):
+            self.add_module(f"layer1_b{k}", Bottleneck(cin, stage1_planes, device=device))
+            cin = stage1_planes * 4
+
+        widths = [width * (2**i) for i in range(1 + len(num_modules))]
+        pre = [cin]
+        # per stage: ("keep" | "conv" | "chain", n_chain) for each branch
+        self._transitions: list[list[tuple[str, int]]] = []
+        for stage, nmod in zip(range(2, 2 + len(num_modules)), num_modules):
+            cur = widths[:stage]
+            t_idx = stage - 1
+            plan = []
+            for i in range(len(cur)):
+                if i < len(pre):
+                    if pre[i] != cur[i]:
+                        self.add_module(f"transition{t_idx}_{i}_conv", _conv(pre[i], cur[i], 3, device=device))
+                        self.add_module(f"transition{t_idx}_{i}_bn", BatchNorm(cur[i], device=device))
+                        plan.append(("conv", 0))
+                    else:
+                        plan.append(("keep", 0))
+                else:  # new branch: chained stride-2 convs from the coarsest
+                    n_chain = i + 1 - len(pre)
+                    for j in range(n_chain):
+                        ch = cur[i] if j == i - len(pre) else pre[-1]
+                        self.add_module(f"transition{t_idx}_{i}_{j}_conv", _conv(pre[-1], ch, 3, 2, device=device))
+                        self.add_module(f"transition{t_idx}_{i}_{j}_bn", BatchNorm(ch, device=device))
+                    plan.append(("chain", n_chain))
+            self._transitions.append(plan)
+            for m in range(nmod):
+                self.add_module(f"stage{stage}_m{m}", HRModule(cur, num_blocks, device=device))
+            pre = cur
+        c = sum(pre)
+        self.last_conv1 = nn.Conv2d(c, c, 1, bias=True, device=device)
+        self.last_bn = BatchNorm(c, device=device)
+        self.last_conv2 = nn.Conv2d(c, out_dim, 1, bias=True, device=device)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        x = images.permute(0, 3, 1, 2)  # NHWC → NCHW view (channels_last strides)
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.relu(self.bn2(self.conv2(x)))
+        for k in range(self.stage1_blocks):
+            x = getattr(self, f"layer1_b{k}")(x)
+        xs = [x]
+        for s, (plan, nmod) in enumerate(zip(self._transitions, self.num_modules)):
+            stage, t_idx = s + 2, s + 1
+            new_xs = []
+            for i, (kind, n_chain) in enumerate(plan):
+                if kind == "keep":
+                    new_xs.append(xs[i])
+                elif kind == "conv":
+                    h = getattr(self, f"transition{t_idx}_{i}_conv")(xs[i])
+                    new_xs.append(F.relu(getattr(self, f"transition{t_idx}_{i}_bn")(h)))
+                else:
+                    h = xs[-1]
+                    for j in range(n_chain):
+                        h = getattr(self, f"transition{t_idx}_{i}_{j}_conv")(h)
+                        h = F.relu(getattr(self, f"transition{t_idx}_{i}_{j}_bn")(h))
+                    new_xs.append(h)
+            xs = new_xs
+            for m in range(nmod):
+                xs = getattr(self, f"stage{stage}_m{m}")(xs)
+        # HRNetV2 head (reference :521-529): concat at 1/4 res, 1x1 convs
+        tgt = xs[0].shape[2:]
+        x = torch.cat([xs[0]] + [resize_align_corners(h, tgt) for h in xs[1:]], dim=1)
+        x = F.relu(self.last_bn(self.last_conv1(x)))
+        return self.last_conv2(x).permute(0, 2, 3, 1)
