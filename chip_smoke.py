@@ -10,7 +10,9 @@ fails:
   2. build every CUDA kernel of the port from `pixelspointspolygons_torch/csrc`
      (one nvcc per source, all started together);
   3. each kernel against its plain PyTorch version on the card, at the shapes
-     the main path gives it, with CUDA-event timings and its bound;
+     the main path gives it and beyond them (the AFM at 4096 segments), with
+     CUDA-event timings and its bound; the AFM kernel's division-free
+     quotient against IEEE division on every operand of the main path;
   4. the main path: HiSup-image training (HRNetV2-W48, 224 px, head width
      256, batch 16) through the trainer for 4 train steps and 1 val step,
      with every kernel launch counter set to 0 just before and read just
@@ -42,10 +44,16 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 # published peaks of one H100 SXM (dense): FP32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-# FP32 operations per (pixel, valid segment) pair of the AFM: 2 sub, 2 mul,
-# 1 add, 1 div, 2 clamp, 2 mul, 2 add, 2 sub (offsets), 2 mul + 1 add
-# (distance), 1 compare
-AFM_OPS_PER_PAIR = 18
+# FP32 operations the AFM needs per (pixel, valid segment) pair: 1 add (the
+# numerator, from a column term and a row term), 1 div, 2 clamp, 2 x (FMA
+# as 2 + 1 sub) for the offsets, 1 mul + 1 FMA for the distance, 1 compare.
+# A column term (px - x1) * dx and a row term (py - y1) * dy cost 2 each,
+# per valid segment and column or row. The per-pixel encoding is left out.
+AFM_OPS_PER_PAIR = 14
+AFM_OPS_PER_TERM = 2
+# the count with both terms computed for every pair (2 sub, 2 mul more),
+# which the kernel's first version was measured against; printed beside
+AFM_OPS_PER_PAIR_UNSHARED = 18
 
 B, L, S = 16, 256, 224
 TRAIN_STEPS, VAL_STEPS = 4, 1
@@ -68,6 +76,34 @@ def cuda_ms(fn, launches: int, rounds: int) -> float:
         start.record()
         for _ in range(launches):
             fn()
+        end.record()
+        end.synchronize()
+        per.append(start.elapsed_time(end) / launches)
+    return statistics.median(per)
+
+
+def graph_ms(fn, launches: int, rounds: int) -> float:
+    """Median over `rounds` of the mean device time of `launches` calls
+    captured in one CUDA graph: the kernels' time without the host's cost
+    of each call, which back-to-back eager calls (`cuda_ms`) include when a
+    kernel is shorter than it."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
         end.record()
         end.synchronize()
         per.append(start.elapsed_time(end) / launches)
@@ -137,36 +173,72 @@ def afm_inputs(cfg) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.from_numpy(lines).to(dev), torch.from_numpy(valid).to(dev)
 
 
-def phase_afm(cfg) -> dict:
+def afm_against_plain(lines: torch.Tensor, valid: torch.Tensor, what: str) -> float:
+    """The AFM kernel against its plain version at S x S; returns the map's
+    max abs error. Labels exact: the same IEEE roundings in the same order
+    (--fmad=false, and a quotient with the bits of the division); map 1e-5:
+    the kernel's logf and torch's log may differ by an ulp (|map| <= 14, so
+    an ulp is under 1e-6)."""
     from pixelspointspolygons_torch.ops.afm import afm, afm_cuda
 
-    lines, valid = afm_inputs(cfg)
     got_map, got_lab = afm_cuda(lines, valid, S, S)
     want_map, want_lab = afm(lines, valid, S, S)
     torch.cuda.synchronize()
     n_bad = int((got_lab != want_lab).sum())
     err = float((got_map - want_map).abs().max())
-    # labels exact: same IEEE operations in the same order (--fmad=false);
-    # map 1e-5: the kernel's logf and torch's log may differ by an ulp
-    # (|map| <= 14, so an ulp is under 1e-6)
-    print(f"afm: label mismatches {n_bad}, map max abs err {err:.3g} (tol 1e-5)", flush=True)
+    print(f"afm {what}: label mismatches {n_bad}, map max abs err {err:.3g} (tol 1e-5)", flush=True)
     if n_bad:
-        fail(f"afm labels differ from the plain version at {n_bad} pixels")
+        fail(f"afm {what}: labels differ from the plain version at {n_bad} pixels")
     if not err <= 1e-5:
-        fail(f"afm map differs from the plain version by {err}")
-    if float(got_map[15].abs().sum()) != 0.0 or int(got_lab[15].abs().sum()) != 0:
-        fail("afm: a sample with no valid segment must give zeros")
+        fail(f"afm {what}: map differs from the plain version by {err}")
+    empty = ~valid.any(dim=1)
+    if float(got_map[empty].abs().sum()) != 0.0 or int(got_lab[empty].abs().sum()) != 0:
+        fail(f"afm {what}: a sample with no valid segment must give zeros")
+    return err
+
+
+def phase_afm(cfg) -> dict:
+    from pixelspointspolygons_torch.ops.afm import (
+        afm,
+        afm_cuda,
+        division_mismatches,
+        division_operands,
+        kernel_config,
+    )
+
+    conf = kernel_config()
+    print(f"afm kernel built with a {conf['rows']}x{conf['cols']} tile of pixels per thread, "
+          f"{conf['warps']} warps per block, chunks of {conf['chunk']} segments", flush=True)
+    lines, valid = afm_inputs(cfg)
+    err = afm_against_plain(lines, valid, f"{B}x{L} -> {S}x{S} (main path)")
+    num, den = division_operands(lines, valid, S, S)
+    bad, signed_zero = division_mismatches(num, den)
+    print(f"afm quotient vs IEEE division on all {num.numel()} operands of the main path: "
+          f"{bad} differ, {signed_zero} differ only in the sign of zero", flush=True)
+    if bad:
+        fail(f"afm: the reciprocal quotient differs from IEEE division on {bad} operands")
+    del num, den
+    rng = np.random.RandomState(1)
+    big = rng.uniform(0, S, (2, 4096, 4)).astype(np.float32)
+    big[:, ::3] = np.round(big[:, ::3])
+    big_valid = rng.rand(2, 4096) < 0.7
+    afm_against_plain(torch.from_numpy(big).cuda(), torch.from_numpy(big_valid).cuda(), f"2x4096 -> {S}x{S}")
 
     ms = cuda_ms(lambda: afm_cuda(lines, valid, S, S), launches=20, rounds=5)
+    device_ms = graph_ms(lambda: afm_cuda(lines, valid, S, S), launches=20, rounds=5)
     plain_ms = cuda_ms(lambda: afm(lines, valid, S, S), launches=2, rounds=3)
-    pairs = int(valid.sum()) * S * S
-    ops = pairs * AFM_OPS_PER_PAIR
+    segments = int(valid.sum())
+    pairs = segments * S * S
+    ops = pairs * AFM_OPS_PER_PAIR + segments * 2 * S * AFM_OPS_PER_TERM
     nbytes = lines.numel() * 4 + valid.numel() + B * 2 * S * S * 4 + B * S * S * 4
     t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ms, bound_by = max((t_ops, "operations"), (t_bytes, "bytes"))
+    unshared_ms = pairs * AFM_OPS_PER_PAIR_UNSHARED / PEAK_FP32_FLOPS * 1e3
     print(
-        f"afm: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-        f"{pairs} pixel-segment pairs, {ops/1e9:.3f} GFLOP, {nbytes/1e6:.2f} MB)",
+        f"afm: kernel {ms:.4f} ms ({device_ms:.4f} ms replayed in a CUDA graph), plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.5f} ms ({bound_by}; "
+        f"{pairs} pixel-segment pairs, {ops/1e9:.4f} GFLOP, {nbytes/1e6:.2f} MB); "
+        f"{unshared_ms:.5f} ms at {AFM_OPS_PER_PAIR_UNSHARED} operations per pair with unshared terms",
         flush=True,
     )
     return {

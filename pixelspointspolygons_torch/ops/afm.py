@@ -7,7 +7,8 @@ Port of pixelspointspolygons_tpu/ops/afm.py. Three functions:
   `argmin` as the JAX package's XLA `afm`. It is the oracle for the kernel.
 - `afm_cuda`: the wrapper of the hand-written Hopper kernel `csrc/afm.cu`,
   which replaces the Pallas TPU kernel `ops/afm_pallas.py::afm_pallas`. It
-  counts its launches in `afm_cuda.launches`.
+  counts its launches in `afm_cuda.launches`. Like the plain version it
+  takes any number of segments.
 - `afm_auto`: what HiSup's `encode_targets` calls. CPU tensors take the
   plain version; CUDA tensors launch the kernel or raise.
 
@@ -20,7 +21,10 @@ contracts them at the HiSup shapes): dx·dx + dy·dy, x1 + t·dx (and
 y1 + t·dy), ax·ax + ay·ay. The port does the same, so its targets and labels
 agree with the JAX package bit for bit at those shapes, and the kernel
 (`fmaf` at the same three places, no other contraction) agrees with this
-plain version. Here a fused multiply-add is a float64 product (exact for
+plain version. The kernel divides by a reciprocal and one correction
+step, which rounds to the same bits as the division here
+(`division_operands` and `division_mismatches` let a test show it). Here a
+fused multiply-add is a float64 product (exact for
 float32 inputs) plus a float64 add, rounded to float32; that differs from a
 single rounding only when the float64 sum lands exactly on a float32 tie,
 about once in 2^29 operations.
@@ -29,15 +33,11 @@ about once in 2^29 operations.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .build import load
-
-# the kernel stages 24 bytes per segment in dynamic shared memory; with its
-# few bytes of static shared memory a block must stay within the 48 KB that
-# a launch gets without opting in to more
-MAX_SEGMENTS = 2040
 
 
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -104,9 +104,30 @@ def afm_cuda(
         raise ValueError("lines and lines_valid must be on the same device")
     if not (lines.is_contiguous() and lines_valid.is_contiguous()):
         raise ValueError("afm_cuda takes contiguous tensors")
-    if L > MAX_SEGMENTS:
-        raise ValueError(f"afm_cuda stages at most {MAX_SEGMENTS} segments per sample in shared memory, got {L}")
+    afmap, label = _launch(_lib(), lines, lines_valid, height, width)
+    afm_cuda.launches += 1
+    return afmap, label
+
+
+afm_cuda.launches = 0
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
     lib = load("afm")
+    lib.afm_config.argtypes = [ctypes.c_void_p]
+    lib.afm_config.restype = None
+    lib.afm_division_check.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
+    lib.afm_division_check.restype = ctypes.c_int
+    return lib
+
+
+def _launch(lib: ctypes.CDLL, lines: torch.Tensor, lines_valid: torch.Tensor, height: int, width: int):
+    """Run `lib.afm_launch` on tensors that `afm_cuda` has checked, and
+    count nothing: the port launches through `afm_cuda` only. The timing
+    tool `afm_bench.py` calls it with libraries built from other versions
+    of `csrc/afm.cu`."""
+    B, L, _ = lines.shape
     fn = lib.afm_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -119,11 +140,50 @@ def afm_cuda(
         )
     if err != 0:
         raise RuntimeError(f"afm kernel launch failed with CUDA error {err}")
-    afm_cuda.launches += 1
     return afmap, label
 
 
-afm_cuda.launches = 0
+def kernel_config() -> dict:
+    """The pixel tile (rows x columns per thread), warps per block and
+    segment chunk that `csrc/afm.cu` was built with."""
+    out = (ctypes.c_int * 4)()
+    _lib().afm_config(out)
+    return dict(zip(("rows", "cols", "warps", "chunk"), out))
+
+
+def division_operands(lines, lines_valid, height: int, width: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every numerator and denominator that `afm` divides for a valid
+    segment, rounded as `afm` rounds them: float32 (N,), (N,) with N =
+    valid segments x H x W."""
+    x1, y1, x2, y2 = lines.unbind(-1)
+    dx, dy = x2 - x1, y2 - y1
+    den = _fma(dx, dx, dy * dy) + 1e-6  # (B, L)
+    px = torch.arange(width, dtype=lines.dtype, device=lines.device)[None, None, :, None]
+    py = torch.arange(height, dtype=lines.dtype, device=lines.device)[None, :, None, None]
+    num = (px - x1[:, None, None, :]) * dx[:, None, None, :] + (py - y1[:, None, None, :]) * dy[:, None, None, :]
+    keep = lines_valid.to(torch.bool)[:, None, None, :].expand_as(num)
+    return num[keep], den[:, None, None, :].expand_as(num)[keep]
+
+
+def division_mismatches(num: torch.Tensor, den: torch.Tensor) -> tuple[int, int]:
+    """The kernel's quotient (reciprocal and one correction step) against
+    IEEE division (`__fdiv_rn`) on the card, for CUDA float32 tensors of one
+    shape. Returns (pairs that differ other than by the sign of a zero,
+    pairs that differ only by it)."""
+    if not (num.is_cuda and den.device == num.device):
+        raise ValueError("division_mismatches takes CUDA tensors on one device")
+    if num.dtype != torch.float32 or den.dtype != torch.float32 or num.shape != den.shape:
+        raise ValueError("division_mismatches takes float32 tensors of one shape")
+    num, den = num.contiguous(), den.contiguous()
+    counts = torch.zeros(2, dtype=torch.int64, device=num.device)
+    with torch.cuda.device(num.device):
+        err = _lib().afm_division_check(
+            num.data_ptr(), den.data_ptr(), num.numel(), counts.data_ptr(), torch.cuda.current_stream().cuda_stream
+        )
+    if err != 0:
+        raise RuntimeError(f"division check launch failed with CUDA error {err}")
+    bad, signed_zero = counts.tolist()
+    return bad, signed_zero
 
 
 def afm_auto(lines, lines_valid, height: int, width: int):

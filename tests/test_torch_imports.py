@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: no file of `pixelspointspolygons_torch/`
-and not `chip_smoke.py` imports JAX, flax, optax, orbax or the JAX package,
+and not `chip_smoke.py` or `afm_bench.py` imports JAX, flax, optax, orbax or the JAX package,
 and a fresh process that imports every module of the port and takes a train
 step on the CPU has none of them loaded."""
 
@@ -15,7 +15,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pixelspointspolygons_tp
 
 
 def _sources():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "afm_bench.py")]
     for d, _, names in os.walk(PORT):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)

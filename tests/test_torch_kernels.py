@@ -11,7 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from pixelspointspolygons_torch.ops.afm import MAX_SEGMENTS, afm, afm_cuda
+from pixelspointspolygons_torch.ops.afm import (
+    afm,
+    afm_cuda,
+    division_mismatches,
+    division_operands,
+    kernel_config,
+)
 
 
 @pytest.fixture()
@@ -40,7 +46,9 @@ def _afm_inputs(seed, B, L, H, W):
         (16, 256, 224, 224),  # the HiSup main path
         (3, 37, 21, 50),  # ragged last block, L not a multiple of a warp
         (2, 1, 7, 300),
-        (2, MAX_SEGMENTS, 40, 24),  # the most segments the kernel stages
+        (2, 2040, 40, 24),  # staged in several chunks, the last one ragged
+        (2, 4096, 40, 24),  # staged in whole chunks
+        (1, 3000, 224, 224),  # a ragged last chunk at the HiSup resolution
     ],
 )
 def test_afm_kernel_matches_plain(cuda_device, B, L, H, W):
@@ -65,9 +73,12 @@ def test_afm_kernel_refuses_what_it_cannot_take(cuda_device):
     lines, valid = _afm_inputs(0, 2, 8, 16, 16)
     lt, vt = torch.from_numpy(lines).to(cuda_device), torch.from_numpy(valid).to(cuda_device)
     before = afm_cuda.launches
-    with pytest.raises(ValueError, match="segments"):
-        afm_cuda(torch.zeros(1, MAX_SEGMENTS + 1, 4, device=cuda_device),
-                 torch.ones(1, MAX_SEGMENTS + 1, dtype=torch.bool, device=cuda_device), 8, 8)
+    many, many_valid = (torch.from_numpy(x).to(cuda_device) for x in _afm_inputs(1, 1, 2041, 8, 8))
+    got_map, got_lab = afm_cuda(many, many_valid, 8, 8)  # any number of segments is taken
+    want_map, want_lab = afm(many, many_valid, 8, 8)
+    assert torch.equal(got_lab, want_lab) and float((got_map - want_map).abs().max()) <= 1e-5
+    assert afm_cuda.launches == before + 1
+    before = afm_cuda.launches
     with pytest.raises(ValueError, match="float32"):
         afm_cuda(lt.double(), vt, 16, 16)
     with pytest.raises(ValueError, match="bool"):
@@ -77,3 +88,69 @@ def test_afm_kernel_refuses_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="same device"):
         afm_cuda(lt, vt.cpu(), 16, 16)
     assert afm_cuda.launches == before
+
+
+@pytest.mark.cuda
+def test_afm_kernel_first_minimum_across_chunks(cuda_device):
+    """Segments of equal distance in different chunks: the lowest index
+    wins, as in argmin, whether the earlier one is in an earlier chunk or
+    the same one. Far-away segments pad every chunk."""
+    chunk = kernel_config()["chunk"]
+    H = W = 32
+    L = 3 * chunk + 5
+    lines = np.full((1, L, 4), 1000.0, np.float32)
+    lines[0, :, 2] = 1001.0
+    a, b = [4.0, 4.0, 4.0, 27.0], [27.0, 4.0, 27.0, 27.0]
+    for i in (7, chunk + 7, 2 * chunk + 3):  # the same segment three times
+        lines[0, i] = a
+    for i in (chunk + 9, chunk + 10, 3 * chunk + 1):  # another, in the middle chunk first
+        lines[0, i] = b
+    valid = np.ones((1, L), bool)
+    valid[0, 5] = False
+    lt, vt = torch.from_numpy(lines).to(cuda_device), torch.from_numpy(valid).to(cuda_device)
+    got_map, got_lab = afm_cuda(lt, vt, H, W)
+    want_map, want_lab = afm(lt, vt, H, W)
+    torch.cuda.synchronize()
+    assert torch.equal(got_lab, want_lab)
+    assert float((got_map - want_map).abs().max()) <= 1e-5
+    assert set(got_lab.unique().tolist()) == {7, chunk + 9}
+
+
+@pytest.mark.cuda
+def test_kernel_quotient_is_ieee_division(cuda_device):
+    """The kernel's division-free quotient against __fdiv_rn, bit for bit,
+    over 10^8 random operands (wide exponent ranges and AFM-like ones),
+    edge cases, and every operand of the HiSup-shaped case above. Only the
+    sign of a zero quotient may differ (num = -0)."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    n = 25_000_000
+    bad = signed_zero = 0
+    total = 0
+    for _ in range(2):
+        # wide: |num| in [2^-40, 2^40), den in [2^-20, 2^40)
+        mant = 1 + torch.rand(n, device=cuda_device, generator=g)
+        sign = torch.randint(0, 2, (n,), device=cuda_device, generator=g) * 2 - 1
+        num = (sign * mant * torch.exp2(torch.randint(-40, 40, (n,), device=cuda_device, generator=g).float())).float()
+        den = ((1 + torch.rand(n, device=cuda_device, generator=g))
+               * torch.exp2(torch.randint(-20, 40, (n,), device=cuda_device, generator=g).float())).float()
+        # AFM-like: pixel coordinates against segments of a 224 px tile
+        c = torch.rand(4, n, device=cuda_device, generator=g) * 224
+        c[:, ::3] = c[:, ::3].round()
+        p = torch.randint(0, 224, (2, n), device=cuda_device, generator=g).float()
+        dx, dy = c[2] - c[0], c[3] - c[1]
+        num2 = (p[0] - c[0]) * dx + (p[1] - c[1]) * dy
+        den2 = (dx.double() * dx.double() + (dy * dy).double()).float() + 1e-6
+        for a, d in ((num, den), (num2, den2)):
+            nb, nz = division_mismatches(a, d)
+            bad, signed_zero, total = bad + nb, signed_zero + nz, total + a.numel()
+    edge_num = torch.tensor([0.0, -0.0, 1.0, -1.0, 1e-30, 3.0, 224.0 * 224, -50176.0, 0.1], device=cuda_device)
+    edge_den = torch.tensor([1e-6, 1e-6, 1e-6, 3.0, 1e-6, 3.0, 1e-6, 2.0 * 224 * 224 + 1e-6, 0.3], device=cuda_device)
+    nb, nz = division_mismatches(edge_num, edge_den)
+    assert nz == 1  # -0 / 1e-6
+    bad, total = bad + nb, total + edge_num.numel()
+    lines, valid = _afm_inputs(5, 16, 256, 224, 224)
+    num, den = division_operands(torch.from_numpy(lines).to(cuda_device), torch.from_numpy(valid).to(cuda_device), 224, 224)
+    nb, nz = division_mismatches(num, den)
+    bad, total = bad + nb, total + num.numel()
+    assert total >= 10**8 + num.numel()
+    assert bad == 0, f"{bad} of {total} quotients differ from IEEE division"
