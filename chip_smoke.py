@@ -13,13 +13,21 @@ fails:
      the main path gives it and beyond them (the AFM at 4096 segments), with
      CUDA-event timings and its bound; the AFM kernel's division-free
      quotient against IEEE division on every operand of the main path;
-  4. the main path: HiSup-image training (HRNetV2-W48, 224 px, head width
-     256, batch 16) through the trainer for 4 train steps and 1 val step,
-     with every kernel launch counter set to 0 just before and read just
-     after; then step time, peak memory, the host loader's time per batch,
-     the step cut at its layers with its convolutions' operation rate, and
-     the trained model's output on the card against the same model on the
-     CPU.
+  4. the training path: HiSup-image training (HRNetV2-W48, 224 px, head
+     width 256, batch 16) through the trainer for 4 train steps, 1 val step
+     and the val-IoU pass (the val split polygonized), with every kernel
+     launch counter set to 0 just before and read just after; then step
+     time, peak memory, the host loader's time per batch, the step cut at
+     its layers with its convolutions' operation rate, and the trained
+     model's output on the card against the same model on the CPU;
+  5. the predict path: the 64-tile test split predicted from the training's
+     `latest` checkpoint and evaluated through `cli/predict.py`'s functions,
+     with the counters set to 0 just before and read just after (it
+     launches no kernel of the port); tiles per second, each batch's device
+     time (forward + junction extraction, CUDA events), host-stage time and
+     wall time, the metric dict; one batch's maps on the card against the
+     CPU's and the junction candidates of the same maps on both; the host
+     stage alone on the ground-truth masks and corners of the 64 tiles.
 The line before the last is a JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -57,6 +65,14 @@ AFM_OPS_PER_PAIR_UNSHARED = 18
 
 B, L, S = 16, 256, 224
 TRAIN_STEPS, VAL_STEPS = 4, 1
+TEST_TILES = 64  # 4 batches: the predictor's one batch in flight runs
+# the card's probability maps against the CPU's: the training phase holds
+# the raw outputs to 1e-3 of their range, and a softmax or sigmoid moves
+# by less than its input does
+MAP_TOL = 1e-3
+# polygonizing the ground truth's own masks and corners gives it back up to
+# merged touching buildings (tiles of row houses), so its IoU stays below 1
+ORACLE_MIN_IOU = 0.95
 
 
 def fail(msg: str) -> None:
@@ -117,7 +133,7 @@ def smoke_overrides(num_train: int) -> list[str]:
         "run_type=debug",
         f"experiment.dataset.num_train={num_train}",
         "experiment.dataset.num_val=16",
-        "experiment.dataset.num_test=16",
+        f"experiment.dataset.num_test={TEST_TILES}",
         "run_type.train_subset=null",
         "run_type.val_subset=null",
         "run_type.test_subset=null",
@@ -133,7 +149,9 @@ def phase_host() -> str:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     libs = {}
-    for mod in ("cv2", "yaml", "PIL"):
+    # the port needs cv2, yaml, PIL and scipy; matplotlib and pandas are
+    # printed for information (the port draws with cv2 and writes csv itself)
+    for mod in ("cv2", "yaml", "PIL", "scipy", "matplotlib", "pandas"):
         try:
             importlib.import_module(mod)
             libs[mod] = True
@@ -264,6 +282,16 @@ def phase_train(cfg_overrides: list[str]) -> tuple[dict, dict]:
 
     cfg = compose(cfg_overrides)
     trainer = HiSupTrainer(cfg)
+    iou_pass_s = []
+
+    def timed_predict_and_eval(epoch, run=trainer.predict_and_eval):
+        t = time.perf_counter()
+        iou = run(epoch)
+        torch.cuda.synchronize()
+        iou_pass_s.append(time.perf_counter() - t)
+        return iou
+
+    trainer.predict_and_eval = timed_predict_and_eval
     torch.cuda.reset_peak_memory_stats()
     afm_cuda.launches = 0
     t0 = time.perf_counter()
@@ -274,8 +302,8 @@ def phase_train(cfg_overrides: list[str]) -> tuple[dict, dict]:
     peak = torch.cuda.max_memory_allocated()
     n_train, n_val = len(trainer.train_loader), len(trainer.val_loader)
     print(
-        f"main path: {n_train} train + {n_val} val steps in {wall:.1f} s (set-up included), "
-        f"peak memory {peak/2**30:.2f} GiB; launches {launches}",
+        f"main path: {n_train} train + {n_val} val steps and the val-IoU pass in {wall:.1f} s "
+        f"(set-up included), peak memory {peak/2**30:.2f} GiB; launches {launches}",
         flush=True,
     )
     print("history: " + json.dumps(history), flush=True)
@@ -287,6 +315,13 @@ def phase_train(cfg_overrides: list[str]) -> tuple[dict, dict]:
         fail(f"afm launched {launches['afm']} times, expected {n_train + n_val}")
     if not trainer.manager.exists("latest") or not trainer.manager.exists("best_val_loss"):
         fail("trainer wrote no latest/best_val_loss checkpoint")
+    val_iou = history.get("val_iou")
+    if val_iou is None or not 0.0 <= val_iou <= 1.0 or len(iou_pass_s) != 1:
+        fail(f"the val-IoU pass gave no IoU in [0, 1]: {val_iou}")
+    # best_val_iou is written only above the initial best (0.0), which a
+    # 4-step model need not reach
+    print(f"val-IoU pass: {n_val * B} val tiles polygonized in {iou_pass_s[0] * 1e3:.1f} ms (wall), "
+          f"val IoU {val_iou:.4f}, best_val_iou written: {trainer.manager.exists('best_val_iou')}", flush=True)
 
     # steady state on the same batches (not part of the counted run)
     t = time.perf_counter()
@@ -320,7 +355,7 @@ def phase_train(cfg_overrides: list[str]) -> tuple[dict, dict]:
         flush=True,
     )
     check_against_cpu(trainer, batches[0])
-    return launches, {"step_ms": step_ms, "val_ms": val_ms, "peak_bytes": peak}
+    return launches, {"step_ms": step_ms, "val_ms": val_ms, "peak_bytes": peak, "iou_pass_ms": iou_pass_s[0] * 1e3}
 
 
 def step_parts(trainer, batch: dict) -> dict:
@@ -408,6 +443,140 @@ def check_against_cpu(trainer, batch: dict) -> None:
         fail(f"model output differs between card and CPU by {worst} (relative)")
 
 
+def phase_predict(cfg_overrides: list[str]) -> dict:
+    """The test split predicted from the training's `latest` checkpoint and
+    evaluated, through the functions `cli/predict.py::main` calls."""
+    from pixelspointspolygons_torch.cli.evaluate import evaluate
+    from pixelspointspolygons_torch.cli.predict import get_predictor
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.ops.afm import afm_cuda
+    from pixelspointspolygons_torch.utils.coco import CocoIndex
+
+    cfg = compose(cfg_overrides + ["evaluation=test", "checkpoint=latest"])
+    afm_cuda.launches = 0
+    t0 = time.perf_counter()
+    predictor = get_predictor(cfg)
+    pred_file = predictor.predict_dataset(cfg.evaluation.split)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    results = evaluate(cfg, pred_file)
+    t2 = time.perf_counter()
+    launches = afm_cuda.launches
+    if predictor.device.type != "cuda":
+        fail(f"the predictor ran on {predictor.device}")
+    if launches:
+        fail(f"the predict path launched the afm kernel {launches} times, expected 0")
+
+    try:
+        with open(pred_file) as f:
+            anns = json.load(f)
+        with open(pred_file.replace(".json", "_time.json")) as f:
+            timing = json.load(f)
+    except (OSError, ValueError) as e:
+        fail(f"prediction file {pred_file}: {e}")
+    test_ids = set(CocoIndex(cfg.experiment.dataset.annotations["test"]).imgs)
+    if timing["num_images"] != TEST_TILES or len(test_ids) != TEST_TILES:
+        fail(f"predicted {timing['num_images']} of {len(test_ids)} test tiles, expected {TEST_TILES}")
+    if not {a["image_id"] for a in anns} <= test_ids:
+        fail("the prediction file holds image ids outside the test split")
+    bad = [k for k in ("IoU", "C-IoU", "AP") if not np.isfinite(results.get(k, np.nan))]
+    if bad:
+        fail(f"non-finite metrics {bad}: {results}")
+
+    times = predictor.batch_times
+    device = [t["device_ms"] for t in times]
+    host = [t["host_ms"] for t in times]
+    walls = [t["wall_ms"] for t in times]
+    tiles_s = 1.0 / timing["prediction_time"]
+    print(f"predict path: {TEST_TILES} tiles in {len(times)} batches of {B}, {tiles_s:.2f} tiles/s "
+          f"(the predictor's own s/tile over its loop); set-up, loop and file {(t1 - t0):.2f} s, "
+          f"evaluation {(t2 - t1):.2f} s; {len(anns)} polygons; afm launches {launches}", flush=True)
+    for i, t in enumerate(times):
+        print(f"  batch {i}: device {t['device_ms']:.2f} ms (forward + junction extraction, CUDA events), "
+              f"host stage {t['host_ms']:.2f} ms, wall {t['wall_ms']:.2f} ms", flush=True)
+    print(f"  sums: device {sum(device):.1f} ms, host stage {sum(host):.1f} ms, wall {sum(walls):.1f} ms "
+          f"(device + host stage in series would be {sum(device) + sum(host):.1f} ms)", flush=True)
+    print("metrics: " + json.dumps(results), flush=True)
+    check_maps_against_cpu(cfg, predictor)
+    oracle = phase_oracle(cfg, predictor)
+    return {"tiles_s": tiles_s, "device_ms": device, "host_ms": host, "wall_ms": walls,
+            "n_polygons": len(anns), "results": results, **oracle}
+
+
+def check_maps_against_cpu(cfg, predictor) -> None:
+    """One test batch's probability maps on the card against the same model
+    on the CPU; then the junction candidates of the card's maps, extracted
+    on the card and on the CPU, must be the same pixels."""
+    import copy
+
+    from pixelspointspolygons_torch.data.loader import build_loader, to_device
+    from pixelspointspolygons_torch.models.hisup.model import extract_junctions
+
+    batch = next(iter(build_loader(cfg, "test", eval_mode=True)))
+
+    def maps(model, device):
+        with torch.inference_mode():
+            out = model.eval()(to_device(batch, device, ("images",)))
+            return {
+                "remask": torch.softmax(out["remask"], dim=1)[:, 1],
+                "jloc": torch.softmax(out["jloc"], dim=1),
+                "joff": torch.sigmoid(out["joff"]) - 0.5,
+            }
+
+    card = maps(predictor.model, torch.device("cuda"))
+    t = time.perf_counter()
+    cpu = maps(copy.deepcopy(predictor.model).cpu(), torch.device("cpu"))
+    cpu_s = time.perf_counter() - t
+    errs = {k: float((card[k].cpu() - v).abs().max()) for k, v in cpu.items()}
+    print(f"card vs CPU on a test batch of {B} (CPU forward {cpu_s:.1f} s): max abs err {errs} (tol {MAP_TOL})",
+          flush=True)
+    if not all(e <= MAP_TOL for e in errs.values()):
+        fail(f"the card's maps differ from the CPU's: {errs}")
+
+    k, th = predictor.junc_topk, predictor.junc_threshold
+    zero = torch.zeros_like(card["joff"])  # then a point is its pixel's centre
+    got = extract_junctions(card["jloc"], zero, topk=k, th=th)
+    want = extract_junctions(card["jloc"].cpu(), zero.cpu(), topk=k, th=th)
+    same = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    pts = extract_junctions(card["jloc"], card["joff"], topk=k, th=th)[0]
+    pts_cpu = extract_junctions(card["jloc"].cpu(), card["joff"].cpu(), topk=k, th=th)[0]
+    pts_err = float((pts.cpu() - pts_cpu).abs().max())
+    scores = got[1].cpu()
+    ties = int(sum(len(r[r > 0]) - len(torch.unique(r[r > 0])) for r in scores))
+    print(f"junction candidates of the card's maps, card vs CPU: same pixels {same} "
+          f"({scores.shape[1]} per tile, {ties} tied nonzero scores), points max abs err {pts_err:.3g} (tol 1e-6)",
+          flush=True)
+    if not same or not pts_err <= 1e-6:
+        fail("extract_junctions picks other pixels on the card than on the CPU")
+
+
+def phase_oracle(cfg, predictor) -> dict:
+    """The host stage alone on the test tiles' ground-truth masks and
+    corners: what polygonizing building shapes costs, which a 4-step
+    model's masks do not show."""
+    from pixelspointspolygons_torch.data.loader import build_loader
+    from pixelspointspolygons_torch.eval.metrics import compute_iou_ciou
+    from pixelspointspolygons_torch.predict.predictor_hisup import batch_annotations
+    from pixelspointspolygons_torch.utils.coco import CocoIndex
+
+    anns, ms = [], []
+    for batch in build_loader(cfg, "test", eval_mode=True):
+        arrays = (batch["mask"].astype(np.float32), batch["junctions"].astype(np.float32),
+                  batch["junc_valid"].astype(np.float32))
+        t = time.perf_counter()
+        polys, scores = predictor._host_stage(arrays)
+        ms.append((time.perf_counter() - t) * 1e3)
+        anns.extend(batch_annotations(batch, polys, scores))
+    gt = CocoIndex(cfg.experiment.dataset.annotations["test"])
+    iou = compute_iou_ciou(gt, gt.load_res(anns))
+    print(f"host stage on the ground truth: {[round(x, 2) for x in ms]} ms per batch of {B} "
+          f"({sum(ms) / TEST_TILES:.2f} ms per tile), {len(anns)} polygons for {len(gt.anns)} buildings, "
+          f"IoU {iou['IoU']:.4f} C-IoU {iou['C-IoU']:.4f} (IoU at least {ORACLE_MIN_IOU})", flush=True)
+    if not iou["IoU"] >= ORACLE_MIN_IOU:
+        fail(f"polygonizing the ground truth gave IoU {iou['IoU']}")
+    return {"oracle_host_ms": ms, "oracle_iou": iou["IoU"]}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
@@ -425,7 +594,12 @@ def main() -> None:
     launches, train = phase_train(overrides)
     afm_row["launches"] = launches["afm"]
     print(f"main path: train step {train['step_ms']:.1f} ms, val step {train['val_ms']:.1f} ms, "
-          f"peak {train['peak_bytes']} bytes, card {smi}", flush=True)
+          f"val-IoU pass {train['iou_pass_ms']:.1f} ms, peak {train['peak_bytes']} bytes, card {smi}", flush=True)
+    pred = phase_predict(overrides)
+    print(f"predict path: {pred['tiles_s']:.2f} tiles/s, device {statistics.median(pred['device_ms']):.2f} ms and "
+          f"host stage {statistics.median(pred['host_ms']):.2f} ms per batch of {B} (medians), "
+          f"host stage on the ground truth {statistics.median(pred['oracle_host_ms']):.2f} ms per batch, "
+          f"IoU {pred['results']['IoU']:.4f}, card {smi}", flush=True)
     print(json.dumps({"kernels": [afm_row]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

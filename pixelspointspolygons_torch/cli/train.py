@@ -10,21 +10,11 @@ the other models raise NotImplementedError naming their ROADMAP item.
 
 from __future__ import annotations
 
-import sys
-
-from ..config.engine import compose
+from ._common import compose_from_argv
 
 
 def main(argv: list[str] | None = None) -> dict:
-    argv = list(sys.argv[1:] if argv is None else argv)
-    device = None
-    overrides = []
-    for a in argv:
-        if a.startswith("device="):
-            device = a.split("=", 1)[1]
-        else:
-            overrides.append(a)
-    cfg = compose(overrides)
+    cfg, device = compose_from_argv(argv)
     name = cfg.experiment.model.name
     if name == "hisup":
         from ..train.trainer_hisup import HiSupTrainer

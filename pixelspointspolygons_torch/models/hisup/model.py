@@ -5,6 +5,8 @@ The ground-truth targets (jloc/joff/afm/mask) are built on the device inside
 the train step from fixed-shape junction and edge arrays (`encode_targets`);
 the AFM goes through `ops/afm.py::afm_auto`, which launches the hand-written
 CUDA kernel on the card. Head outputs are NCHW, as in the JAX module.
+`extract_junctions` (prediction) is plain PyTorch: in the JAX package it is
+an XLA fusion, not a Pallas kernel.
 """
 
 from __future__ import annotations
@@ -208,3 +210,43 @@ def hisup_losses(outputs: dict, targets: dict) -> dict:
         "loss_afm": _abs(outputs["afm"].float() - targets["afmap"]).mean(),
         "loss_remask": ce_loss_2d(outputs["remask"], targets["mask"]),
     }
+
+
+# --- junction extraction (reference polygon.py:8-40; JAX :253-288) --------
+
+
+def nms_2d(x: torch.Tensor) -> torch.Tensor:
+    """3x3 max-pool NMS on (B, H, W); the pool pads with −inf."""
+    mp = F.max_pool2d(x[:, None], 3, 1, 1)[:, 0]
+    return torch.where(x == mp, x, 0.0)
+
+
+def extract_junctions(jloc_softmax: torch.Tensor, joff: torch.Tensor, topk: int = 300, th: float = 0.008):
+    """jloc_softmax: (B, 3, S, S); joff: (B, 2, S, S) already sigmoid−0.5.
+
+    Returns (points (B, 2*topk, 2) xy, scores (B, 2*topk)) — concave then
+    convex candidates; entries below threshold have score 0 and must be
+    filtered by the host.
+
+    NMS leaves plateaus of equal scores, and the order of the candidates
+    reaches the polygons (snapping keeps the junction order). `lax.top_k`
+    puts the lower index first among equal scores and `torch.topk` keeps no
+    set order, so the candidates come from a stable descending sort.
+    """
+    B, _, H, W = jloc_softmax.shape
+    topk = min(topk, H * W)  # tiny decoder maps (CPU smoke configs) have < topk pixels
+
+    def one_class(prob):
+        flat = nms_2d(prob).reshape(B, -1)
+        scores, idx = torch.sort(flat, dim=1, descending=True, stable=True)
+        scores, idx = scores[:, :topk], idx[:, :topk]
+        y = torch.div(idx, W, rounding_mode="floor").float()
+        x = (idx % W).float()
+        offx = torch.gather(joff[:, 0].reshape(B, -1), 1, idx)
+        offy = torch.gather(joff[:, 1].reshape(B, -1), 1, idx)
+        pts = torch.stack([x + offx + 0.5, y + offy + 0.5], dim=-1)
+        return pts, torch.where(scores > th, scores, 0.0)
+
+    p_cc, s_cc = one_class(jloc_softmax[:, 1])
+    p_cv, s_cv = one_class(jloc_softmax[:, 2])
+    return torch.cat([p_cc, p_cv], dim=1), torch.cat([s_cc, s_cv], dim=1)

@@ -1,0 +1,91 @@
+"""Base predictor: checkpoint restore, single-file input loading, plotting —
+port of pixelspointspolygons_tpu/predict/predictor.py (reference
+predict/predictor.py:22-182).
+
+Checkpoints are the port's own `torch.save` files (`utils/checkpoint.py`),
+checked for the config's modality before their weights are used. The
+prediction plot is drawn with cv2 (matplotlib is not needed): the
+normalised image, each polygon as a closed ring with a dot per vertex, one
+png.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import cv2
+import numpy as np
+import torch
+
+from ..config.engine import Config
+from ..data.dataset import load_image_file
+from ..device import resolve_device, set_tf32
+from ..utils.checkpoint import CheckpointManager
+from ..utils.logger import make_logger
+
+_PLOT_SIZE = 900  # px: the JAX package's 6-inch figure at 150 dpi
+# matplotlib's default colour cycle (tab10), as BGR
+_COLORS = [
+    (180, 119, 31), (14, 127, 255), (44, 160, 44), (40, 39, 214), (189, 103, 148),
+    (75, 86, 140), (194, 119, 227), (127, 127, 127), (34, 189, 188), (207, 190, 23),
+]
+
+
+class Predictor:
+    def __init__(self, cfg: Config, device: str | torch.device | None = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        set_tf32(False)
+        self.logger = make_logger(self.__class__.__name__)
+        self.manager = CheckpointManager(cfg.output_dir)
+
+    def load_checkpoint(self) -> dict:
+        name = self.cfg.get("checkpoint") or "latest"
+        payload = self.manager.restore(name, map_location="cpu")
+        self.manager.check_modality_compat(payload.get("cfg"), self.cfg)
+        self.logger.info(f"restored checkpoint {name!r} (epoch {payload.get('epoch')})")
+        return payload
+
+    # --- single-file inputs (predict_demo path) ---------------------------
+
+    def load_image_from_file(self, path: str) -> np.ndarray:
+        """(1, H, W, 3) float32, normalized with the encoder's stats."""
+        enc = self.cfg.experiment.encoder
+        img = load_image_file(path).astype(np.float32)
+        mean = np.asarray(enc.get("image_mean", [0, 0, 0]), np.float32)
+        std = np.asarray(enc.get("image_std", [1, 1, 1]), np.float32)
+        maxv = float(enc.get("image_max_pixel_value", 255.0))
+        return ((img / maxv - mean) / std)[None]
+
+    def load_lidar_from_file(self, path: str):
+        raise NotImplementedError("LiDAR inputs: ROADMAP 'Port queue' item 'LiDAR and fusion'")
+
+    def plot_prediction(self, image: Optional[np.ndarray], polygons: list, out_file: str) -> None:
+        """Save an overlay png of predicted polygons (predictor.py:140-182):
+        the image min-max normalised (white without one), y pointing down,
+        scaled up to about the 900 px of the JAX package's figure."""
+        if image is not None:
+            img = image[0] if image.ndim == 4 else image
+            img = img - img.min()
+            img = img / max(img.max(), 1e-6)
+            base = np.ascontiguousarray((img * 255).round().astype(np.uint8)[..., ::-1])
+        else:
+            side = int(self.cfg.experiment.encoder.in_size)
+            base = np.full((side, side, 3), 255, np.uint8)
+        scale = max(_PLOT_SIZE // max(base.shape[:2]), 1)
+        canvas = cv2.resize(base, None, fx=scale, fy=scale, interpolation=cv2.INTER_NEAREST)
+        for k, poly in enumerate(polygons):
+            p = np.asarray(poly, np.float64)
+            if len(p) < 2:
+                continue
+            color = _COLORS[k % len(_COLORS)]
+            # 4 fractional bits: vertices keep their sub-pixel position
+            pts = np.round(p * scale * 16).astype(np.int32)
+            cv2.polylines(canvas, [pts], True, color, 2, cv2.LINE_AA, shift=4)
+            for q in pts:
+                cv2.circle(canvas, (int(q[0]), int(q[1])), 4 * 16, color, -1, cv2.LINE_AA, shift=4)
+        os.makedirs(os.path.dirname(os.path.abspath(out_file)), exist_ok=True)
+        if not cv2.imwrite(out_file, canvas):
+            raise OSError(f"could not write {out_file}")
+        self.logger.info(f"wrote {out_file}")

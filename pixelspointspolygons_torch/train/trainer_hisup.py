@@ -1,17 +1,22 @@
-"""HiSup trainer: AdamW + cosine schedule, 5-term weighted loss — port of
+"""HiSup trainer: AdamW + cosine schedule, 5-term weighted loss, val-epoch IoU
+through the full polygonization path — port of
 pixelspointspolygons_tpu/train/trainer_hisup.py (reference
 train/trainer_hisup.py:31-63).
 
 Batches reach the device one step ahead, from pinned memory
-(`data.loader.device_prefetch`). The val-epoch IoU needs the host
-polygonization (cv2 contour tracing, predict/hisup_polygon.py), which comes
-with the predictor slice; until then `predict_and_eval` returns None.
+(`data.loader.device_prefetch`).
 """
 
 from __future__ import annotations
 
+import torch
+
 from ..data.loader import build_loader, device_prefetch
+from ..eval.metrics import compute_iou_ciou
 from ..models.hisup.factory import build_hisup
+from ..parallel import all_gather_objects
+from ..predict.predictor_hisup import HiSupPredictor, batch_annotations
+from ..utils.coco import CocoIndex
 from .hisup_step import make_train_step, make_val_step
 from .state import TrainState, cosine_with_warmup, make_optimizer, make_scheduler, num_params
 from .trainer import Trainer
@@ -40,7 +45,15 @@ class HiSupTrainer(Trainer):
         size = int(m.decoder.in_feature_size)
         self._train_step = make_train_step(weights, size)
         self._val_step = make_val_step(weights, size)
-        self._iou_note_logged = False
+
+        # the val IoU's predictor shares the model; as in the JAX trainer
+        # (trainer_hisup.py:97-116) remask stays float32 and the junctions
+        # and simplification take extract_junctions' and the polygonizer's
+        # defaults, not the config's eval block
+        self._predictor = HiSupPredictor(cfg, device=self.device, model=model)
+        self._predictor.remask_dtype = torch.float32
+        self._predictor.junc_topk, self._predictor.junc_threshold = 300, 0.008
+        self._predictor.dp_tolerance = 1.0
 
     def train_one_epoch(self, epoch: int) -> dict:
         self.train_loader.set_epoch(epoch)
@@ -57,14 +70,13 @@ class HiSupTrainer(Trainer):
         ]
         return self.summarize_deferred(records)
 
-    def predict_and_eval(self, epoch: int) -> None:
-        """Val IoU needs the HiSup predictor (junction extraction and
-        cv2-free polygonization), which is not ported yet: no IoU is
-        computed, and best_val_iou is never saved."""
-        if not self._iou_note_logged:
-            self.logger.warning(
-                "val IoU is not ported yet (ROADMAP 'Port queue' item 'HiSup predictor'); "
-                "best_val_iou checkpoints are skipped"
-            )
-            self._iou_note_logged = True
-        return None
+    def predict_and_eval(self, epoch: int) -> float:
+        """Polygonize the val split and return its IoU (JAX :143-163)."""
+        predictions: list[dict] = []
+        for batch in self.val_loader:
+            predictions.extend(batch_annotations(batch, *self._predictor.predict_batch(batch)))
+        gathered = [p for chunk in all_gather_objects(predictions) for p in chunk]
+        gt = CocoIndex(self.cfg.experiment.dataset.annotations["val"])
+        results = compute_iou_ciou(gt, gt.load_res(gathered))
+        self.logger.info(f"epoch {epoch} val IoU={results['IoU']:.4f} C-IoU={results['C-IoU']:.4f}")
+        return float(results["IoU"])

@@ -1,6 +1,7 @@
 """The port's HiSup trainer end to end on the CPU at a tiny size (HRNet width
 4, one module per stage, 32 px, head width 16, batch 2): epoch loop, deferred
-metrics, checkpoint policy, run log, resume, and the command-line entry."""
+metrics, val IoU, checkpoint policy, run log, resume, and the command-line
+entry."""
 
 import copy
 import json
@@ -60,12 +61,14 @@ def test_trainer_end_to_end_and_resume(tiny_hrnet, tmp_path):
     trainer = HiSupTrainer(cfg, device="cpu")
     history = trainer.train()
     assert history["epoch"] == 0
-    assert set(history) == {"epoch"} | {p + k for p in ("", "val_") for k in (
+    assert set(history) == {"epoch", "val_iou"} | {p + k for p in ("", "val_") for k in (
         "loss", "loss_jloc", "loss_joff", "loss_mask", "loss_afm", "loss_remask")}
     assert all(np.isfinite(v) for v in history.values())
+    assert isinstance(history["val_iou"], float) and 0.0 <= history["val_iou"] <= 1.0
     assert trainer.state.step == 2 and trainer.state.scheduler.last_epoch == 2
     assert trainer.manager.exists("latest") and trainer.manager.exists("best_val_loss")
-    assert not trainer.manager.exists("best_val_iou")  # val IoU waits for the predictor
+    # best_val_iou when the IoU beats the config's initial best (0.0)
+    assert trainer.manager.exists("best_val_iou") == (history["val_iou"] > 0.0)
     assert trainer.best["val_loss"] == pytest.approx(history["val_loss"])
     with open(os.path.join(cfg.output_dir, "runs", f"{cfg.experiment.name}.jsonl")) as f:
         records = [json.loads(line) for line in f]
@@ -82,6 +85,7 @@ def test_trainer_end_to_end_and_resume(tiny_hrnet, tmp_path):
     for k, v in _params(resumed).items():
         assert torch.equal(v, want[k]), k
     assert resumed.best["val_loss"] == pytest.approx(trainer.best["val_loss"])
+    assert resumed.best["val_iou"] == pytest.approx(trainer.best["val_iou"])
 
     # resume and train one more epoch
     cfg2.experiment.model.num_epochs = 2
@@ -90,6 +94,30 @@ def test_trainer_end_to_end_and_resume(tiny_hrnet, tmp_path):
     assert longer.start_epoch == 1 and history2["epoch"] == 1
     assert longer.state.step == 4 and np.isfinite(history2["loss"])
     assert any(not torch.equal(v, want[k]) for k, v in _params(longer).items())
+
+
+@pytest.mark.parametrize("initial_best,written", [(-1.0, True), (1.5, False)])
+def test_val_iou_and_best_val_iou(initial_best, written, tiny_hrnet, tmp_path):
+    """The val pass polygonizes the val split (float32 remask) and its IoU
+    reaches the history and, when it beats the initial best, the
+    best_val_iou checkpoint; the pass does not touch the weights."""
+    cfg = compose(_overrides(tmp_path, [f"training.best_val_iou={initial_best}"]))
+    trainer = HiSupTrainer(cfg, device="cpu")
+    history = trainer.train()
+    assert trainer._predictor.model is trainer.state.model
+    assert trainer._predictor.remask_dtype == torch.float32
+    assert trainer.manager.exists("best_val_iou") == written
+    if written:
+        payload = trainer.manager.restore("best_val_iou")
+        assert payload["best_val_iou"] == pytest.approx(history["val_iou"])
+        assert trainer.best["val_iou"] == pytest.approx(history["val_iou"])
+    else:
+        assert trainer.best["val_iou"] == initial_best
+    before = _params(trainer)
+    again = trainer.predict_and_eval(epoch=0)
+    assert again == history["val_iou"]
+    for k, v in _params(trainer).items():
+        assert torch.equal(v, before[k]), k
 
 
 def test_best_and_latest_policy(tmp_path):
