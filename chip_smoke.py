@@ -27,7 +27,25 @@ fails:
      time (forward + junction extraction, CUDA events), host-stage time and
      wall time, the metric dict; one batch's maps on the card against the
      CPU's and the junction candidates of the same maps on both; the host
-     stage alone on the ground-truth masks and corners of the 64 tiles.
+     stage alone on the ground-truth masks and corners of the 64 tiles;
+  6. the Pix2Poly predict path: a seeded random Pix2Poly-image at full width
+     (ViT-S/8 at 224 px, 6-layer decoder, 192 vertex slots) written as
+     `latest` in the trainer's format, the 64-tile test split predicted and
+     evaluated through `cli/predict.py`'s functions with the counters set to
+     0 just before and read just after (no kernel of the port runs: 0 AFM
+     launches); tiles per second, each batch's device time cut into encoder,
+     decode loop and ScoreNets (CUDA events), the decode loop's host time
+     and steps, host-stage and wall time, the metric dict; the fixed-length
+     decode of `bench.py` (385 steps, Sinkhorn) on a batch of 16, timed and
+     cut at its stages, and one decode step profiled (aten calls, kernels,
+     the card's busy share); on 2 tiles the card against the CPU (encoder
+     tokens, teacher-forced logits and their argmax, raw scores) and the
+     KV-cached decode against a full re-forward, for the model and for a
+     copy whose embeddings are redrawn at unit scale and whose
+     cross-attention is sharpened, so that its tokens vary with position
+     and image; with that copy, on the batch of 16, the early exit against
+     the fixed length, with an EOS bias that makes rows stop at different
+     steps.
 The line before the last is a JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -73,6 +91,18 @@ MAP_TOL = 1e-3
 # polygonizing the ground truth's own masks and corners gives it back up to
 # merged touching buildings (tiles of row houses), so its IoU stays below 1
 ORACLE_MIN_IOU = 0.95
+# Pix2Poly, card against CPU: float32 with TF32 off on both, summed in other
+# orders through 12 encoder blocks and 6 decoder layers: 1e-3 relative to
+# the largest value; two tokens whose logits are closer than P2P_NEAR_TIE
+# may swap between the devices
+P2P_REL_TOL = 1e-3
+P2P_NEAR_TIE = 1e-3
+P2P_CPU_TILES = 2
+# the early-exit check raises EOS's output bias so that every row of the
+# batch stops by this step
+P2P_EXIT_BY = 150
+P2P_SEED = 0
+P2P_SHARPEN = 4.0
 
 
 def fail(msg: str) -> None:
@@ -126,9 +156,9 @@ def graph_ms(fn, launches: int, rounds: int) -> float:
     return statistics.median(per)
 
 
-def smoke_overrides(num_train: int) -> list[str]:
+def smoke_overrides(num_train: int, experiment: str = "hisup_image") -> list[str]:
     return [
-        "experiment=hisup_image",
+        f"experiment={experiment}",
         "dataset=synthetic",
         "run_type=debug",
         f"experiment.dataset.num_train={num_train}",
@@ -577,6 +607,313 @@ def phase_oracle(cfg, predictor) -> dict:
     return {"oracle_host_ms": ms, "oracle_iou": iou["IoU"]}
 
 
+def sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest absolute difference over the largest |want|."""
+    got, want = got.detach().cpu().float(), want.detach().cpu().float()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        fail(f"shape {tuple(got.shape)} against {tuple(want.shape)}, or non-finite values")
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-6))
+
+
+def phase_pix2poly(overrides: list[str], device: str = "cuda") -> dict:
+    """Pix2Poly-image prediction at full width from a seeded random model,
+    through the functions `cli/predict.py::main` calls, then its checks."""
+    from pixelspointspolygons_torch.cli.evaluate import evaluate
+    from pixelspointspolygons_torch.cli.predict import get_predictor
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.data.loader import build_loader, to_device
+    from pixelspointspolygons_torch.models.pix2poly import Tokenizer, build_pix2poly
+    from pixelspointspolygons_torch.ops.afm import afm_cuda
+    from pixelspointspolygons_torch.train.state import TrainState, linear_warmup_decay, make_optimizer, make_scheduler
+    from pixelspointspolygons_torch.utils.checkpoint import CheckpointManager
+    from pixelspointspolygons_torch.utils.coco import CocoIndex
+
+    dev = torch.device(device)
+    cfg = compose(overrides + ["evaluation=test", "checkpoint=latest"])
+    tokenizer = Tokenizer(cfg)
+    model = build_pix2poly(cfg, tokenizer, device=dev, generator=torch.Generator(device=dev).manual_seed(P2P_SEED))
+    lr = float(cfg.experiment.model.learning_rate)
+    opt = make_optimizer("adamw", model.parameters(), lr)
+    CheckpointManager(cfg.output_dir).save(
+        "latest", TrainState(model, opt, make_scheduler(opt, linear_warmup_decay(lr, 1000), lr)), 0, cfg
+    )
+    n_params = sum(p.numel() for p in model.parameters())
+    del model, opt
+
+    afm_cuda.launches = 0
+    t0 = time.perf_counter()
+    predictor = get_predictor(cfg, dev)
+    pred_file = predictor.predict_dataset(cfg.evaluation.split)
+    sync(dev)
+    t1 = time.perf_counter()
+    results = evaluate(cfg, pred_file)
+    t2 = time.perf_counter()
+    launches = afm_cuda.launches
+    if predictor.device.type != dev.type:
+        fail(f"the Pix2Poly predictor ran on {predictor.device}")
+    if launches:
+        fail(f"the Pix2Poly predict path launched the afm kernel {launches} times, expected 0")
+    try:
+        with open(pred_file) as f:
+            anns = json.load(f)
+        with open(pred_file.replace(".json", "_time.json")) as f:
+            timing = json.load(f)
+    except (OSError, ValueError) as e:
+        fail(f"Pix2Poly prediction file {pred_file}: {e}")
+    test_ids = set(CocoIndex(cfg.experiment.dataset.annotations["test"]).imgs)
+    if timing["num_images"] != len(test_ids):
+        fail(f"Pix2Poly predicted {timing['num_images']} of {len(test_ids)} test tiles")
+    if not {a["image_id"] for a in anns} <= test_ids:
+        fail("the Pix2Poly prediction file holds image ids outside the test split")
+    bad = [k for k in ("IoU", "C-IoU", "AP") if not np.isfinite(results.get(k, np.nan))]
+    if bad:
+        fail(f"Pix2Poly: non-finite metrics {bad}: {results}")
+
+    times = predictor.batch_times
+    tiles_s = 1.0 / timing["prediction_time"]
+    print(f"pix2poly predict path: {timing['num_images']} tiles in {len(times)} batches, {tiles_s:.2f} tiles/s "
+          f"(the predictor's own s/tile over its loop), {n_params} parameters; set-up, loop and file "
+          f"{t1 - t0:.2f} s, evaluation {t2 - t1:.2f} s; {len(anns)} polygons; afm launches {launches}", flush=True)
+    for i, t in enumerate(times):
+        if dev.type == "cuda":
+            print(f"  batch {i}: device {t['device_ms']:.2f} ms = encoder {t['encoder_ms']:.2f} + decode loop "
+                  f"{t['decode_ms']:.2f} ({t['steps']} steps, {t['decode_ms'] / t['steps']:.3f} ms/step) + ScoreNets "
+                  f"{t['scorenet_ms']:.2f} (CUDA events); decode loop host {t['decode_host_ms']:.2f} ms; "
+                  f"host stage {t['host_ms']:.2f} ms; wall {t['wall_ms']:.2f} ms", flush=True)
+    print("pix2poly metrics: " + json.dumps(results), flush=True)
+
+    batch = next(iter(build_loader(cfg, "test", tokenizer=tokenizer, eval_mode=True)))
+    inputs = to_device(batch, dev, ("images",))
+    fixed = p2p_fixed_length(predictor.model, inputs, tokenizer, dev)
+    few = {"images": inputs["images"][:P2P_CPU_TILES]}
+    p2p_card_against_cpu(predictor.model, few, tokenizer, "the checkpoint's model", P2P_REL_TOL)
+    varied = p2p_varied(predictor.model)
+    p2p_card_against_cpu(varied, few, tokenizer, "its varied copy", None)
+    exits = p2p_early_exit(varied, inputs, tokenizer)
+    return {"tiles_s": tiles_s, "batch_times": times, "results": results, "fixed": fixed, "exit_stops": exits}
+
+
+def p2p_varied(model):
+    """A copy of `model` whose greedy decode varies with the position and
+    the image. At flax's init (embeddings of std 1/16 and 0.02) every
+    decoder position sees nearly the same input, and cross-attention
+    averages over the 784 image tokens, so the decode repeats one or two
+    tokens and every tile gets the same sequence. The copy redraws the token
+    and position embeddings at unit scale from a seed and sharpens the
+    cross-attention (its q and k weights times P2P_SHARPEN), so the token
+    checks compare many different argmaxes and rows stop at different
+    steps."""
+    import copy
+
+    m = copy.deepcopy(model).eval()
+    dev = m.bin_score.device
+    g = torch.Generator(device=dev).manual_seed(P2P_SEED + 1)
+    with torch.no_grad():
+        for p in (m.decoder.embedding.weight, m.decoder.decoder_pos_embed, m.decoder.encoder_pos_embed):
+            p.copy_(torch.randn(p.shape, generator=g, device=dev))
+        for layer in m.decoder.layers():
+            layer.cross_attn.q.weight.mul_(P2P_SHARPEN)
+            layer.cross_attn.k.weight.mul_(P2P_SHARPEN)
+    return m
+
+
+def p2p_fixed_length(model, inputs: dict, tokenizer, dev: torch.device, rounds: int = 3) -> dict:
+    """The fixed-length decode of `bench.py` (eos_code=None, Sinkhorn
+    permutation) on one batch: tiles/s as the median of `rounds` calls of
+    `greedy_generate`, synchronized at both ends; then one run cut at its
+    stages by CUDA events, whose tokens and permutation must equal the
+    call's."""
+    from pixelspointspolygons_torch.models.pix2poly import greedy_decode, greedy_generate
+    from pixelspointspolygons_torch.ops.sinkhorn import log_optimal_transport
+
+    steps = model.max_len - 1
+    n = inputs["images"].shape[0]
+    walls = []
+    with torch.inference_mode():
+        for _ in range(rounds):
+            sync(dev)
+            t = time.perf_counter()
+            tokens, perm = greedy_generate(model, inputs, tokenizer.BOS_code, steps)
+            sync(dev)
+            walls.append(time.perf_counter() - t)
+        if dev.type != "cuda":
+            return {"tiles_s": n / statistics.median(walls)}
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        enc = model.encode(inputs)
+        ev[1].record()
+        t = time.perf_counter()
+        tok2, feats, ran = greedy_decode(model, enc, tokenizer.BOS_code, steps)
+        host_ms = (time.perf_counter() - t) * 1e3
+        ev[2].record()
+        scores = model.raw_scores_from_feats(feats)
+        ev[3].record()
+        V = scores.shape[1]
+        perm2 = torch.softmax(log_optimal_transport(scores, model.bin_score, model.sinkhorn_iterations)[:, :V, :V], -1)
+        ev[4].record()
+        torch.cuda.synchronize()
+    if not torch.equal(tok2, tokens) or not float((perm2 - perm).abs().max()) <= 1e-6:
+        fail("the staged fixed-length decode differs from greedy_generate's")
+    names = ("encoder", "decode", "scorenets", "sinkhorn")
+    ms = {k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(names)}
+    out = {"tiles_s": n / statistics.median(walls), "walls_ms": [w * 1e3 for w in walls], "steps": ran,
+           "decode_host_ms": host_ms, "ms_per_step": ms["decode"] / ran, **{f"{k}_ms": v for k, v in ms.items()}}
+    print(f"pix2poly fixed-length decode (bench.py's mode) on a batch of {n}: {out['tiles_s']:.2f} tiles/s "
+          f"(median of {rounds}: {[round(w * 1e3, 1) for w in walls]} ms); one run cut by CUDA events: encoder "
+          f"{ms['encoder']:.2f} ms, decode loop {ms['decode']:.2f} ms for {ran} steps ({out['ms_per_step']:.3f} ms/step; "
+          f"host {host_ms:.2f} ms), ScoreNets {ms['scorenets']:.2f} ms, Sinkhorn ({model.sinkhorn_iterations} "
+          f"iterations) {ms['sinkhorn']:.2f} ms", flush=True)
+    out.update(p2p_decode_profile(model, enc, tokenizer, out["ms_per_step"]))
+    return out
+
+
+def p2p_decode_profile(model, enc: torch.Tensor, tokenizer, ms_per_step: float) -> dict:
+    """What one step of the decode loop costs, from torch.profiler traces of
+    decodes of 8 and 24 steps (their difference over 16 steps, so the
+    set-up drops out): the host's top-level aten calls, the kernels launched
+    and their summed device time; the device's busy share of a step is that
+    time over `ms_per_step` (the unprofiled step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pixelspointspolygons_torch.models.pix2poly import greedy_decode
+
+    counts = []
+    for steps in (8, 24):
+        with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            greedy_decode(model, enc, tokenizer.BOS_code, steps)
+            torch.cuda.synchronize()
+        events = prof.events()
+        aten = [e for e in events if e.name.startswith("aten::")
+                and (e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::"))]
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+        counts.append((len(aten), len(kernels), sum(e.time_range.elapsed_us() for e in kernels)))
+    per = [(b - a) / 16 for a, b in zip(*counts)]
+    out = {"aten_per_step": per[0], "kernels_per_step": per[1], "kernel_us_per_step": per[2]}
+    if per[1] <= 0:
+        print("pix2poly decode step profile: the profiler recorded no device kernels (busy share not measured)",
+              flush=True)
+        return out
+    out["busy_share"] = per[2] / (ms_per_step * 1e3)
+    print(f"pix2poly decode step profile (torch.profiler, steps 8..24): {per[0]:.1f} top-level aten calls and "
+          f"{per[1]:.1f} kernels per step, {per[2]:.1f} us of kernel time per step: the card is busy "
+          f"{100 * out['busy_share']:.1f} % of a {ms_per_step:.3f} ms step", flush=True)
+    return out
+
+
+def p2p_card_against_cpu(model, inputs: dict, tokenizer, what: str, logits_tol: float | None) -> None:
+    """On a few tiles: the model on the card against a copy on the CPU
+    (encoder tokens, teacher-forced logits, raw scores of the same feats),
+    and the KV-cached decode against a full re-forward. Teacher-forcing
+    the decode's own tokens makes each position's argmax the one that the
+    chain of full re-forwards would take, as long as the chain has agreed so
+    far (the decoder is causal), so one forward checks the whole chain.
+    Positions after the first generated PAD are left out of the token
+    checks: there the full forward masks the PAD input and the cache does
+    not. `logits_tol=None` prints the logits' error without holding it to a
+    tolerance: in `p2p_varied`'s sharpened copy a few positions split their
+    attention between nearly tied image tokens, where the rounding of the
+    two devices moves the logits by more than in the model itself; the
+    argmax checks still hold there, outside near-ties."""
+    import copy
+
+    from pixelspointspolygons_torch.models.pix2poly import greedy_decode
+
+    steps = model.max_len - 1
+    cpu_model = copy.deepcopy(model).cpu().eval()
+    t = time.perf_counter()
+    with torch.inference_mode():
+        enc = model.encode(inputs)
+        enc_cpu = cpu_model.encode({"images": inputs["images"].cpu()})
+        tokens, feats, _ = greedy_decode(model, enc, tokenizer.BOS_code, steps)
+        bos = torch.full_like(tokens[:, :1], tokenizer.BOS_code)
+        tgt = torch.cat([bos, tokens[:, :-1]], dim=1)
+        logits, _ = model.decoder(enc, tgt)
+        logits_cpu, _ = cpu_model.decoder(enc_cpu, tgt.cpu())
+        scores = model.raw_scores_from_feats(feats)
+        scores_cpu = cpu_model.raw_scores_from_feats(feats.cpu())
+    cpu_s = time.perf_counter() - t
+    errs = {"encoder": rel_err(enc, enc_cpu), "logits": rel_err(logits, logits_cpu), "raw scores": rel_err(scores, scores_cpu)}
+    tokens = tokens.cpu()
+    is_pad = tokens == tokenizer.PAD_code
+    first_pad = torch.where(is_pad.any(1), is_pad.float().argmax(1), torch.full_like(tokens[:, 0], steps))
+    valid = torch.arange(steps)[None] <= first_pad[:, None]
+
+    def against_tokens(lg):
+        top2 = lg.float().cpu().topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1] > P2P_NEAR_TIE) & valid
+        wrong = (lg.cpu().argmax(-1) != tokens) & clear
+        return int(wrong.sum()), int((valid & ~clear).sum())
+
+    cpu_wrong, cpu_ties = against_tokens(logits_cpu)
+    kv_wrong, kv_ties = against_tokens(logits)
+    tols = {"encoder": P2P_REL_TOL, "logits": logits_tol, "raw scores": P2P_REL_TOL}
+    print(f"pix2poly card vs CPU, {what}, on {tokens.shape[0]} tiles (CPU {cpu_s:.1f} s): max rel err {errs} "
+          f"(tol {tols}); CPU argmax against the card's tokens: {cpu_wrong} differ at {int(valid.sum())} positions "
+          f"compared, {cpu_ties} near-ties (top-2 gap <= {P2P_NEAR_TIE}); {len(torch.unique(tokens))} distinct tokens",
+          flush=True)
+    print(f"pix2poly KV-cached decode vs full re-forward on the card, {what}: {kv_wrong} tokens differ, "
+          f"{kv_ties} near-ties", flush=True)
+    if not all(tol is None or errs[k] <= tol for k, tol in tols.items()):
+        fail(f"Pix2Poly on the card differs from the CPU ({what}): {errs}")
+    if cpu_wrong:
+        fail(f"the CPU's teacher-forced argmax differs from the card's tokens at {cpu_wrong} positions")
+    if kv_wrong:
+        fail(f"the KV-cached decode differs from the full re-forward at {kv_wrong} positions")
+
+
+def p2p_early_exit(model, inputs: dict, tokenizer) -> list[int]:
+    """The early exit against the fixed length on the card, with a copy of
+    the model whose EOS output bias is raised just enough that every row
+    emits EOS by step P2P_EXIT_BY (rows stop where their gap between the top
+    logit and EOS's first falls below the raise, so at different steps):
+    tokens equal up to each row's EOS and PAD after it, the raw scores over
+    the vertices decoded before EOS within 1e-4, and fewer steps run."""
+    import copy
+
+    from pixelspointspolygons_torch.models.pix2poly import greedy_decode
+
+    bos, eos, pad = tokenizer.BOS_code, tokenizer.EOS_code, tokenizer.PAD_code
+    steps = model.max_len - 1
+    m = copy.deepcopy(model).eval()
+    with torch.inference_mode():
+        enc = m.encode(inputs)
+        _, feats, _ = greedy_decode(m, enc, bos, steps)
+        logits = m.decoder.output(feats)
+        gap = logits.max(dim=-1).values - logits[..., eos]
+        m.decoder.output.bias[eos] += float(gap[:, :P2P_EXIT_BY].min(dim=1).values.max()) + 1e-3
+        ref_tokens, ref_feats, _ = greedy_decode(m, enc, bos, steps)
+        t = time.perf_counter()
+        tokens, feats, ran = greedy_decode(m, enc, bos, steps, eos_code=eos)
+        sync(enc.device)
+        exit_ms = (time.perf_counter() - t) * 1e3
+        ref_scores = m.raw_scores_from_feats(ref_feats).cpu()
+        scores = m.raw_scores_from_feats(feats).cpu()
+    ref_tokens, tokens = ref_tokens.cpu(), tokens.cpu()
+    has = (ref_tokens == eos).any(1)
+    stops = torch.where(has, (ref_tokens == eos).float().argmax(1) + 1, torch.full_like(has, steps, dtype=torch.long))
+    worst = 0.0
+    for b, stop in enumerate(stops.tolist()):
+        if not torch.equal(tokens[b, :stop], ref_tokens[b, :stop]) or not (tokens[b, stop:] == pad).all():
+            fail(f"early exit: row {b} differs from the fixed-length decode before its EOS at step {stop}")
+        nv = (stop - 1) // 2
+        if nv:
+            worst = max(worst, float((scores[b, :nv, :nv] - ref_scores[b, :nv, :nv]).abs().max()))
+    print(f"pix2poly early exit vs fixed length (EOS bias raised): rows stop at steps {stops.tolist()}, "
+          f"the loop ran {ran} of {steps} steps in {exit_ms:.1f} ms (host clock); raw scores over the decoded "
+          f"vertices max abs err {worst:.3g} (tol 1e-4)", flush=True)
+    if not worst <= 1e-4:
+        fail(f"early exit: raw scores differ from the fixed length by {worst}")
+    if len(set(stops.tolist())) < 2 or not ran < steps:
+        fail(f"early exit: the rows did not stop at different steps before the end ({stops.tolist()}, ran {ran})")
+    return stops.tolist()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
@@ -600,6 +937,14 @@ def main() -> None:
           f"host stage {statistics.median(pred['host_ms']):.2f} ms per batch of {B} (medians), "
           f"host stage on the ground truth {statistics.median(pred['oracle_host_ms']):.2f} ms per batch, "
           f"IoU {pred['results']['IoU']:.4f}, card {smi}", flush=True)
+    p2p = phase_pix2poly(smoke_overrides(num_train=TRAIN_STEPS * B, experiment="p2p_image"))
+    bt = p2p["batch_times"]
+    med = {k: statistics.median(t[k] for t in bt) for k in ("encoder_ms", "decode_ms", "scorenet_ms", "host_ms")}
+    print(f"pix2poly predict path: {p2p['tiles_s']:.2f} tiles/s; per batch of {B} (medians): encoder "
+          f"{med['encoder_ms']:.2f} ms, decode loop {med['decode_ms']:.2f} ms, ScoreNets {med['scorenet_ms']:.2f} ms, "
+          f"host stage {med['host_ms']:.2f} ms; fixed-length decode {p2p['fixed']['tiles_s']:.2f} tiles/s, "
+          f"{p2p['fixed']['ms_per_step']:.3f} ms per decode step; IoU {p2p['results']['IoU']:.4f}, card {smi}",
+          flush=True)
     print(json.dumps({"kernels": [afm_row]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

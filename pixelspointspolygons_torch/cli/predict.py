@@ -4,8 +4,9 @@ scripts/predict.py:9-46).
 Usage: python -m pixelspointspolygons_torch.cli.predict experiment=hisup_image \
     dataset=synthetic evaluation=test checkpoint=latest [key.path=value ...] [device=cpu]
 
-Runs on the card; `device=cpu` runs on the CPU instead. HiSup is ported;
-the other models raise NotImplementedError naming their ROADMAP item.
+Runs on the card; `device=cpu` runs on the CPU instead. HiSup and
+Pix2Poly (`experiment=p2p_image`) are ported; FFL raises
+NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -25,7 +26,9 @@ def get_predictor(cfg: Config, device: str | torch.device | None = None) -> Pred
 
         return HiSupPredictor(cfg, device=device)
     if name == "pix2poly":
-        raise NotImplementedError("Pix2Poly prediction: ROADMAP 'Port queue' item 'Pix2Poly'")
+        from ..predict.predictor_pix2poly import Pix2PolyPredictor
+
+        return Pix2PolyPredictor(cfg, device=device)
     if name == "ffl":
         raise NotImplementedError("FFL prediction: ROADMAP 'Port queue' item 'FFL'")
     raise NotImplementedError(f"model {name!r}")

@@ -21,7 +21,7 @@ def main(argv: list[str] | None = None) -> dict:
 
         trainer = HiSupTrainer(cfg, device=device)
     elif name == "pix2poly":
-        raise NotImplementedError("Pix2Poly training: ROADMAP 'Port queue' item 'Pix2Poly'")
+        raise NotImplementedError("Pix2Poly training: ROADMAP 'Port queue' item 'Pix2Poly training'")
     elif name == "ffl":
         raise NotImplementedError("FFL training: ROADMAP 'Port queue' item 'FFL'")
     else:

@@ -1,9 +1,10 @@
-from .dataset import P3Dataset, load_image_file
+from .dataset import P3Dataset, build_perm_targets, load_image_file
 from .loader import Loader, build_loader, collate, device_prefetch, to_device
 from .synthetic import ensure_synthetic_dataset, generate_tile, write_synthetic_dataset
 
 __all__ = [
     "P3Dataset",
+    "build_perm_targets",
     "Loader",
     "build_loader",
     "collate",

@@ -1,11 +1,14 @@
-"""P3 dataset, HiSup items only — the port's copy of the HiSup path of
-pixelspointspolygons_tpu/data/dataset.py (:266-334).
+"""P3 dataset, Pix2Poly and HiSup image items — the port's copy of
+pixelspointspolygons_tpu/data/dataset.py (:40-63, :120-334).
 
-Every item has static shapes (padded junction and edge arrays) so a batch is
-a dict of fixed-shape numpy arrays. The HiSup item holds junctions with
-concave/convex tags (convex-hull test), the polygon edges and the instance
-mask; the jloc/joff/afm targets are built on the device in the train step
-(models/hisup/model.py::encode_targets).
+Every item has static shapes (padded token, permutation, junction and edge
+arrays) so a batch is a dict of fixed-shape numpy arrays.
+- Pix2Poly: the corners as a padded token sequence and the ground-truth
+  permutation (cyclic successor per polygon, identity padding, the
+  open-contour fix), `build_perm_targets`.
+- HiSup: junctions with concave/convex tags (convex-hull test), the polygon
+  edges and the instance mask; the jloc/joff/afm targets are built on the
+  device in the train step (models/hisup/model.py::encode_targets).
 """
 
 from __future__ import annotations
@@ -23,6 +26,31 @@ MAX_JUNCTIONS = 256
 MAX_EDGES = 256
 
 
+def build_perm_targets(polys: list[np.ndarray], nmax: int) -> tuple[np.ndarray, np.ndarray]:
+    """Pix2Poly GT: concatenated corners (≤ nmax, 2) + (nmax, nmax) cyclic
+    successor permutation with identity-diag padding and the open-contour fix
+    (reference datasets/p3_coco.py:340-436, 409-414)."""
+    corners: list = []
+    perm = np.zeros((nmax, nmax), np.float32)
+    v_count = 0
+    for p in polys:
+        corners.extend(p.tolist())
+        n = len(p)
+        for i in range(n):
+            j = (i + 1) % n
+            if v_count + i > nmax - 1 or v_count + j > nmax - 1:
+                break
+            perm[v_count + i, v_count + j] = 1.0
+        v_count += n
+    for i in range(min(v_count, nmax), nmax):
+        perm[i, i] = 1.0
+    # open-contour fix (p3_coco.py:409-414)
+    for i in range(nmax):
+        if perm[i].sum() == 0 or perm[:, i].sum() == 0:
+            perm[i, i] = 1.0
+    return np.asarray(corners, np.float64).reshape(-1, 2)[:nmax], perm
+
+
 def load_image_file(path: str) -> np.ndarray:
     """(H, W, 3) uint8 RGB."""
     img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
@@ -36,11 +64,14 @@ def load_image_file(path: str) -> np.ndarray:
 
 
 class P3Dataset:
-    def __init__(self, cfg, split: str, eval_mode: bool = False):
+    def __init__(self, cfg, split: str, tokenizer=None, eval_mode: bool = False):
+        """eval_mode forces inference transforms (Normalize only) whatever
+        the split; Pix2Poly items need the `tokenizer`."""
         self.cfg = cfg
         self.split = split
         self.eval_mode = eval_mode
         self.logger = make_logger(f"{split}Dataset")
+        self.tokenizer = tokenizer
 
         ds = cfg.experiment.dataset
         self.dataset_dir = ds.in_path
@@ -91,10 +122,10 @@ class P3Dataset:
         return polys
 
     def get_item(self, idx: int, rng: np.random.RandomState) -> dict:
+        if self.model_type == "pix2poly":
+            return self._item_pix2poly(idx, rng)
         if self.model_type == "hisup":
             return self._item_hisup(idx, rng)
-        if self.model_type == "pix2poly":
-            raise NotImplementedError("Pix2Poly items: ROADMAP 'Port queue' item 'Pix2Poly'")
         if self.model_type == "ffl":
             raise NotImplementedError("FFL items: ROADMAP 'Port queue' item 'FFL'")
         raise NotImplementedError(self.model_type)
@@ -106,6 +137,25 @@ class P3Dataset:
             item["images"] = augment.apply_image(
                 img, params, self.image_mean, self.image_std, self.max_pixel_value, rng
             ).astype(np.float32)
+        return item
+
+    def _item_pix2poly(self, idx: int, rng) -> dict:
+        if self.tokenizer is None:
+            raise ValueError("Pix2Poly items need a tokenizer")
+        info = self.coco.imgs[self.tile_ids[idx]]
+        params = augment.sample_params(rng, self.augmentations)
+        item = self._common(info, rng, params)
+
+        polys = self._polygons(info)
+        nmax = self.tokenizer.max_num_vertices
+        corners, perm = build_perm_targets(polys, nmax)
+        if len(corners) and params["d4"] != "e":
+            corners = augment.apply_d4_keypoints(corners, params["d4"], info["height"], info["width"])
+        # the tokenizer takes (y, x)
+        yx = corners[:, ::-1].copy() if len(corners) else corners
+        tokens, _ = self.tokenizer(yx, shuffle=self.cfg.experiment.model.tokenizer.shuffle_tokens, rng=rng)
+        item["y"] = self.tokenizer.pad(tokens)
+        item["y_perm"] = perm
         return item
 
     def _item_hisup(self, idx: int, rng) -> dict:

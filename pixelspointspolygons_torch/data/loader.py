@@ -130,12 +130,16 @@ class Loader:
                 yield batch
 
 
-def build_loader(cfg, split: str, eval_mode: bool = False, batch_size: int | None = None) -> Loader:
-    """get_{train,val,test}_loader equivalent (build_datasets.py:26-49)."""
+def build_loader(
+    cfg, split: str, tokenizer=None, eval_mode: bool = False, batch_size: int | None = None
+) -> Loader:
+    """get_{train,val,test}_loader equivalent (build_datasets.py:26-49);
+    eval_mode builds the test-transform loader for any split (prediction).
+    `batch_size` overrides the model batch size (e.g. larger eval batches)."""
     from .synthetic import ensure_synthetic_dataset
 
     ensure_synthetic_dataset(cfg)
-    ds = P3Dataset(cfg, split, eval_mode=eval_mode)
+    ds = P3Dataset(cfg, split, tokenizer=tokenizer, eval_mode=eval_mode)
     train = split == "train" and not eval_mode
     return Loader(
         ds,

@@ -24,3 +24,10 @@ def set_tf32(enabled: bool) -> None:
     off (float32 as the JAX package computes it at host.compute_dtype=float32)."""
     torch.backends.cuda.matmul.allow_tf32 = enabled
     torch.backends.cudnn.allow_tf32 = enabled
+
+
+def check_compute_dtype(cfg) -> None:
+    """The port computes in float32; `host.compute_dtype=bfloat16` waits
+    for its own slice."""
+    if str(cfg.host.get("compute_dtype", "float32")).lower() in ("bf16", "bfloat16"):
+        raise NotImplementedError("host.compute_dtype=bfloat16: ROADMAP 'Port queue' item 'bfloat16'")

@@ -1,0 +1,92 @@
+"""Vision Transformer token encoder (ViT-S family) — port of
+pixelspointspolygons_tpu/models/vit.py (:32-129).
+
+- `ViTBackbone`: patch embedding, CLS token, learned position embeddings,
+  pre-norm blocks, final LayerNorm → (B, 1 + N, dim) tokens.
+- `ViTEncoder`: backbone → drop CLS → AdaptiveAvgPool1d channel bottleneck
+  (384 → out_dim) → (B, N, out_dim).
+
+Images arrive NHWC, as the loader gives them. The flax patch embedding is an
+NHWC conv whose (B, gh, gw, dim) output is flattened row-major over
+(gh, gw); the NCHW `Conv2d` here flattens (B, dim, gh, gw) the same way, so
+token i is patch (i // gw, i % gw) in both. Attention is the explicit
+`MultiHeadAttention` of `layers.py`, the same module the decoder uses.
+Module names follow the flax tree (`utils/bridge.py`): LayerNorm_0/1 are
+ln0/ln1, MultiHeadAttention_0 is attn, MlpBlock_0 is mlp.
+(`vit_cnn` is ROADMAP 'Port queue' item 'Remaining HiSup encoders'.)
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .layers import LayerNorm, MlpBlock, MultiHeadAttention, adaptive_avg_pool1d
+
+
+class ViTBlock(nn.Module):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, layer_scale: bool = False, device=None):
+        super().__init__()
+        self.ln0 = LayerNorm(dim, device=device)
+        self.attn = MultiHeadAttention(dim, num_heads, device=device)
+        self.ln1 = LayerNorm(dim, device=device)
+        self.mlp = MlpBlock(dim, int(dim * mlp_ratio), dim, device=device)
+        self.layer_scale = layer_scale
+        if layer_scale:  # DINOv2 LayerScale gammas
+            self.ls1 = nn.Parameter(torch.full((dim,), 1e-5, device=device))
+            self.ls2 = nn.Parameter(torch.full((dim,), 1e-5, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.ln0(x)
+        h = self.attn(h, h)
+        if self.layer_scale:
+            h = h * self.ls1
+        x = x + h
+        h = self.mlp(self.ln1(x))
+        if self.layer_scale:
+            h = h * self.ls2
+        return x + h
+
+
+class ViTBackbone(nn.Module):
+    """ViT trunk producing (B, 1 + N, dim) tokens (CLS first)."""
+
+    def __init__(self, img_size: int = 224, patch_size: int = 8, dim: int = 384, depth: int = 12,
+                 num_heads: int = 6, layer_scale: bool = False, device=None):
+        super().__init__()
+        self.depth = depth
+        n = (img_size // patch_size) ** 2
+        self.patch_embed = nn.Conv2d(3, dim, patch_size, stride=patch_size, device=device)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, dim, device=device))
+        self.pos_embed = nn.Parameter(torch.zeros(1, n + 1, dim, device=device))
+        for i in range(depth):
+            self.add_module(f"block{i}", ViTBlock(dim, num_heads, layer_scale=layer_scale, device=device))
+        self.norm = LayerNorm(dim, device=device)
+
+    def reset_flax_parameters(self, generator=None) -> None:
+        with torch.no_grad():
+            nn.init.normal_(self.cls_token, 0.0, 0.02, generator=generator)
+            nn.init.normal_(self.pos_embed, 0.0, 0.02, generator=generator)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        """images: (B, H, W, 3) NHWC."""
+        x = self.patch_embed(images.permute(0, 3, 1, 2))
+        x = x.flatten(2).transpose(1, 2)  # (B, gh·gw, dim), row-major patches
+        x = torch.cat([self.cls_token.expand(x.shape[0], -1, -1), x], dim=1)
+        x = x + self.pos_embed
+        for i in range(self.depth):
+            x = getattr(self, f"block{i}")(x)
+        return self.norm(x)
+
+
+class ViTEncoder(nn.Module):
+    """Token encoder: drop CLS, optional channel bottleneck. Output (B, N, D)."""
+
+    def __init__(self, img_size: int = 224, patch_size: int = 8, dim: int = 384, depth: int = 12,
+                 num_heads: int = 6, out_dim: int | None = 256, layer_scale: bool = False, device=None):
+        super().__init__()
+        self.vit = ViTBackbone(img_size, patch_size, dim, depth, num_heads, layer_scale=layer_scale, device=device)
+        self.out_dim = dim if out_dim is None else out_dim
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        return adaptive_avg_pool1d(self.vit(images)[:, 1:], self.out_dim)

@@ -1,4 +1,5 @@
 from .predictor import Predictor
 from .predictor_hisup import HiSupPredictor
+from .predictor_pix2poly import Pix2PolyPredictor
 
-__all__ = ["Predictor", "HiSupPredictor"]
+__all__ = ["Predictor", "HiSupPredictor", "Pix2PolyPredictor"]

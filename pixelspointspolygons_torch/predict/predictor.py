@@ -11,8 +11,10 @@ png.
 
 from __future__ import annotations
 
+import collections
+import json
 import os
-from typing import Optional
+from typing import Iterable, Iterator, Optional
 
 import cv2
 import numpy as np
@@ -20,8 +22,10 @@ import torch
 
 from ..config.engine import Config
 from ..data.dataset import load_image_file
-from ..device import resolve_device, set_tf32
+from ..data.loader import device_prefetch
+from ..device import check_compute_dtype, resolve_device, set_tf32
 from ..utils.checkpoint import CheckpointManager
+from ..utils.coco import save_annotations
 from ..utils.logger import make_logger
 
 _PLOT_SIZE = 900  # px: the JAX package's 6-inch figure at 150 dpi
@@ -34,6 +38,7 @@ _COLORS = [
 
 class Predictor:
     def __init__(self, cfg: Config, device: str | torch.device | None = None):
+        check_compute_dtype(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         set_tf32(False)
@@ -46,6 +51,41 @@ class Predictor:
         self.manager.check_modality_compat(payload.get("cfg"), self.cfg)
         self.logger.info(f"restored checkpoint {name!r} (epoch {payload.get('epoch')})")
         return payload
+
+    # --- the loop over a split (predict_dataset) --------------------------
+
+    def _in_flight(self, loader: Iterable[dict], keys: Iterable[str]) -> Iterator[tuple]:
+        """Yield (handles, host batch) for each batch in loader order, each
+        once the next batch's `_dispatch` has been queued: the host works on
+        batch k while the card runs batch k+1. `device_prefetch` takes batch
+        k+1 from the loader before it yields batch k, so the host batches
+        are tapped in the order they are taken."""
+        taken: collections.deque = collections.deque()
+
+        def tap():
+            for batch in loader:
+                taken.append(batch)
+                yield batch
+
+        pending = None
+        for inputs in device_prefetch(tap(), self.device, keys):
+            handles = self._dispatch(inputs)
+            if pending is not None:
+                yield pending
+            pending = (handles, taken.popleft())
+        if pending is not None:
+            yield pending
+
+    def _write_predictions(self, predictions: list[dict], seconds: float, n_images: int) -> str:
+        """The COCO json of a split and, beside it, its seconds per image as
+        the reference stores them (predictor_pix2poly.py:52-58)."""
+        dt = seconds / max(n_images, 1)
+        self.logger.info(f"prediction: {dt:.4f} [s/image] over {n_images} images")
+        pred_file = self.cfg.evaluation.pred_file
+        save_annotations(predictions, pred_file)
+        with open(pred_file.replace(".json", "_time.json"), "w") as f:
+            json.dump({"prediction_time": dt, "num_images": n_images}, f)
+        return pred_file
 
     # --- single-file inputs (predict_demo path) ---------------------------
 

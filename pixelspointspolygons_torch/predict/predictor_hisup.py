@@ -13,18 +13,16 @@ polygonizes batch k while the card runs batch k+1.
 
 from __future__ import annotations
 
-import collections
-import json
 import time
 
 import cv2
 import numpy as np
 import torch
 
-from ..data.loader import build_loader, device_prefetch, to_device
+from ..data.loader import build_loader, to_device
 from ..models.hisup.factory import build_hisup
 from ..models.hisup.model import HiSup, extract_junctions
-from ..utils.coco import generate_coco_ann, save_annotations
+from ..utils.coco import generate_coco_ann
 from .hisup_polygon import polygons_from_masks
 from .predictor import Predictor
 
@@ -152,30 +150,9 @@ class HiSupPredictor(Predictor):
             predictions.extend(batch_annotations(batch, polys, scores))
             n_images += int(np.sum(batch["sample_valid"]))
 
-        # the host batches in the order device_prefetch takes them from the
-        # loader (it takes batch k+1 before it yields batch k)
-        taken: collections.deque = collections.deque()
-
-        def tap():
-            for batch in loader:
-                taken.append(batch)
-                yield batch
-
-        pending = None
-        for inputs in device_prefetch(tap(), self.device, _INPUT_KEYS):
-            handles = self._dispatch(inputs)
-            if pending is not None:
-                consume(*pending)
-            pending = (handles, taken.popleft())
-        if pending is not None:
-            consume(*pending)
-        dt = (time.time() - t0) / max(n_images, 1)
-        self.logger.info(f"prediction: {dt:.4f} [s/image] over {n_images} images")
-        pred_file = self.cfg.evaluation.pred_file
-        save_annotations(predictions, pred_file)
-        with open(pred_file.replace(".json", "_time.json"), "w") as f:
-            json.dump({"prediction_time": dt, "num_images": n_images}, f)
-        return pred_file
+        for handles, batch in self._in_flight(loader, _INPUT_KEYS):
+            consume(handles, batch)
+        return self._write_predictions(predictions, time.time() - t0, n_images)
 
     def predict_file(self, image_file=None, lidar_file=None, out_file="prediction.png"):
         """Polygons of one image file, drawn over it into `out_file`."""

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ..config.engine import Config
-from ..device import resolve_device, set_tf32
+from ..device import check_compute_dtype, resolve_device, set_tf32
 from ..utils.checkpoint import CheckpointManager, save_best_and_latest
 from ..utils.logger import make_logger
 from ..utils.seeding import seed_everything
@@ -27,8 +27,7 @@ def check_supported(cfg: Config) -> None:
         raise NotImplementedError("training.device_cache: ROADMAP 'Port queue' item 'Device cache'")
     if bool(cfg.training.get("remat") or False):
         raise NotImplementedError("training.remat: ROADMAP 'Port queue' item 'Activation recomputation'")
-    if str(cfg.host.get("compute_dtype", "float32")).lower() in ("bf16", "bfloat16"):
-        raise NotImplementedError("host.compute_dtype=bfloat16: ROADMAP 'Port queue' item 'bfloat16'")
+    check_compute_dtype(cfg)
     if cfg.get("init_weights_from"):
         raise NotImplementedError("init_weights_from (orbax): the port starts from numpy trees via utils/bridge.py")
 

@@ -1,6 +1,7 @@
 """The PyTorch port's own copies of the JAX package's host code (config
-engine, synthetic tile generator, HiSup dataset item, loader) against the
-originals, on the same inputs. All comparisons are exact: the copies run the
+engine, synthetic tile generator, HiSup and Pix2Poly dataset items, the
+Pix2Poly permutation targets, loader) against the originals, on the same
+inputs. All comparisons are exact: the copies run the
 same numpy, cv2 and PyYAML calls in the same order, so any difference is a
 fault in the copy.
 """
@@ -15,8 +16,11 @@ from pixelspointspolygons_tpu.config import compose as jax_compose
 from pixelspointspolygons_tpu.data import Loader as JaxLoader
 from pixelspointspolygons_tpu.data import P3Dataset as JaxDataset
 from pixelspointspolygons_tpu.data import ensure_synthetic_dataset as jax_ensure
+from pixelspointspolygons_tpu.data.dataset import build_perm_targets as jax_build_perm_targets
+from pixelspointspolygons_tpu.models.pix2poly import Tokenizer as JaxTokenizer
 from pixelspointspolygons_torch.config import compose
-from pixelspointspolygons_torch.data import Loader, P3Dataset, ensure_synthetic_dataset
+from pixelspointspolygons_torch.data import Loader, P3Dataset, build_loader, build_perm_targets, ensure_synthetic_dataset
+from pixelspointspolygons_torch.models.pix2poly import Tokenizer
 
 
 def _tiny(root, extra=()):
@@ -130,9 +134,63 @@ def test_hisup_item_matches_jax(datasets, augs, split):
 def test_other_model_items_raise(datasets):
     pcfg = datasets[1]
     pds = P3Dataset(pcfg, "train")
-    pds.model_type = "pix2poly"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    pds.model_type = "ffl"
+    with pytest.raises(NotImplementedError, match="ROADMAP 'Port queue' item 'FFL'"):
         pds.get_item(0, np.random.RandomState(0))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_build_perm_targets_matches_jax(seed):
+    """Random rings, including more corners than slots (the cut-off ring
+    and the open-contour fix) and none at all."""
+    rng = np.random.RandomState(seed)
+    polys = [rng.uniform(0, 224, (rng.randint(3, 9), 2)) for _ in range(rng.randint(0, 6))]
+    for nmax in (4, 16, 192):
+        got, got_perm = build_perm_targets(polys, nmax)
+        want, want_perm = jax_build_perm_targets(polys, nmax)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got_perm, want_perm)
+        assert got.shape == want.shape and got_perm.dtype == np.float32
+
+
+@pytest.mark.parametrize(
+    "augs,split,eval_mode",
+    [
+        ("[D4,Normalize]", "train", False),
+        ("[D4,ColorJitter,GaussNoise,Normalize]", "train", False),
+        ("[D4,ColorJitter,GaussNoise,Normalize]", "val", False),
+        ("[D4,ColorJitter,GaussNoise,Normalize]", "train", True),
+    ],
+)
+def test_pix2poly_item_matches_jax(datasets, augs, split, eval_mode):
+    """Token sequences, ground-truth permutations and the augmented image,
+    for every tile of the split and three seeds (D4 moves the corners)."""
+    root = datasets[2]
+    ov = ["experiment=p2p_image", "experiment.model.tokenizer.max_num_vertices=24",
+          f"experiment.encoder.augmentations={augs}"]
+    jcfg, pcfg = jax_compose(_tiny(root / "jax", ov)), compose(_tiny(root / "port", ov))
+    jds = JaxDataset(jcfg, split, tokenizer=JaxTokenizer(jcfg), eval_mode=eval_mode)
+    pds = P3Dataset(pcfg, split, tokenizer=Tokenizer(pcfg), eval_mode=eval_mode)
+    assert len(pds) == len(jds) > 0
+    for idx in range(len(jds)):
+        for seed in range(3):
+            want = jds.get_item(idx, np.random.RandomState(seed))
+            got = pds.get_item(idx, np.random.RandomState(seed))
+            _assert_items_equal(got, want)
+            assert got["y"][0] == pds.tokenizer.BOS_code and got["y_perm"].shape == (24, 24)
+    with pytest.raises(ValueError, match="tokenizer"):
+        P3Dataset(pcfg, split).get_item(0, np.random.RandomState(0))
+
+
+def test_pix2poly_loader_batches(datasets):
+    """The eval loader of a Pix2Poly config takes the tokenizer and a batch
+    size of its own, and pads the last batch."""
+    root = datasets[2]
+    pcfg = compose(_tiny(root / "port", ["experiment=p2p_image"]))
+    loader = build_loader(pcfg, "train", tokenizer=Tokenizer(pcfg), eval_mode=True, batch_size=3)
+    batches = list(loader)
+    assert [len(b["y"]) for b in batches] == [3, 3] and batches[-1]["sample_valid"].tolist() == [True, True, False]
+    assert batches[0]["y"].shape == (3, 386) and batches[0]["y_perm"].shape == (3, 192, 192)
 
 
 @pytest.mark.parametrize("num_workers", [0, 2])

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no file of `pixelspointspolygons_torch/`
 and not `chip_smoke.py` or `afm_bench.py` imports JAX, flax, optax, orbax or the JAX package,
-and a fresh process that imports every module of the port and takes a train
-step on the CPU has none of them loaded."""
+and a fresh process that imports every module of the port, takes a HiSup
+train step and decodes with a Pix2Poly on the CPU has none of them loaded."""
 
 import ast
 import os
@@ -87,6 +87,16 @@ _STEP = textwrap.dedent(
     }
     out = make_train_step({k: 1.0 for k in ("loss_jloc", "loss_joff", "loss_mask", "loss_afm", "loss_remask")}, S)(state, batch)
     assert torch.isfinite(out["loss"]) and state.step == 1
+
+    from pixelspointspolygons_torch.models.pix2poly import Pix2Poly, greedy_generate
+
+    p2p = Pix2Poly(vocab_size=19, encoder_len=16, dim=32, num_heads=4, num_layers=2, max_len=12, pad_idx=18,
+                   max_num_vertices=5, sinkhorn_iterations=10,
+                   encoder_cfg={"name": "vit", "img_size": 16, "patch_size": 4, "dim": 32, "depth": 1, "num_heads": 2})
+    with torch.no_grad():
+        for eos in (None, 17):
+            tokens, perm = greedy_generate(p2p.eval(), {"images": batch["images"][:, :16, :16]}, 16, 11, eos_code=eos)
+            assert tokens.shape == (B, 11) and torch.isfinite(perm).all()
     print(",".join(sorted({m.split(".")[0] for m in sys.modules})))
     """
 )

@@ -393,7 +393,7 @@ def test_cli_predict_evaluate_and_demo_on_cpu(tiny_hrnet, tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("entry", [cli_predict, cli_predict_demo])
-@pytest.mark.parametrize("experiment,item", [("p2p_image", "Pix2Poly"), ("ffl_image", "FFL")])
+@pytest.mark.parametrize("experiment,item", [("ffl_image", "FFL")])
 def test_cli_other_models_not_ported(entry, experiment, item, tmp_path):
     with pytest.raises(NotImplementedError, match=f"ROADMAP 'Port queue' item '{item}'"):
         entry.main([f"experiment={experiment}", "dataset=synthetic", f"host.model_root={tmp_path}", "device=cpu"])

@@ -148,7 +148,8 @@ def test_cli_trains_hisup_on_cpu(tiny_hrnet, tmp_path):
 
 @pytest.mark.parametrize("experiment", ["p2p_image", "ffl_image"])
 def test_cli_other_models_not_ported(experiment, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP 'Port queue'"):
+    item = {"p2p_image": "Pix2Poly training", "ffl_image": "FFL"}[experiment]
+    with pytest.raises(NotImplementedError, match=f"ROADMAP 'Port queue' item '{item}'"):
         cli_train.main([f"experiment={experiment}", "dataset=synthetic", f"host.model_root={tmp_path}", "device=cpu"])
 
 
