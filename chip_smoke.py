@@ -45,7 +45,29 @@ fails:
      cross-attention is sharpened, so that its tokens vary with position
      and image; with that copy, on the batch of 16, the early exit against
      the fixed length, with an EOS bias that makes rows stop at different
-     steps.
+     steps;
+  7. Pix2Poly-image training at full width (batch 16), float32, through the
+     trainer of `cli/train.py` on the synthetic split: 4 train steps, 1 val
+     step and the val-IoU pass (the val split greedy-decoded and scored),
+     with the counters set to 0 just before and read just after (0 AFM
+     launches); step time, the step cut by CUDA events into encoder,
+     decoder, ScoreNets, Sinkhorn, losses, backward and optimizer, the
+     Sinkhorn's forward and backward alone, peak memory, the val IoU and
+     its wall time; one train step on 2 tiles on the card and on the CPU
+     from the same weights (losses and gradients);
+  8. the same training at bfloat16 (`host.compute_dtype=bfloat16`) from the
+     same initial weights, its first step's losses against the float32
+     run's;
+  9. Pix2Poly prediction at bfloat16 of the 64-tile test split from that
+     training's `latest`, with the counters set to 0 just before and read
+     just after, timed per batch as in 6; on 2 tiles the card's bfloat16
+     against the CPU's (encoder tokens, decode tokens outside near-ties,
+     teacher-forced logits, raw scores); the bfloat16 fixed-length decode
+     of `bench.py` cut at its stages and one step profiled, with the same
+     step of the float32 model of the same weights (a bfloat16 step must
+     make no more aten calls: the weights are cast once per decode); then
+     `bench_torch.py`'s measurement with few iterations, its JSON line on
+     a line of its own.
 The line before the last is a JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -66,6 +88,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
+T0 = time.perf_counter()
+CARD = torch.device("cuda")
 
 # published peaks of one H100 SXM (dense): FP32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -103,6 +127,35 @@ P2P_CPU_TILES = 2
 P2P_EXIT_BY = 150
 P2P_SEED = 0
 P2P_SHARPEN = 4.0
+# Pix2Poly training, one step on 2 tiles from the trainer's initial weights,
+# float32 (TF32 off) on the card and on the CPU, and the exact gradient
+# (float64 on the CPU): losses to 1e-4 relative; each float32 gradient to
+# 1e-3 of the exact one in relative L2 over all parameters (the float32
+# sums through 12 encoder blocks, 6 decoder layers and 100 Sinkhorn
+# iterations read 2.6e-4 on an NVIDIA H100 80GB HBM3 and 5.0e-4 on the
+# CPU; PERF.md).
+# The same step from the trained weights is printed and not held to a
+# bound: after a few updates the ScoreNets' train-mode BatchNorm divides by
+# the variance of nearly equal vertex-pair features, and a float32 gradient
+# strays about ten times further from the exact one on either device.
+P2P_TRAIN_CPU_TILES = 2
+P2P_LOSS_TOL = 1e-4
+P2P_GRAD_TOL = 1e-3
+# the bfloat16 run's first step against the float32 run's, from the same
+# weights on the same batch: bfloat16 rounds every layer's output to 8
+# significant bits; the CPU tests read 3e-3 on the loss at a tiny width
+P2P_BF16_LOSS_TOL = 5e-2
+# bfloat16 on the card against bfloat16 on the CPU: each layer's output is
+# rounded to 8 bits (2^-9 relative), and the two devices sum products in
+# other orders, so elements differ by an ulp here and there, more through 12
+# encoder blocks and 6 decoder layers: 5e-2 in relative L2; generated tokens
+# are compared up to each row's first step whose top-2 logit gap on the CPU
+# is under P2P_BF16_NEAR_TIE_ULPS ulps of its largest logit
+P2P_BF16_REL_L2 = 5e-2
+P2P_BF16_NEAR_TIE_ULPS = 8
+# bench_torch.py inside the smoke run: few iterations (its own defaults are
+# 20 iterations in each of 5 repeats)
+BENCH_ITERS, BENCH_REPEATS = 1, 3
 
 
 def fail(msg: str) -> None:
@@ -722,7 +775,7 @@ def p2p_varied(model):
     return m
 
 
-def p2p_fixed_length(model, inputs: dict, tokenizer, dev: torch.device, rounds: int = 3) -> dict:
+def p2p_fixed_length(model, inputs: dict, tokenizer, dev: torch.device, rounds: int = 3, what: str = "") -> dict:
     """The fixed-length decode of `bench.py` (eos_code=None, Sinkhorn
     permutation) on one batch: tiles/s as the median of `rounds` calls of
     `greedy_generate`, synchronized at both ends; then one run cut at its
@@ -763,16 +816,16 @@ def p2p_fixed_length(model, inputs: dict, tokenizer, dev: torch.device, rounds: 
     ms = {k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(names)}
     out = {"tiles_s": n / statistics.median(walls), "walls_ms": [w * 1e3 for w in walls], "steps": ran,
            "decode_host_ms": host_ms, "ms_per_step": ms["decode"] / ran, **{f"{k}_ms": v for k, v in ms.items()}}
-    print(f"pix2poly fixed-length decode (bench.py's mode) on a batch of {n}: {out['tiles_s']:.2f} tiles/s "
+    print(f"pix2poly fixed-length decode{what} (bench.py's mode) on a batch of {n}: {out['tiles_s']:.2f} tiles/s "
           f"(median of {rounds}: {[round(w * 1e3, 1) for w in walls]} ms); one run cut by CUDA events: encoder "
           f"{ms['encoder']:.2f} ms, decode loop {ms['decode']:.2f} ms for {ran} steps ({out['ms_per_step']:.3f} ms/step; "
           f"host {host_ms:.2f} ms), ScoreNets {ms['scorenets']:.2f} ms, Sinkhorn ({model.sinkhorn_iterations} "
           f"iterations) {ms['sinkhorn']:.2f} ms", flush=True)
-    out.update(p2p_decode_profile(model, enc, tokenizer, out["ms_per_step"]))
+    out.update(p2p_decode_profile(model, enc, tokenizer, out["ms_per_step"], what))
     return out
 
 
-def p2p_decode_profile(model, enc: torch.Tensor, tokenizer, ms_per_step: float) -> dict:
+def p2p_decode_profile(model, enc: torch.Tensor, tokenizer, ms_per_step: float, what: str = "") -> dict:
     """What one step of the decode loop costs, from torch.profiler traces of
     decodes of 8 and 24 steps (their difference over 16 steps, so the
     set-up drops out): the host's top-level aten calls, the kernels launched
@@ -800,7 +853,7 @@ def p2p_decode_profile(model, enc: torch.Tensor, tokenizer, ms_per_step: float) 
               flush=True)
         return out
     out["busy_share"] = per[2] / (ms_per_step * 1e3)
-    print(f"pix2poly decode step profile (torch.profiler, steps 8..24): {per[0]:.1f} top-level aten calls and "
+    print(f"pix2poly decode step profile{what} (torch.profiler, steps 8..24): {per[0]:.1f} top-level aten calls and "
           f"{per[1]:.1f} kernels per step, {per[2]:.1f} us of kernel time per step: the card is busy "
           f"{100 * out['busy_share']:.1f} % of a {ms_per_step:.3f} ms step", flush=True)
     return out
@@ -914,6 +967,334 @@ def p2p_early_exit(model, inputs: dict, tokenizer) -> list[int]:
     return stops.tolist()
 
 
+def phase_p2p_train(overrides: list[str], dtype: str) -> dict:
+    """Pix2Poly-image training at full width through the trainer that
+    `cli/train.py` builds, at `dtype`: 4 train + 1 val steps and the val-IoU
+    pass with the kernel counters set to 0 just before and read just after,
+    then the steady-state step, its parts and (float32) the card against
+    the CPU."""
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.data.loader import device_prefetch
+    from pixelspointspolygons_torch.ops.afm import afm_cuda
+    from pixelspointspolygons_torch.train.trainer_pix2poly import _DEV_KEYS, Pix2PolyTrainer
+
+    cfg = compose(overrides + [f"host.compute_dtype={dtype}"])
+    trainer = Pix2PolyTrainer(cfg, device=CARD)
+    iou_pass_s, step_losses = [], []
+
+    def timed_predict_and_eval(epoch, run=trainer.predict_and_eval):
+        t = time.perf_counter()
+        iou = run(epoch)
+        torch.cuda.synchronize()
+        iou_pass_s.append(time.perf_counter() - t)
+        return iou
+
+    def setup_and_record(run=trainer.setup):
+        """The trainer's set-up, then its train step records each step's metrics."""
+        run()
+        step = trainer._train_step
+
+        def recorded(state, batch):
+            metrics = step(state, batch)
+            step_losses.append(metrics)
+            return metrics
+
+        trainer._train_step = recorded
+
+    trainer.predict_and_eval = timed_predict_and_eval
+    trainer.setup = setup_and_record
+    torch.cuda.reset_peak_memory_stats()
+    afm_cuda.launches = 0
+    t0 = time.perf_counter()
+    history = trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = afm_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    n_train, n_val = len(trainer.train_loader), len(trainer.val_loader)
+    model = trainer.state.model
+    print(f"pix2poly train path ({dtype}): {n_train} train + {n_val} val steps and the val-IoU pass in {wall:.1f} s "
+          f"(set-up included), peak memory {peak / 2**30:.2f} GiB; afm launches {launches}; model computes in "
+          f"{model.compute_dtype}, parameters {next(model.parameters()).dtype}", flush=True)
+    print(f"pix2poly history ({dtype}): " + json.dumps(history), flush=True)
+    print(f"pix2poly step losses ({dtype}): " + json.dumps([{k: float(v) for k, v in m.items()} for m in step_losses]),
+          flush=True)
+    if (n_train, n_val) != (TRAIN_STEPS, VAL_STEPS) or len(step_losses) != n_train:
+        fail(f"pix2poly: expected {TRAIN_STEPS} train and {VAL_STEPS} val steps, got {n_train}, {n_val}, "
+             f"{len(step_losses)}")
+    if not all(np.isfinite(v) for k, v in history.items() if k != "epoch"):
+        fail(f"pix2poly ({dtype}): non-finite losses: {history}")
+    if launches:
+        fail(f"the Pix2Poly train path launched the afm kernel {launches} times, expected 0")
+    if model.compute_dtype != getattr(torch, dtype) or next(model.parameters()).dtype != torch.float32:
+        fail(f"pix2poly ({dtype}): the model computes in {model.compute_dtype}")
+    if not trainer.manager.exists("latest") or not trainer.manager.exists("best_val_loss"):
+        fail("the Pix2Poly trainer wrote no latest/best_val_loss checkpoint")
+    val_iou = history.get("val_iou")
+    if val_iou is None or not 0.0 <= val_iou <= 1.0 or len(iou_pass_s) != 1:
+        fail(f"the Pix2Poly val-IoU pass gave no IoU in [0, 1]: {val_iou}")
+    print(f"pix2poly val-IoU pass ({dtype}): {n_val * B} val tiles decoded and scored in {iou_pass_s[0] * 1e3:.1f} ms "
+          f"(wall), val IoU {val_iou:.4f}", flush=True)
+
+    # steady state on the same batches (not part of the counted run)
+    losses = [{k: float(v) for k, v in m.items()} for m in step_losses]
+    host = list(trainer.train_loader)
+    batches = list(device_prefetch(host, trainer.device, _DEV_KEYS))
+    trainer._train_step(trainer.state, batches[0])
+    torch.cuda.synchronize()
+    times = []
+    for batch in batches:
+        t = time.perf_counter()
+        trainer._train_step(trainer.state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    step_ms = statistics.median(times)
+    t = time.perf_counter()
+    trainer._val_step(trainer.state, batches[0])
+    torch.cuda.synchronize()
+    val_ms = (time.perf_counter() - t) * 1e3
+    parts = [p2p_step_parts(trainer, batch) for batch in batches]
+    breakdown = {k: statistics.median(p[k] for p in parts) for k in parts[0]}
+    print(f"pix2poly train step ({dtype}) {step_ms:.1f} ms (median of {len(times)}: {[round(x, 1) for x in times]}), "
+          f"val step {val_ms:.1f} ms", flush=True)
+    print(f"pix2poly train step ({dtype}) by layer (ms, CUDA events, median of {len(parts)}): {json.dumps(breakdown)}",
+          flush=True)
+    out = {"step_ms": step_ms, "val_ms": val_ms, "peak_bytes": peak, "iou_pass_ms": iou_pass_s[0] * 1e3,
+           "val_iou": val_iou, "losses": losses, "breakdown": breakdown, "launches": launches}
+    if dtype == "float32":
+        p2p_train_card_against_cpu(trainer, batches[0])
+    return out
+
+
+def p2p_step_parts(trainer, batch: dict) -> dict:
+    """One Pix2Poly train step cut at its layers by CUDA events on the
+    stream, with the calls of train/pix2poly_step.py (Pix2Poly.forward is
+    the encoder, the decoder and perm_from_feats); then the Sinkhorn's
+    forward and backward alone on the step's scores."""
+    from pixelspointspolygons_torch.models.layers import widen
+    from pixelspointspolygons_torch.ops.sinkhorn import log_optimal_transport
+    from pixelspointspolygons_torch.train.pix2poly_step import model_inputs, perm_bce_loss, token_ce_loss
+
+    state, model, m = trainer.state, trainer.state.model, trainer.cfg.experiment.model
+    vw, pw, pad = float(m.vertex_loss_weight), float(m.perm_loss_weight), trainer.tokenizer.PAD_code
+    y = batch["y"]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(10)]
+    model.train()
+    ev[0].record()
+    enc = model.encode(model_inputs(batch))
+    ev[1].record()
+    logits, feats = model.decoder(enc, y[:, :-1])
+    ev[2].record()
+    scores = model.raw_scores_from_feats(feats)
+    ev[3].record()
+    V = scores.shape[1]
+    iters = model.sinkhorn_iterations
+    perm = torch.softmax(log_optimal_transport(scores.to(widen(scores.dtype)), model.bin_score, iters)[:, :V, :V], -1)
+    ev[4].record()
+    total = vw * token_ce_loss(logits, y[:, 1:], pad) + pw * perm_bce_loss(perm, batch["y_perm"])
+    ev[5].record()
+    state.optimizer.zero_grad(set_to_none=True)
+    total.backward()
+    ev[6].record()
+    state.optimizer.step()
+    ev[7].record()
+    s = scores.detach().float().requires_grad_()
+    z = log_optimal_transport(s, model.bin_score.detach(), iters)[:, :V, :V]
+    sink = perm_bce_loss(torch.softmax(z, -1), batch["y_perm"])
+    ev[8].record()
+    sink.backward()
+    ev[9].record()
+    torch.cuda.synchronize()
+    names = ("encoder", "decoder", "scorenets", "sinkhorn", "losses", "backward", "optimizer")
+    out = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+    out["sinkhorn_alone_fwd"] = ev[7].elapsed_time(ev[8])
+    out["sinkhorn_alone_bwd"] = ev[8].elapsed_time(ev[9])
+    return out
+
+
+def p2p_train_card_against_cpu(trainer, batch: dict) -> None:
+    """One float32 train step on P2P_TRAIN_CPU_TILES tiles, on the card and
+    on the CPU with fresh AdamW states, and the same loss's gradient in
+    float64 on the CPU: from the trainer's initial weights (its seed) the
+    losses and each float32 gradient against the exact one are held to
+    bounds; from its trained weights they are printed (the CPU path is held
+    to the JAX package by tests/test_torch_train_pix2poly.py)."""
+    from pixelspointspolygons_torch.models.pix2poly import build_pix2poly
+    from pixelspointspolygons_torch.train.pix2poly_step import _losses, make_train_step
+    from pixelspointspolygons_torch.train.state import TrainState, make_optimizer, make_scheduler
+
+    cfg, m = trainer.cfg, trainer.cfg.experiment.model
+    vw, pw, pad = float(m.vertex_loss_weight), float(m.perm_loss_weight), trainer.tokenizer.PAD_code
+    lr = float(m.learning_rate)
+    seed = torch.Generator(device=CARD).manual_seed(int(cfg.get("seed", 42)))
+    weights = {"initial": build_pix2poly(cfg, trainer.tokenizer, device=CARD, generator=seed).state_dict(),
+               "trained": trainer.state.model.state_dict()}
+    small = {k: v[:P2P_TRAIN_CPU_TILES] for k, v in batch.items()}
+    host = {k: v.cpu() for k, v in small.items()}
+    step = make_train_step(vw, pw, pad)
+
+    def state_on(sd, device, dtype=torch.float32):
+        model = build_pix2poly(cfg, trainer.tokenizer, device=device, dtype=dtype).to(dtype)
+        model.load_state_dict(sd)
+        opt = make_optimizer("adamw", model.parameters(), lr, weight_decay=float(m.weight_decay), b2=0.95)
+        return TrainState(model, opt, make_scheduler(opt, lambda n: lr, lr))
+
+    def grads(state):
+        return {n: p.grad.detach().cpu().double() for n, p in state.model.named_parameters()}
+
+    def rel(a, b):
+        return (sum(float(((a[k] - b[k]) ** 2).sum()) for k in b) / sum(float((b[k] ** 2).sum()) for k in b)) ** 0.5
+
+    for which, sd in weights.items():
+        card, cpu, exact = state_on(sd, CARD), state_on(sd, torch.device("cpu")), state_on(sd, "cpu", torch.float64)
+        got = step(card, small)
+        t = time.perf_counter()
+        want = step(cpu, host)
+        _losses(exact.model.train(), {k: v.double() if v.is_floating_point() else v for k, v in host.items()},
+                vw, pw, pad)["loss"].backward()
+        cpu_s = time.perf_counter() - t
+        loss_err = {k: abs(float(got[k]) / float(want[k]) - 1.0) for k in want}
+        g_card, g_cpu, g_exact = grads(card), grads(cpu), grads(exact)
+        errs = {"card vs exact": rel(g_card, g_exact), "CPU vs exact": rel(g_cpu, g_exact),
+                "card vs CPU": rel(g_card, g_cpu)}
+        held = which == "initial"
+        print(f"pix2poly train step card vs CPU on {P2P_TRAIN_CPU_TILES} tiles from the {which} weights (float32; CPU "
+              f"float32 and float64 {cpu_s:.1f} s): losses {({k: round(float(v), 6) for k, v in want.items()})}, "
+              f"rel err {loss_err}; gradients rel L2 {errs}"
+              + (f" (tol {P2P_LOSS_TOL} and {P2P_GRAD_TOL} against the exact one)" if held else " (not held)"),
+              flush=True)
+        if held and not all(e <= P2P_LOSS_TOL for e in loss_err.values()):
+            fail(f"the Pix2Poly train step's losses differ between card and CPU: {loss_err}")
+        if held and not (errs["card vs exact"] <= P2P_GRAD_TOL and errs["CPU vs exact"] <= P2P_GRAD_TOL):
+            fail(f"the Pix2Poly train step's float32 gradients stray from the exact one: {errs}")
+
+
+def phase_p2p_predict_bf16(overrides: list[str]) -> dict:
+    """Pix2Poly prediction at bfloat16 from the bfloat16 training's
+    `latest`, through the functions `cli/predict.py::main` calls, then the
+    card against the CPU, the decode step's calls against float32's, and
+    bench_torch.py."""
+    import bench_torch
+    from pixelspointspolygons_torch.cli.evaluate import evaluate
+    from pixelspointspolygons_torch.cli.predict import get_predictor
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.data.loader import build_loader, to_device
+    from pixelspointspolygons_torch.models.pix2poly import build_pix2poly
+    from pixelspointspolygons_torch.ops.afm import afm_cuda
+
+    dev = CARD
+    cfg = compose(overrides + ["host.compute_dtype=bfloat16", "evaluation=test", "checkpoint=latest"])
+    afm_cuda.launches = 0
+    t0 = time.perf_counter()
+    predictor = get_predictor(cfg, dev)
+    pred_file = predictor.predict_dataset(cfg.evaluation.split)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    results = evaluate(cfg, pred_file)
+    launches = afm_cuda.launches
+    model = predictor.model
+    if launches:
+        fail(f"the bfloat16 Pix2Poly predict path launched the afm kernel {launches} times, expected 0")
+    if model.compute_dtype != torch.bfloat16:
+        fail(f"the Pix2Poly predictor computes in {model.compute_dtype}, not bfloat16")
+    with open(pred_file.replace(".json", "_time.json")) as f:
+        timing = json.load(f)
+    if timing["num_images"] != TEST_TILES:
+        fail(f"bfloat16 Pix2Poly predicted {timing['num_images']} of {TEST_TILES} test tiles")
+    bad = [k for k in ("IoU", "C-IoU", "AP") if not np.isfinite(results.get(k, np.nan))]
+    if bad:
+        fail(f"bfloat16 Pix2Poly: non-finite metrics {bad}: {results}")
+    times = predictor.batch_times
+    tiles_s = 1.0 / timing["prediction_time"]
+    print(f"pix2poly predict path (bfloat16): {timing['num_images']} tiles in {len(times)} batches, {tiles_s:.2f} tiles/s "
+          f"(the predictor's own s/tile over its loop); set-up, loop and file {t1 - t0:.2f} s; afm launches {launches}",
+          flush=True)
+    for i, t in enumerate(times):
+        if t["device_ms"] is not None:
+            print(f"  batch {i}: device {t['device_ms']:.2f} ms = encoder {t['encoder_ms']:.2f} + decode loop "
+                  f"{t['decode_ms']:.2f} ({t['steps']} steps, {t['decode_ms'] / t['steps']:.3f} ms/step) + ScoreNets "
+                  f"{t['scorenet_ms']:.2f} (CUDA events); decode loop host {t['decode_host_ms']:.2f} ms; "
+                  f"host stage {t['host_ms']:.2f} ms; wall {t['wall_ms']:.2f} ms", flush=True)
+    print("pix2poly metrics (bfloat16): " + json.dumps(results), flush=True)
+
+    batch = next(iter(build_loader(cfg, "test", tokenizer=predictor.tokenizer, eval_mode=True)))
+    inputs = to_device(batch, dev, ("images",))
+    p2p_bf16_card_against_cpu(model, {"images": inputs["images"][:P2P_CPU_TILES]}, predictor.tokenizer)
+    fixed = p2p_fixed_length(model, inputs, predictor.tokenizer, dev, what=" (bfloat16)")
+    f32 = build_pix2poly(cfg, predictor.tokenizer, device=dev, dtype=torch.float32).eval()
+    f32.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        enc32 = f32.encode(inputs)
+    calls32 = p2p_decode_profile(f32, enc32, predictor.tokenizer, fixed["ms_per_step"], " (float32, same weights)")
+    if not fixed["aten_per_step"] <= calls32["aten_per_step"]:
+        fail(f"a bfloat16 decode step makes {fixed['aten_per_step']} aten calls, more than float32's "
+             f"{calls32['aten_per_step']}: a weight is cast per step")
+    del f32, enc32
+
+    bench = bench_torch.run(batch=B, iters=BENCH_ITERS, repeats=BENCH_REPEATS, device=dev.type)
+    print(json.dumps(bench), flush=True)
+    if not bench["value"] > 0 or bench["compute_dtype"] != "bfloat16":
+        fail(f"bench_torch.py gave {bench}")
+    return {"tiles_s": tiles_s, "batch_times": times, "results": results, "fixed": fixed,
+            "aten_per_step_f32": calls32["aten_per_step"], "bench": bench, "launches": launches}
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        fail(f"shape {tuple(got.shape)} against {tuple(want.shape)}, or non-finite values")
+    return float((got - want).norm() / want.norm().clamp(min=1e-12))
+
+
+def p2p_bf16_card_against_cpu(model, inputs: dict, tokenizer) -> None:
+    """bfloat16 on the card against bfloat16 on the CPU, on a few tiles:
+    encoder tokens, the greedy decode's tokens up to each row's first
+    near-tie on the CPU (margins from the CPU decode's own logits), the
+    teacher-forced logits of the card's tokens, and the raw scores of the
+    card's feats, each within P2P_BF16_REL_L2 in relative L2."""
+    import copy
+
+    from pixelspointspolygons_torch.models.pix2poly import greedy_decode
+
+    steps = model.max_len - 1
+    cpu_model = copy.deepcopy(model).cpu().eval()
+    with torch.inference_mode():
+        enc = model.encode(inputs)
+        tokens, feats, _ = greedy_decode(model, enc, tokenizer.BOS_code, steps)
+        t = time.perf_counter()
+        enc_cpu = cpu_model.encode({"images": inputs["images"].cpu()})
+        tokens_cpu, feats_cpu, _ = greedy_decode(cpu_model, enc_cpu, tokenizer.BOS_code, steps)
+        cpu_s = time.perf_counter() - t
+        logits_cpu_decode = cpu_model.decoder.output(feats_cpu).float()
+        bos = torch.full_like(tokens[:, :1], tokenizer.BOS_code)
+        tgt = torch.cat([bos, tokens[:, :-1]], dim=1)
+        logits, _ = model.decoder(enc, tgt)
+        logits_cpu, _ = cpu_model.decoder(enc_cpu, tgt.cpu())
+        scores = model.raw_scores_from_feats(feats)
+        scores_cpu = cpu_model.raw_scores_from_feats(feats.cpu())
+    if enc.dtype != torch.bfloat16 or feats.dtype != torch.bfloat16 or logits.dtype != torch.bfloat16:
+        fail(f"the bfloat16 model computed in {enc.dtype}, {feats.dtype}, {logits.dtype}")
+    errs = {"encoder": rel_l2(enc, enc_cpu), "logits": rel_l2(logits, logits_cpu),
+            "raw scores": rel_l2(scores, scores_cpu)}
+    top2 = logits_cpu_decode.topk(2, dim=-1).values
+    ulp = torch.exp2(torch.floor(torch.log2(top2[..., 0].abs().clamp(min=1e-30))) - 7)
+    clear = (top2[..., 0] - top2[..., 1]) >= P2P_BF16_NEAR_TIE_ULPS * ulp
+    tokens = tokens.cpu()
+    compared = wrong = 0
+    for b in range(tokens.shape[0]):
+        first = int(torch.argmin(clear[b].int())) if not bool(clear[b].all()) else steps
+        wrong += int((tokens[b, :first] != tokens_cpu[b, :first]).sum())
+        compared += first
+    print(f"pix2poly bfloat16 card vs CPU on {tokens.shape[0]} tiles (CPU encoder and decode {cpu_s:.1f} s): rel L2 {errs} "
+          f"(tol {P2P_BF16_REL_L2}); decode tokens: {wrong} of {compared} differ before each row's first near-tie "
+          f"(top-2 gap under {P2P_BF16_NEAR_TIE_ULPS} ulps; {tokens.shape[0] * steps} generated); "
+          f"{len(torch.unique(tokens))} distinct tokens", flush=True)
+    if not all(e <= P2P_BF16_REL_L2 for e in errs.values()):
+        fail(f"bfloat16 Pix2Poly on the card differs from the CPU: {errs}")
+    if wrong:
+        fail(f"the card's bfloat16 decode differs from the CPU's at {wrong} positions outside near-ties")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
@@ -945,6 +1326,33 @@ def main() -> None:
           f"host stage {med['host_ms']:.2f} ms; fixed-length decode {p2p['fixed']['tiles_s']:.2f} tiles/s, "
           f"{p2p['fixed']['ms_per_step']:.3f} ms per decode step; IoU {p2p['results']['IoU']:.4f}, card {smi}",
           flush=True)
+    p2p_overrides = smoke_overrides(num_train=TRAIN_STEPS * B, experiment="p2p_image")
+    trained = {dtype: phase_p2p_train(p2p_overrides, dtype) for dtype in ("float32", "bfloat16")}
+    first = {dtype: t["losses"][0] for dtype, t in trained.items()}
+    loss_err = {k: abs(first["bfloat16"][k] / first["float32"][k] - 1.0) for k in first["float32"]}
+    print(f"pix2poly first train step from the same weights on the same batch: float32 {first['float32']}, "
+          f"bfloat16 {first['bfloat16']}; rel diff {loss_err} (tol {P2P_BF16_LOSS_TOL})", flush=True)
+    if not all(e <= P2P_BF16_LOSS_TOL for e in loss_err.values()):
+        fail(f"the bfloat16 train step's losses differ from float32's by {loss_err}")
+    for dtype, t in trained.items():
+        print(f"pix2poly train path ({dtype}): train step {t['step_ms']:.1f} ms, val step {t['val_ms']:.1f} ms, "
+              f"val-IoU pass {t['iou_pass_ms']:.1f} ms (val IoU {t['val_iou']:.4f}), peak {t['peak_bytes']} bytes, "
+              f"by layer {json.dumps({k: round(v, 2) for k, v in t['breakdown'].items()})}, card {smi}", flush=True)
+    pbf = phase_p2p_predict_bf16(p2p_overrides)
+    bt = pbf["batch_times"]
+    med = {k: statistics.median(t[k] for t in bt) for k in ("encoder_ms", "decode_ms", "scorenet_ms", "host_ms")}
+    print(f"pix2poly predict path (bfloat16): {pbf['tiles_s']:.2f} tiles/s; per batch of {B} (medians): encoder "
+          f"{med['encoder_ms']:.2f} ms, decode loop {med['decode_ms']:.2f} ms, ScoreNets {med['scorenet_ms']:.2f} ms, "
+          f"host stage {med['host_ms']:.2f} ms; fixed-length decode {pbf['fixed']['tiles_s']:.2f} tiles/s, "
+          f"{pbf['fixed']['ms_per_step']:.3f} ms per decode step, {pbf['fixed']['aten_per_step']:.1f} aten calls per "
+          f"step (float32 {pbf['aten_per_step_f32']:.1f}); bench_torch {pbf['bench']['value']} tiles/s, "
+          f"vs_baseline {pbf['bench']['vs_baseline']}, card {smi}", flush=True)
+    afm_row["launches_by_path"] = {
+        "hisup_train": launches["afm"], "hisup_predict": 0, "pix2poly_predict": 0,
+        "pix2poly_train_float32": trained["float32"]["launches"],
+        "pix2poly_train_bfloat16": trained["bfloat16"]["launches"], "pix2poly_predict_bfloat16": pbf["launches"],
+    }
+    print(f"smoke run: {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"kernels": [afm_row]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,9 @@ cfg.experiment.model.name).
 Usage: python -m pixelspointspolygons_torch.cli.train experiment=hisup_image \
     dataset=synthetic run_type=debug [key.path=value ...] [device=cpu]
 
-Runs on the card; `device=cpu` runs on the CPU instead. HiSup is ported;
-the other models raise NotImplementedError naming their ROADMAP item.
+Runs on the card; `device=cpu` runs on the CPU instead. HiSup and Pix2Poly
+are ported (Pix2Poly also at `host.compute_dtype=bfloat16`); FFL raises
+NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -21,7 +22,9 @@ def main(argv: list[str] | None = None) -> dict:
 
         trainer = HiSupTrainer(cfg, device=device)
     elif name == "pix2poly":
-        raise NotImplementedError("Pix2Poly training: ROADMAP 'Port queue' item 'Pix2Poly training'")
+        from ..train.trainer_pix2poly import Pix2PolyTrainer
+
+        trainer = Pix2PolyTrainer(cfg, device=device)
     elif name == "ffl":
         raise NotImplementedError("FFL training: ROADMAP 'Port queue' item 'FFL'")
     else:

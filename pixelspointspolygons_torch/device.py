@@ -20,14 +20,21 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 
 
 def set_tf32(enabled: bool) -> None:
-    """TF32 for float32 matmuls and cuDNN convolutions. The port keeps both
-    off (float32 as the JAX package computes it at host.compute_dtype=float32)."""
+    """TF32 for float32 matmuls and cuDNN convolutions, and cuBLAS's
+    reduced-precision sums inside bfloat16 products. The port keeps all
+    off: float32 as the JAX package computes it at
+    host.compute_dtype=float32, and bfloat16 products summed in float32, as
+    XLA sums them."""
     torch.backends.cuda.matmul.allow_tf32 = enabled
     torch.backends.cudnn.allow_tf32 = enabled
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = enabled
 
 
 def check_compute_dtype(cfg) -> None:
-    """The port computes in float32; `host.compute_dtype=bfloat16` waits
-    for its own slice."""
-    if str(cfg.host.get("compute_dtype", "float32")).lower() in ("bf16", "bfloat16"):
-        raise NotImplementedError("host.compute_dtype=bfloat16: ROADMAP 'Port queue' item 'bfloat16'")
+    """`host.compute_dtype=bfloat16` runs for Pix2Poly; the other model
+    families compute in float32 until their bfloat16 is ported."""
+    bf16 = str(cfg.host.get("compute_dtype", "float32")).lower() in ("bf16", "bfloat16")
+    if bf16 and cfg.experiment.model.name != "pix2poly":
+        raise NotImplementedError(
+            f"host.compute_dtype=bfloat16 for {cfg.experiment.model.name}: ROADMAP 'Port queue' item 'bfloat16 (HiSup)'"
+        )

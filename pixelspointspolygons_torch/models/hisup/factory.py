@@ -34,7 +34,7 @@ def build_hisup(cfg, device=None, generator: torch.Generator | None = None) -> H
     from `generator` (a generator on that device; torch's global RNG if None)."""
     if bool(cfg.experiment.encoder.get("hrnet", {}).get("pretrained", False)):
         raise NotImplementedError(
-            "pretrained HRNet weights: ROADMAP 'Port queue' item 'Remaining HiSup encoders'"
+            "pretrained HRNet weights: ROADMAP 'Port queue' item 'Pretrained encoders'"
         )
     enc_cfg = encoder_config(cfg)
     enc_cfg.pop("name")

@@ -15,10 +15,21 @@
   fan_in), zero biases, BatchNorm and LayerNorm scale 1 and bias 0 —
   instead of torch's kaiming-uniform; modules with raw parameters draw them
   in their own `reset_flax_parameters(generator)`.
+
+Compute dtype (flax's `dtype=`, e.g. bfloat16). The parameters stay float32
+and each layer computes in its `dtype`: `Dense` and `Embed` cast input and
+parameters to it and give it; `LayerNorm` and `BatchNorm` compute their
+statistics and affine transform in float32 and give `dtype`; attention
+logits are the product in `dtype` divided by √Dh rounded to `dtype`, the
+softmax computes in float32 and rounds its output to `dtype`. `dtype=None` computes in the parameters' own
+dtype (float32, or float64 after `.double()`). Inside `cast_once(module)`
+the layers use parameters cast once on entry, so the 385 steps of the
+KV-cached decode cast none per step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -26,27 +37,43 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def cast_to(t: torch.Tensor | None, dtype: torch.dtype | None) -> torch.Tensor | None:
+    """`t` in `dtype`, with no call where it is already (or `dtype` is None)."""
+    return t if t is None or dtype is None or t.dtype == dtype else t.to(dtype)
+
+
+def widen(dtype: torch.dtype) -> torch.dtype:
+    """The dtype flax computes statistics, softmaxes and losses in: float32,
+    or float64 for float64 (in Python: `torch.promote_types` is an aten call,
+    which a decode step would pay at every norm and softmax)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 class BatchNorm(nn.Module):
-    def __init__(self, num_features: int, momentum: float = 0.9, eps: float = 1e-5, device=None):
+    def __init__(self, num_features: int, momentum: float = 0.9, eps: float = 1e-5, dtype=None, device=None):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.compute_dtype = dtype
         self.weight = nn.Parameter(torch.ones(num_features, device=device))
         self.bias = nn.Parameter(torch.zeros(num_features, device=device))
         self.register_buffer("running_mean", torch.zeros(num_features, device=device))
         self.register_buffer("running_var", torch.ones(num_features, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is not None:
+            x = cast_to(x, widen(dt))
         if not self.training:
-            return F.batch_norm(
+            return cast_to(F.batch_norm(
                 x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps
-            )
+            ), dt)
         out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=[d for d in range(x.ndim) if d != 1], unbiased=False)
             self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
             self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
-        return out
+        return cast_to(out, dt)
 
 
 def lecun_normal_(weight: torch.Tensor, generator: torch.Generator | None = None) -> None:
@@ -72,28 +99,98 @@ def init_flax_defaults(module: nn.Module, generator: torch.Generator | None = No
             m.reset_flax_parameters(generator)
 
 
-def LayerNorm(dim: int, device=None) -> nn.LayerNorm:
-    """flax `nn.LayerNorm()`: eps 1e-6, scale and bias."""
-    return nn.LayerNorm(dim, eps=1e-6, device=device)
+class Dense(nn.Linear):
+    """flax `nn.Dense(dtype=dtype)`: input, kernel and bias cast to `dtype`,
+    the output in it. (`dtype` is the compute dtype, not `nn.Linear`'s
+    parameter dtype: the parameters stay as they are.)"""
+
+    def __init__(self, in_features: int, out_features: int, dtype=None, device=None):
+        super().__init__(in_features, out_features, device=device)
+        self.compute_dtype = dtype
+        self.cached = None  # set by cast_once
+
+    def cast_params(self) -> tuple:
+        return cast_to(self.weight, self.compute_dtype), cast_to(self.bias, self.compute_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, b = self.cached or self.cast_params()
+        return F.linear(cast_to(x, self.compute_dtype), w, b)
+
+
+class Embed(nn.Embedding):
+    """flax `nn.Embed(dtype=dtype)`: the table cast to `dtype`, then looked up."""
+
+    def __init__(self, num_embeddings: int, dim: int, dtype=None, device=None):
+        super().__init__(num_embeddings, dim, device=device)
+        self.compute_dtype = dtype
+        self.cached = None  # set by cast_once
+
+    def cast_params(self) -> tuple:
+        return (cast_to(self.weight, self.compute_dtype),)
+
+    def forward(self, idx: torch.Tensor) -> torch.Tensor:
+        (w,) = self.cached or self.cast_params()
+        return F.embedding(idx, w)
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax `nn.LayerNorm(dtype=dtype)`: eps 1e-6, scale and bias; mean,
+    variance and the affine transform in float32, the output in `dtype`.
+    With a compute dtype both casts are issued even where they change
+    nothing (at float32), so that a decode step issues the same calls at
+    every compute dtype."""
+
+    def __init__(self, dim: int, dtype=None, device=None):
+        super().__init__(dim, eps=1e-6, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        y = F.layer_norm(x.to(widen(dt)), self.normalized_shape, self.weight, self.bias, self.eps)
+        return y.to(dt)
+
+
+@contextlib.contextmanager
+def cast_once(module: nn.Module):
+    """Within the block, the layers of `module` that cast parameters to a
+    compute dtype (those with `cast_params`) use copies cast on entry."""
+    layers = [m for m in module.modules() if hasattr(m, "cast_params")]
+    for m in layers:
+        m.cached = m.cast_params()
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.cached = None
 
 
 def adaptive_avg_pool1d(x: torch.Tensor, out_size: int) -> torch.Tensor:
     """torch.nn.AdaptiveAvgPool1d over the last axis: window i averages
     [floor(i·in/out), ceil((i+1)·in/out)) (the reference's channel
-    bottleneck 384 → 256 on (B, L, C))."""
-    if x.shape[-1] == out_size:
+    bottleneck 384 → 256 on (B, L, C)). As in the JAX package, a product
+    with the (in, out) averaging matrix in x's dtype."""
+    in_size = x.shape[-1]
+    if in_size == out_size:
         return x
-    return F.adaptive_avg_pool1d(x, out_size)
+    i = torch.arange(out_size, device=x.device)
+    starts = (i * in_size) // out_size
+    ends = -((-(i + 1) * in_size) // out_size)
+    idx = torch.arange(in_size, device=x.device)[:, None]
+    mask = (idx >= starts) & (idx < ends)
+    return x @ (mask.to(x.dtype) / (ends - starts).to(x.dtype))
 
 
 class MlpBlock(nn.Module):
     """Dense → exact (erf) GELU or ReLU → Dense. Flax Dense_0/Dense_1 are
     dense0/dense1."""
 
-    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int, activation: str = "gelu", device=None):
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int, activation: str = "gelu", dtype=None,
+                 device=None):
         super().__init__()
-        self.dense0 = nn.Linear(in_dim, hidden_dim, device=device)
-        self.dense1 = nn.Linear(hidden_dim, out_dim, device=device)
+        self.dense0 = Dense(in_dim, hidden_dim, dtype=dtype, device=device)
+        self.dense1 = Dense(hidden_dim, out_dim, dtype=dtype, device=device)
         self.activation = activation
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -105,14 +202,17 @@ class MlpBlock(nn.Module):
 class MultiHeadAttention(nn.Module):
     """Explicit q/k/v/o projections; takes external K/V and an additive bias."""
 
-    def __init__(self, dim: int, num_heads: int, device=None):
+    def __init__(self, dim: int, num_heads: int, dtype=None, device=None):
         super().__init__()
         self.dim = dim
         self.num_heads = num_heads
-        self.q = nn.Linear(dim, dim, device=device)
-        self.k = nn.Linear(dim, dim, device=device)
-        self.v = nn.Linear(dim, dim, device=device)
-        self.o = nn.Linear(dim, dim, device=device)
+        # flax divides by jnp.sqrt(Dh) cast to the compute dtype
+        root = math.sqrt(dim // num_heads)
+        self.scale = root if dtype is None else float(torch.tensor(root, dtype=dtype))
+        self.q = Dense(dim, dim, dtype=dtype, device=device)
+        self.k = Dense(dim, dim, dtype=dtype, device=device)
+        self.v = Dense(dim, dim, dtype=dtype, device=device)
+        self.o = Dense(dim, dim, dtype=dtype, device=device)
 
     def project_kv(self, kv_src: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """K/V of a source (e.g. the cross-attention memory), once."""
@@ -126,12 +226,14 @@ class MultiHeadAttention(nn.Module):
         H = self.num_heads
         Dh = self.dim // H
         q = self.q(q_src).reshape(B, Lq, H, Dh).transpose(1, 2)
-        kh = k.reshape(B, -1, H, Dh).transpose(1, 2)
+        kt = k.reshape(B, -1, H, Dh).permute(0, 2, 3, 1)  # (B, H, Dh, Lk)
         vh = v.reshape(B, -1, H, Dh).transpose(1, 2)
-        logits = torch.matmul(q, kh.transpose(-1, -2)) / math.sqrt(Dh)
+        logits = torch.matmul(q, kt) / self.scale
         if bias is not None:
             logits = logits + bias
-        w = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+        # float32 inside for a bfloat16 input, its output rounded once:
+        # flax's softmax of the logits cast to float32, cast back
+        w = torch.softmax(logits, dim=-1)
         out = torch.matmul(w, vh).transpose(1, 2).reshape(B, Lq, self.dim)
         return self.o(out)
 

@@ -36,10 +36,11 @@ def encoder_config(cfg) -> dict:
 
 
 def build_pix2poly(cfg, tokenizer: Tokenizer | None = None, device=None,
-                   generator: torch.Generator | None = None) -> Pix2Poly:
-    """The Pix2Poly model of `cfg` on `device`, with flax's default init
-    drawn from `generator` (a generator on that device; torch's global RNG
-    if None)."""
+                   generator: torch.Generator | None = None, dtype: torch.dtype = torch.float32) -> Pix2Poly:
+    """The Pix2Poly model of `cfg` on `device`, computing in `dtype` with
+    float32 parameters (`train/state.py::compute_dtype(cfg)` gives the
+    config's), with flax's default init drawn from `generator` (a generator
+    on that device; torch's global RNG if None)."""
     tokenizer = tokenizer or Tokenizer(cfg)
     m = cfg.experiment.model
     model = Pix2Poly(
@@ -53,6 +54,7 @@ def build_pix2poly(cfg, tokenizer: Tokenizer | None = None, device=None,
         max_num_vertices=tokenizer.max_num_vertices,
         sinkhorn_iterations=int(m.sinkhorn_iterations),
         encoder_cfg=encoder_config(cfg),
+        dtype=dtype,
         device=device,
     )
     init_flax_defaults(model, generator)

@@ -4,9 +4,9 @@ port of pixelspointspolygons_tpu/models/pix2poly/model.py (:35-357).
 - `DecoderLayer`: post-norm (self-attention → LN, cross-attention → LN,
   ReLU FFN → LN), with the explicit attention of `layers.py`, so the same
   weights serve the teacher-forced pass and the KV-cached decode.
-- `Decoder.decode_step` writes position `pos` of preallocated
-  (layers, B, T, D) self-attention caches in place and attends over all T
-  slots, the slots after `pos` masked at −1e9, as the JAX step does.
+- `Decoder.decode_step` writes position `pos` of preallocated (B, T, D)
+  self-attention caches, one pair per layer, in place and attends over all
+  T slots, the slots after `pos` masked at −1e9, as the JAX step does.
 - `ScoreNet`: the 1x1-conv stack over vertex pairs as a per-pair MLP over a
   (B, V, V, 2D) tensor; its BatchNorm normalizes the channel-last axis.
 - `greedy_decode` / `greedy_generate`: greedy decoding with the KV cache,
@@ -17,6 +17,13 @@ kernels. Hopper kernels are planned for the decode step (K2), Sinkhorn (K3)
 and the ScoreNet pair MLP (K4) (ROADMAP §2). Module names follow the flax
 tree (`utils/bridge.py`): flax Dense_i in a ScoreNet is dense{i} here,
 BatchNorm_i bn{i}.
+
+`dtype` is the compute dtype of every layer (`layers.py`), as flax's
+`dtype=` (JAX model.py): at bfloat16 the position embeddings are cast before
+they are added, so the residual stream, the KV caches and the decode's
+feats are bfloat16; the logits are bfloat16 and the losses widen them; the
+ScoreNets' scores reach the Sinkhorn as float32. The decode casts the
+decoder's parameters once per call (`layers.cast_once`), not once per step.
 """
 
 from __future__ import annotations
@@ -26,7 +33,19 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.sinkhorn import log_optimal_transport
-from ..layers import BatchNorm, LayerNorm, MlpBlock, MultiHeadAttention, causal_bias, padding_bias
+from ..layers import (
+    BatchNorm,
+    Dense,
+    Embed,
+    LayerNorm,
+    MlpBlock,
+    MultiHeadAttention,
+    cast_to,
+    cast_once,
+    causal_bias,
+    padding_bias,
+    widen,
+)
 from ..vit import ViTEncoder
 
 # the early-exit decode tests "every row emitted EOS" on the host once in
@@ -38,14 +57,14 @@ class DecoderLayer(nn.Module):
     """Post-norm transformer decoder layer (torch nn.TransformerDecoderLayer
     defaults: self-attn → LN, cross-attn → LN, ReLU FFN → LN)."""
 
-    def __init__(self, dim: int, num_heads: int, ffn_dim: int = 2048, device=None):
+    def __init__(self, dim: int, num_heads: int, ffn_dim: int = 2048, dtype=None, device=None):
         super().__init__()
-        self.self_attn = MultiHeadAttention(dim, num_heads, device=device)
-        self.cross_attn = MultiHeadAttention(dim, num_heads, device=device)
-        self.ffn = MlpBlock(dim, ffn_dim, dim, activation="relu", device=device)
-        self.norm1 = LayerNorm(dim, device=device)
-        self.norm2 = LayerNorm(dim, device=device)
-        self.norm3 = LayerNorm(dim, device=device)
+        self.self_attn = MultiHeadAttention(dim, num_heads, dtype=dtype, device=device)
+        self.cross_attn = MultiHeadAttention(dim, num_heads, dtype=dtype, device=device)
+        self.ffn = MlpBlock(dim, ffn_dim, dim, activation="relu", dtype=dtype, device=device)
+        self.norm1 = LayerNorm(dim, dtype=dtype, device=device)
+        self.norm2 = LayerNorm(dim, dtype=dtype, device=device)
+        self.norm3 = LayerNorm(dim, dtype=dtype, device=device)
 
     def forward(self, x, memory, self_bias, mem_bias=None):
         x = self.norm1(x + self.self_attn(x, x, self_bias))
@@ -65,17 +84,19 @@ class Decoder(nn.Module):
     `max_len` counts BOS..EOS; the decoder runs on max_len − 1 positions."""
 
     def __init__(self, vocab_size: int, encoder_len: int, dim: int, num_heads: int, num_layers: int,
-                 max_len: int, pad_idx: int, device=None):
+                 max_len: int, pad_idx: int, dtype=None, device=None):
         super().__init__()
         self.num_layers = num_layers
         self.max_len = max_len
         self.pad_idx = pad_idx
-        self.embedding = nn.Embedding(vocab_size, dim, device=device)
+        self.compute_dtype = dtype
+        self.cached = None  # set by cast_once
+        self.embedding = Embed(vocab_size, dim, dtype=dtype, device=device)
         self.decoder_pos_embed = nn.Parameter(torch.zeros(1, max_len - 1, dim, device=device))
         self.encoder_pos_embed = nn.Parameter(torch.zeros(1, encoder_len, dim, device=device))
         for i in range(num_layers):
-            self.add_module(f"layer{i}", DecoderLayer(dim, num_heads, device=device))
-        self.output = nn.Linear(dim, vocab_size, device=device)
+            self.add_module(f"layer{i}", DecoderLayer(dim, num_heads, dtype=dtype, device=device))
+        self.output = Dense(dim, vocab_size, dtype=dtype, device=device)
 
     def reset_flax_parameters(self, generator=None) -> None:
         with torch.no_grad():
@@ -85,34 +106,40 @@ class Decoder(nn.Module):
     def layers(self) -> list[DecoderLayer]:
         return [getattr(self, f"layer{i}") for i in range(self.num_layers)]
 
+    def cast_params(self) -> tuple:
+        return (cast_to(self.decoder_pos_embed, self.compute_dtype),)
+
     def forward(self, encoder_out: torch.Tensor, tgt: torch.Tensor):
         """Teacher-forced pass. encoder_out: (B, N, D); tgt: (B, L) int.
         Returns (logits (B, L, V), features (B, L, D))."""
         L = tgt.shape[1]
-        x = self.embedding(tgt) + self.decoder_pos_embed[:, :L]
-        memory = encoder_out + self.encoder_pos_embed
+        x = self.embedding(tgt)
+        x = x + cast_to(self.decoder_pos_embed[:, :L], x.dtype)
+        memory = encoder_out + cast_to(self.encoder_pos_embed, encoder_out.dtype)
         bias = causal_bias(L, x.dtype, x.device) + padding_bias(tgt == self.pad_idx, x.dtype)
         for layer in self.layers():
             x = layer(x, memory, bias)
         return self.output(x), x
 
     def init_memory_kv(self, encoder_out: torch.Tensor) -> list[tuple[torch.Tensor, torch.Tensor]]:
-        memory = encoder_out + self.encoder_pos_embed
+        memory = encoder_out + cast_to(self.encoder_pos_embed, encoder_out.dtype)
         return [layer.cross_attn.project_kv(memory) for layer in self.layers()]
 
-    def decode_step(self, tok, pos: int, cache_k, cache_v, memory_kv, slot_bias):
+    def decode_step(self, tok, pos: int, caches, memory_kv, slot_bias):
         """One greedy step at position `pos` (a host int: no device sync).
 
-        tok: (B,) input tokens; cache_k/v: (num_layers, B, T, D), position
-        `pos` written in place; slot_bias: (T, T) `causal_bias`, whose row
-        `pos` masks the slots after `pos`. Returns (logits (B, V), feats (B, D))."""
-        x = self.embedding(tok)[:, None, :] + self.decoder_pos_embed[:, pos : pos + 1]
+        tok: (B,) input tokens; caches: per layer the (B, T, D) self-attention
+        K and V, position `pos` written in place; slot_bias: (T, T)
+        `causal_bias`, whose row `pos` masks the slots after `pos`. Returns
+        (logits (B, V), feats (B, D))."""
+        (pos_embed,) = self.cached or self.cast_params()
+        x = self.embedding(tok)[:, None, :] + pos_embed[:, pos : pos + 1]
         bias = slot_bias[pos]
-        for i, layer in enumerate(self.layers()):
+        for layer, (cache_k, cache_v), kv in zip(self.layers(), caches, memory_kv):
             k_cur, v_cur = layer.self_attn.project_kv(x)  # (B, 1, D)
-            cache_k[i, :, pos] = k_cur[:, 0]
-            cache_v[i, :, pos] = v_cur[:, 0]
-            x = layer.step(x, cache_k[i], cache_v[i], *memory_kv[i], bias)
+            cache_k[:, pos : pos + 1] = k_cur
+            cache_v[:, pos : pos + 1] = v_cur
+            x = layer.step(x, cache_k, cache_v, *kv, bias)
         feats = x[:, 0]
         return self.output(feats), feats
 
@@ -124,14 +151,14 @@ class ScoreNet(nn.Module):
     concatenate every pair, then Dense 2D→256→128→64 with BatchNorm + ReLU
     and Dense →1 (reference model_pix2poly.py:69-112's 1x1 convs)."""
 
-    def __init__(self, n_vertices: int, dim: int, device=None):
+    def __init__(self, n_vertices: int, dim: int, dtype=None, device=None):
         super().__init__()
         self.n_vertices = n_vertices
         chans = (2 * dim, 256, 128, 64)
         for i in range(3):
-            self.add_module(f"dense{i}", nn.Linear(chans[i], chans[i + 1], device=device))
-            self.add_module(f"bn{i}", BatchNorm(chans[i + 1], device=device))
-        self.dense3 = nn.Linear(64, 1, device=device)
+            self.add_module(f"dense{i}", Dense(chans[i], chans[i + 1], dtype=dtype, device=device))
+            self.add_module(f"bn{i}", BatchNorm(chans[i + 1], dtype=dtype, device=device))
+        self.dense3 = Dense(64, 1, dtype=dtype, device=device)
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
         x = feats[:, 1:]  # drop the BOS position
@@ -153,7 +180,7 @@ class Pix2Poly(nn.Module):
 
     def __init__(self, vocab_size: int, encoder_len: int, dim: int, num_heads: int, num_layers: int,
                  max_len: int, pad_idx: int, max_num_vertices: int, sinkhorn_iterations: int = 100,
-                 encoder_cfg: dict | None = None, device=None):
+                 encoder_cfg: dict | None = None, dtype=torch.float32, device=None):
         super().__init__()
         enc_cfg = dict(encoder_cfg or {})
         enc_name = enc_cfg.pop("name", "vit")
@@ -168,10 +195,12 @@ class Pix2Poly(nn.Module):
         self.pad_idx = pad_idx
         self.max_num_vertices = max_num_vertices
         self.sinkhorn_iterations = sinkhorn_iterations
-        self.encoder = ViTEncoder(out_dim=dim, device=device, **enc_cfg)
-        self.decoder = Decoder(vocab_size, encoder_len, dim, num_heads, num_layers, max_len, pad_idx, device=device)
-        self.scorenet1 = ScoreNet(max_num_vertices, dim, device=device)
-        self.scorenet2 = ScoreNet(max_num_vertices, dim, device=device)
+        self.compute_dtype = dtype
+        self.encoder = ViTEncoder(out_dim=dim, dtype=dtype, device=device, **enc_cfg)
+        self.decoder = Decoder(vocab_size, encoder_len, dim, num_heads, num_layers, max_len, pad_idx, dtype=dtype,
+                               device=device)
+        self.scorenet1 = ScoreNet(max_num_vertices, dim, dtype=dtype, device=device)
+        self.scorenet2 = ScoreNet(max_num_vertices, dim, dtype=dtype, device=device)
         self.bin_score = nn.Parameter(torch.tensor(1.0, device=device))
 
     def encode(self, batch: dict) -> torch.Tensor:
@@ -188,7 +217,7 @@ class Pix2Poly(nn.Module):
     def perm_from_feats(self, feats: torch.Tensor) -> torch.Tensor:
         scores = self.raw_scores_from_feats(feats)
         M, N = scores.shape[1:]
-        Z = log_optimal_transport(scores.float(), self.bin_score, self.sinkhorn_iterations)[:, :M, :N]
+        Z = log_optimal_transport(scores.to(widen(scores.dtype)), self.bin_score, self.sinkhorn_iterations)[:, :M, :N]
         return torch.softmax(Z, dim=-1)
 
     def forward(self, batch: dict, y_input: torch.Tensor):
@@ -218,27 +247,27 @@ def greedy_decode(model: Pix2Poly, enc: torch.Tensor, bos_code: int, generation_
     dec = model.decoder
     B, dev, dt = enc.shape[0], enc.device, enc.dtype
     T = model.max_len - 1
-    memory_kv = dec.init_memory_kv(enc)
-    cache_k = torch.zeros((model.num_layers, B, T, model.dim), dtype=dt, device=dev)
-    cache_v = torch.zeros_like(cache_k)
+    caches = [tuple(torch.zeros((B, T, model.dim), dtype=dt, device=dev) for _ in "kv") for _ in range(model.num_layers)]
     slot_bias = causal_bias(T, dt, dev)[0, 0]
     tokens = torch.full((B, T), model.pad_idx, dtype=torch.long, device=dev)
     feats = torch.zeros((B, T, model.dim), dtype=dt, device=dev)
     tok = torch.full((B,), bos_code, dtype=torch.long, device=dev)
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
     pos = 0
-    while pos < generation_steps:
-        logits, f = dec.decode_step(tok, pos, cache_k, cache_v, memory_kv, slot_bias)
-        tok = torch.argmax(logits, dim=-1)  # the first maximum, as jnp.argmax
-        if eos_code is not None:
-            tok = tok.masked_fill(done, model.pad_idx)
-            f = f.masked_fill(done[:, None], 0.0)
-            done = done | (tok == eos_code)
-        tokens[:, pos] = tok
-        feats[:, pos] = f
-        pos += 1
-        if eos_code is not None and pos % EXIT_CHECK_EVERY == 0 and bool(done.all()):
-            break
+    with cast_once(dec):
+        memory_kv = dec.init_memory_kv(enc)
+        while pos < generation_steps:
+            logits, f = dec.decode_step(tok, pos, caches, memory_kv, slot_bias)
+            tok = torch.argmax(logits, dim=-1)  # the first maximum, as jnp.argmax
+            if eos_code is not None:
+                tok = tok.masked_fill(done, model.pad_idx)
+                f = f.masked_fill(done[:, None], 0.0)
+                done = done | (tok == eos_code)
+            tokens[:, pos] = tok
+            feats[:, pos] = f
+            pos += 1
+            if eos_code is not None and pos % EXIT_CHECK_EVERY == 0 and bool(done.all()):
+                break
     return tokens, feats, pos
 
 

@@ -22,6 +22,7 @@ from scipy.optimize import linear_sum_assignment
 
 from ..data.loader import build_loader, to_device
 from ..models.pix2poly import Pix2Poly, Tokenizer, build_pix2poly, greedy_decode
+from ..train.state import compute_dtype
 from ..utils.coco import generate_coco_ann
 from .predictor import Predictor
 
@@ -93,10 +94,14 @@ def _bubble_merge(chains: list[list[int]]) -> list[list[int]]:
 class Pix2PolyPredictor(Predictor):
     def __init__(self, cfg, device: str | torch.device | None = None, model: Pix2Poly | None = None):
         """`model`: a Pix2Poly already on `device` whose weights the caller
-        owns; else one is built and takes its weights from the checkpoint."""
+        owns (the trainer's, at its compute dtype); else one is built at
+        the config's compute dtype and takes its weights from the
+        checkpoint."""
         super().__init__(cfg, device)
         self.tokenizer = Tokenizer(cfg)
-        self.model = build_pix2poly(cfg, self.tokenizer, device=self.device) if model is None else model
+        if model is None:
+            model = build_pix2poly(cfg, self.tokenizer, device=self.device, dtype=compute_dtype(cfg))
+        self.model = model
         self.generation_steps = int(cfg.experiment.model.tokenizer.generation_steps)
         # per batch of the last predict_dataset: device ms of the encoder,
         # the decode loop and the ScoreNets (CUDA events; None on the CPU),
@@ -154,11 +159,12 @@ class Pix2PolyPredictor(Predictor):
 
     @staticmethod
     def _fetch(handles) -> tuple[np.ndarray, np.ndarray]:
-        """Wait for one batch's copy alone; (tokens, float32 scores) as numpy."""
+        """Wait for one batch's copy alone; (tokens, float32 scores) as numpy
+        (numpy has no bfloat16)."""
         (tokens, scores), _, events = handles
         if events is not None:
             events[4].synchronize()
-        return tokens.numpy(), scores.numpy().astype(np.float32)
+        return tokens.numpy(), scores.float().numpy()
 
     def predict_batch(self, batch: dict) -> tuple[list, np.ndarray]:
         """(per-sample polygon lists, tokens) of one host batch, synchronously."""

@@ -107,3 +107,10 @@ class TrainState:
 
 def num_params(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
+
+
+def compute_dtype(cfg) -> torch.dtype:
+    """The torch dtype of cfg.host.compute_dtype (JAX state.py:61-67); the
+    parameters stay float32 whatever it is."""
+    name = str(cfg.host.get("compute_dtype", "float32")).lower()
+    return torch.bfloat16 if name in ("bf16", "bfloat16") else torch.float32

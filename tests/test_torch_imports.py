@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no file of `pixelspointspolygons_torch/`
-and not `chip_smoke.py` or `afm_bench.py` imports JAX, flax, optax, orbax or the JAX package,
-and a fresh process that imports every module of the port, takes a HiSup
-train step and decodes with a Pix2Poly on the CPU has none of them loaded."""
+and not `chip_smoke.py`, `afm_bench.py` or `bench_torch.py` imports JAX,
+flax, optax, orbax or the JAX package, and a fresh process that imports
+every module of the port, takes a HiSup and a Pix2Poly train step and
+decodes with a Pix2Poly on the CPU has none of them loaded."""
 
 import ast
 import os
@@ -15,7 +16,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pixelspointspolygons_tp
 
 
 def _sources():
-    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "afm_bench.py")]
+    files = [os.path.join(ROOT, name) for name in ("chip_smoke.py", "afm_bench.py", "bench_torch.py")]
     for d, _, names in os.walk(PORT):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -42,6 +43,7 @@ def _imported_roots(path):
 def test_sources_import_nothing_of_jax():
     files = _sources()
     assert len(files) > 20 and os.path.join(PORT, "ops", "afm.py") in files
+    assert os.path.join(ROOT, "bench_torch.py") in files
     bad = [
         f"{os.path.relpath(path, ROOT)}:{line} imports {root}"
         for path in files
@@ -97,6 +99,16 @@ _STEP = textwrap.dedent(
         for eos in (None, 17):
             tokens, perm = greedy_generate(p2p.eval(), {"images": batch["images"][:, :16, :16]}, 16, 11, eos_code=eos)
             assert tokens.shape == (B, 11) and torch.isfinite(perm).all()
+
+    from pixelspointspolygons_torch.train import pix2poly_step
+
+    opt = make_optimizer("adamw", p2p.parameters(), 3e-4, b2=0.95)
+    p2p_state = TrainState(p2p, opt, make_scheduler(opt, cosine_with_warmup(3e-4, 2), 3e-4))
+    y = torch.full((B, 12), 18, dtype=torch.int32)
+    y[:, 0], y[:, 1:5], y[:, 5] = 16, torch.from_numpy(rng.randint(0, 16, (B, 4)).astype(np.int32)), 17
+    p2p_batch = {"images": batch["images"][:, :16, :16], "y": y, "y_perm": torch.eye(5).expand(B, 5, 5).contiguous()}
+    out = pix2poly_step.make_train_step(1.0, 10.0, 18)(p2p_state, p2p_batch)
+    assert torch.isfinite(out["loss"]) and p2p_state.step == 1
     print(",".join(sorted({m.split(".")[0] for m in sys.modules})))
     """
 )

@@ -327,9 +327,26 @@ def test_cli_needs_a_card_unless_asked_for_the_cpu(entry, tmp_path):
         entry.main(_overrides(tmp_path, ["evaluation=test", "checkpoint=latest"]))
 
 
-def test_bfloat16_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP 'Port queue' item 'bfloat16'"):
-        cli_predict.get_predictor(compose(_overrides(tmp_path, ["host.compute_dtype=bfloat16"])), "cpu")
+def test_bfloat16_not_ported(tiny_vit, tmp_path):
+    """HiSup's predictor refuses bfloat16, naming its ROADMAP item; the
+    Pix2Poly predictor builds its model at bfloat16 (float32 parameters)
+    and predicts a batch from a float32 checkpoint, its scores reaching the
+    host as float32."""
+    hisup = compose(["experiment=hisup_image", "dataset=synthetic", f"host.model_root={tmp_path}",
+                     "host.compute_dtype=bfloat16"])
+    with pytest.raises(NotImplementedError, match=r"ROADMAP 'Port queue' item 'bfloat16 \(HiSup\)'"):
+        cli_predict.get_predictor(hisup, "cpu")
+    cfg = compose(_overrides(tmp_path, ["host.compute_dtype=bfloat16", "checkpoint=latest"]))
+    _write_latest(cfg)
+    predictor = cli_predict.get_predictor(cfg, "cpu")
+    assert predictor.model.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in predictor.model.parameters())
+    predictor.load_checkpoint()
+    batch = {"images": np.random.RandomState(0).normal(size=(2, S, S, 3)).astype(np.float32)}
+    (tokens, scores), info = predictor.forward(port_pp.to_device(batch, predictor.device, port_pp._INPUT_KEYS))
+    assert scores.dtype == torch.bfloat16 and tokens.shape == (2, MAX_LEN - 1)
+    polys, _ = predictor.predict_batch(batch)
+    assert len(polys) == 2 and predictor._fetch(((tokens, scores), info, None))[1].dtype == np.float32
 
 
 def test_predictor_builds_with_flax_init(tmp_path):
