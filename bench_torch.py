@@ -11,7 +11,9 @@ it: encoder, the fixed-length KV-cached greedy decode (all 385 steps) and
 the Sinkhorn permutation head, on random images and a seeded model with
 flax's default init. Tiles per second is the batch over the median time of
 a batch over `repeats` repeats of `iters` batches; `spread_pct` is the
-spread of the middle repeats over that median.
+spread of the middle repeats (all but the fastest and the slowest) over
+that median, and null (not measured) under 5 repeats, where the middle
+repeats are one or two.
 
 `vs_baseline` is measured live on the same card: the reference's decode
 (one full decoder re-forward per generated token, no KV cache; bench.py:83-113)
@@ -40,6 +42,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 SEED = 0
 PROBE_STEPS = 16
+MIN_SPREAD_REPEATS = 5
 
 
 def _sync(device: torch.device) -> None:
@@ -80,8 +83,8 @@ def run(batch: int = 16, iters: int = 20, repeats: int = 5, device: str = "cuda"
             per_batch.append((time.perf_counter() - t0) / iters)
         per_batch.sort()
         dt = statistics.median(per_batch)
-        trimmed = per_batch[1:-1] if len(per_batch) >= 3 else per_batch
-        spread_pct = 100.0 * (trimmed[-1] - trimmed[0]) / dt
+        trimmed = per_batch[1:-1]
+        spread_pct = 100.0 * (trimmed[-1] - trimmed[0]) / dt if repeats >= MIN_SPREAD_REPEATS else None
 
         # the reference's decode: a full re-forward of the decoder per token
         enc = model.encode(inputs)
@@ -111,7 +114,7 @@ def run(batch: int = 16, iters: int = 20, repeats: int = 5, device: str = "cuda"
         "value": round(batch / dt, 2),
         "unit": "tiles/sec",
         "vs_baseline": round(baseline_dt / dt, 2),
-        "spread_pct": round(spread_pct, 1),
+        "spread_pct": None if spread_pct is None else round(spread_pct, 1),
         "compute_dtype": "bfloat16",
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         "batch": batch,

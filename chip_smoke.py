@@ -25,7 +25,7 @@ fails:
      with the counters set to 0 just before and read just after (it
      launches no kernel of the port); tiles per second, each batch's device
      time (forward + junction extraction, CUDA events), host-stage time and
-     wall time, the metric dict; one batch's maps on the card against the
+     wall time, the metric dict; 4 tiles' maps on the card against the
      CPU's and the junction candidates of the same maps on both; the host
      stage alone on the ground-truth masks and corners of the 64 tiles;
   6. the Pix2Poly predict path: a seeded random Pix2Poly-image at full width
@@ -62,14 +62,33 @@ fails:
      training's `latest`, with the counters set to 0 just before and read
      just after, timed per batch as in 6; on 2 tiles the card's bfloat16
      against the CPU's (encoder tokens, decode tokens outside near-ties,
-     teacher-forced logits, raw scores); the bfloat16 fixed-length decode
-     of `bench.py` cut at its stages and one step profiled, with the same
-     step of the float32 model of the same weights (a bfloat16 step must
-     make no more aten calls: the weights are cast once per decode); then
-     `bench_torch.py`'s measurement with few iterations, its JSON line on
-     a line of its own.
-The line before the last is a JSON object with every kernel's numbers; the
-last line is {"ok": true, "device": {...}}.
+     teacher-forced logits, raw scores), for the model and for the varied
+     copy (unsharpened) of 6's seeded random model, whose tokens vary;
+     the bfloat16 fixed-length decode of `bench.py` cut at its stages and
+     one step profiled, with the same step of the float32 model of the
+     same weights (a bfloat16 step must make no more aten calls: the
+     weights are cast once per decode; each busy share is over that
+     model's own step); then `bench_torch.py`'s measurement with few
+     iterations, its JSON line on a line of its own (`spread_pct` null:
+     not measured from fewer than 5 repeats);
+ 10. HiSup-image training at bfloat16 (`host.compute_dtype=bfloat16`) from
+     the same seed and weights as 4, with the counters set to 0 just
+     before and read just after (5 AFM launches): step time, the step by
+     layer, peak memory, the val IoU, its first step's losses against the
+     float32 run's, and the card against the CPU at bfloat16 on 2 tiles;
+ 11. HiSup prediction at bfloat16 of the test split from that training's
+     `latest`, as in 5 (0 AFM launches);
+ 12. pretrained encoders and the warm start: a timm-layout ViT-S/8 file
+     and a reference-layout HRNetV2-W48 file written from seeded numpy,
+     grafted by the Pix2Poly and HiSup trainers' set-up
+     (`pretrained=true checkpoint_file=...`) and one train step each, and
+     a HiSup set-up with `init_weights_from` the float32 training's
+     checkpoint and one step; the tensors loaded and kept at init, and the
+     grafted tensors on the card against the file's;
+ 13. `graft_entry_torch.entry()` on the card against the CPU.
+They run in the order 1-5, 10-13, 6-9. The line before the last is the
+card's name and power limit, the one before it a JSON object with every
+kernel's numbers; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -78,6 +97,7 @@ import importlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -93,6 +113,7 @@ CARD = torch.device("cuda")
 
 # published peaks of one H100 SXM (dense): FP32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 # FP32 operations the AFM needs per (pixel, valid segment) pair: 1 add (the
 # numerator, from a column term and a row term), 1 div, 2 clamp, 2 x (FMA
@@ -148,11 +169,36 @@ P2P_BF16_LOSS_TOL = 5e-2
 # bfloat16 on the card against bfloat16 on the CPU: each layer's output is
 # rounded to 8 bits (2^-9 relative), and the two devices sum products in
 # other orders, so elements differ by an ulp here and there, more through 12
-# encoder blocks and 6 decoder layers: 5e-2 in relative L2; generated tokens
-# are compared up to each row's first step whose top-2 logit gap on the CPU
-# is under P2P_BF16_NEAR_TIE_ULPS ulps of its largest logit
+# encoder blocks and 6 decoder layers: 5e-2 in relative L2; the two greedy
+# decodes are compared token by token up to where they part at a step whose
+# top-2 logit gap on the CPU is under P2P_BF16_NEAR_TIE_ULPS ulps of its
+# largest logit. The trained checkpoint emits one token, so the check also
+# runs on `p2p_chain`'s copy of the seeded random model on
+# P2P_BF16_CHAIN_TILES tiles, which must compare at least
+# P2P_BF16_MIN_DECODE decode positions and P2P_BF16_MIN_DISTINCT tokens.
 P2P_BF16_REL_L2 = 5e-2
 P2P_BF16_NEAR_TIE_ULPS = 8
+P2P_BF16_SUBLAYER, P2P_BF16_CHAIN_TILES = 0.5, 8
+P2P_BF16_MIN_DECODE, P2P_BF16_MIN_DISTINCT = 100, 10
+# the pretrained-encoder files are drawn from this seed
+PRETRAINED_SEED = 3
+# HiSup at bfloat16: the first train step's losses against float32's from
+# the same weights on the same batch, 1e-2 relative (bfloat16 rounds each
+# layer's output to 8 bits; the losses are float32 means over the batch).
+# The card against the CPU at bfloat16 on 2 tiles of the first step's batch
+# (the CPU's bfloat16 convolutions are slow), from the first step's weights
+# in eval mode: each head within 5e-2 in relative L2, through about 40
+# rounded layers. Not in train mode: there, from the same weights, each
+# side strays 31-65 % from float32 and 20-49 % from the other (NVIDIA H100
+# 80GB HBM3 and its host, PERF.md), as JAX's bfloat16 strays in train mode
+# at a tiny width (tests/test_torch_hisup_bf16.py); nor after the 4 updates,
+# where eval mode read 2-7 % apart.
+HISUP_BF16_LOSS_TOL = 1e-2
+HISUP_BF16_CPU_TILES = 2
+HISUP_BF16_REL_L2 = 5e-2
+# the port's twin of __graft_entry__.entry() on the card against the CPU,
+# float32 with TF32 off: 1e-3 of the largest value, as Pix2Poly above
+ENTRY_REL_TOL = 1e-3
 # bench_torch.py inside the smoke run: few iterations (its own defaults are
 # 20 iterations in each of 5 repeats)
 BENCH_ITERS, BENCH_REPEATS = 1, 3
@@ -161,6 +207,63 @@ BENCH_ITERS, BENCH_REPEATS = 1, 3
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+
+def timm_vit_state(dim: int, depth: int, patch: int, grid: int, seed: int, split_qkv: bool = False,
+                   dinov2: bool = False) -> dict[str, torch.Tensor]:
+    """A state_dict in the layout of a timm VisionTransformer (DINO ViT-S/8
+    at dim 384, depth 12, patch 8, grid 28), drawn from a seeded numpy
+    generator: attention as one fused `qkv` or (`split_qkv`) as separate
+    `q`/`k`/`v` projections, and (`dinov2`) DINOv2's LayerScale gammas."""
+    r = np.random.RandomState(seed)
+
+    def t(*shape, base=0.0):
+        return torch.from_numpy((base + 0.05 * r.standard_normal(shape)).astype(np.float32))
+
+    sd = {"cls_token": t(1, 1, dim), "pos_embed": t(1, grid * grid + 1, dim),
+          "patch_embed.proj.weight": t(dim, 3, patch, patch), "patch_embed.proj.bias": t(dim),
+          "norm.weight": t(dim, base=1.0), "norm.bias": t(dim)}
+    for i in range(depth):
+        p = f"blocks.{i}."
+        if split_qkv:
+            sd.update({f"{p}attn.{x}.{leaf}": t(dim, dim) if leaf == "weight" else t(dim)
+                       for x in "qkv" for leaf in ("weight", "bias")})
+        else:
+            sd.update({p + "attn.qkv.weight": t(3 * dim, dim), p + "attn.qkv.bias": t(3 * dim)})
+        sd.update({p + "norm1.weight": t(dim, base=1.0), p + "norm1.bias": t(dim),
+                   p + "attn.proj.weight": t(dim, dim), p + "attn.proj.bias": t(dim),
+                   p + "norm2.weight": t(dim, base=1.0), p + "norm2.bias": t(dim),
+                   p + "mlp.fc1.weight": t(4 * dim, dim), p + "mlp.fc1.bias": t(4 * dim),
+                   p + "mlp.fc2.weight": t(dim, 4 * dim), p + "mlp.fc2.bias": t(dim)})
+        if dinov2:
+            sd.update({p + "ls1.gamma": t(dim, base=0.1), p + "ls2.gamma": t(dim, base=0.1)})
+    return sd
+
+
+def hrnet_reference_state(encoder, seed: int, drop: tuple[str, ...] = ()) -> dict[str, torch.Tensor]:
+    """A state_dict in the reference HRNetV2's layout (the ImageNet
+    HRNetV2-W48 file's module names: `layer1.0.conv1`, `stage3.1.branches.2.0.bn1`,
+    `last_layer.3`, ...) for the modules the port's `encoder` has, drawn
+    from a seeded numpy generator; modules whose reference name starts with
+    one of `drop` are left out (a partial file)."""
+    from pixelspointspolygons_torch.utils.torch_port import _hrnet_entries
+
+    r = np.random.RandomState(seed)
+    target = encoder.state_dict()
+    sd = {}
+    for ref, ours, kind in _hrnet_entries():
+        if f"{ours}.weight" not in target or ref.startswith(drop):
+            continue
+        leaves = ("weight", "bias") if kind == "conv" else ("weight", "bias", "running_mean", "running_var")
+        for leaf in leaves:
+            if f"{ours}.{leaf}" in target:
+                shape = tuple(target[f"{ours}.{leaf}"].shape)
+                value = 0.05 * r.standard_normal(shape)
+                if leaf == "running_var" or (kind == "bn" and leaf == "weight"):
+                    value = 1.0 + np.abs(value)
+                sd[f"{ref}.{leaf}"] = torch.from_numpy(value.astype(np.float32))
+    return sd
 
 
 def cuda_ms(fn, launches: int, rounds: int) -> float:
@@ -357,16 +460,11 @@ def phase_afm(cfg) -> dict:
     }
 
 
-def phase_train(cfg_overrides: list[str]) -> tuple[dict, dict]:
-    from pixelspointspolygons_torch.config import compose
-    from pixelspointspolygons_torch.data.loader import device_prefetch
-    from pixelspointspolygons_torch.ops.afm import afm_cuda
-    from pixelspointspolygons_torch.train.trainer_hisup import _DEV_KEYS, HiSupTrainer
-
-    cfg = compose(cfg_overrides)
-    trainer = HiSupTrainer(cfg)
-    iou_pass_s = []
-
+def record_steps(trainer, step_losses: list, iou_pass_s: list, first: dict | None = None) -> None:
+    """Have the trainer's set-up wrap its train step so that it records
+    each step's metrics, and time its val-IoU pass. With `first`, the first
+    step's weights and HISUP_BF16_CPU_TILES of its images are copied into
+    it (to the host, so that the copy adds nothing to the peak)."""
     def timed_predict_and_eval(epoch, run=trainer.predict_and_eval):
         t = time.perf_counter()
         iou = run(epoch)
@@ -374,7 +472,38 @@ def phase_train(cfg_overrides: list[str]) -> tuple[dict, dict]:
         iou_pass_s.append(time.perf_counter() - t)
         return iou
 
+    def setup_and_record(run=trainer.setup):
+        run()
+        step = trainer._train_step
+
+        def recorded(state, batch):
+            if first is not None and not first:
+                first["state"] = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+                first["images"] = batch["images"][:HISUP_BF16_CPU_TILES].cpu()
+            metrics = step(state, batch)
+            step_losses.append(metrics)
+            return metrics
+
+        trainer._train_step = recorded
+
     trainer.predict_and_eval = timed_predict_and_eval
+    trainer.setup = setup_and_record
+
+
+def phase_train(cfg_overrides: list[str], dtype: str = "float32") -> tuple[dict, dict]:
+    """HiSup-image training at full width through the trainer that
+    `cli/train.py` builds, at `dtype`: 4 train + 1 val steps and the val-IoU
+    pass with the kernel counters set to 0 just before and read just after,
+    then the steady-state step, its parts and the card against the CPU."""
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.data.loader import device_prefetch
+    from pixelspointspolygons_torch.ops.afm import afm_cuda
+    from pixelspointspolygons_torch.train.trainer_hisup import _DEV_KEYS, HiSupTrainer
+
+    cfg = compose(cfg_overrides + [f"host.compute_dtype={dtype}"])
+    trainer = HiSupTrainer(cfg)
+    iou_pass_s, step_losses, first = [], [], {}
+    record_steps(trainer, step_losses, iou_pass_s, first if dtype == "bfloat16" else None)
     torch.cuda.reset_peak_memory_stats()
     afm_cuda.launches = 0
     t0 = time.perf_counter()
@@ -384,18 +513,24 @@ def phase_train(cfg_overrides: list[str]) -> tuple[dict, dict]:
     launches = {"afm": afm_cuda.launches}
     peak = torch.cuda.max_memory_allocated()
     n_train, n_val = len(trainer.train_loader), len(trainer.val_loader)
+    model = trainer.state.model
+    losses = [{k: float(v) for k, v in m.items()} for m in step_losses]
     print(
-        f"main path: {n_train} train + {n_val} val steps and the val-IoU pass in {wall:.1f} s "
-        f"(set-up included), peak memory {peak/2**30:.2f} GiB; launches {launches}",
+        f"main path ({dtype}): {n_train} train + {n_val} val steps and the val-IoU pass in {wall:.1f} s "
+        f"(set-up included), peak memory {peak/2**30:.2f} GiB; launches {launches}; model computes in "
+        f"{model.compute_dtype}, parameters {next(model.parameters()).dtype}",
         flush=True,
     )
-    print("history: " + json.dumps(history), flush=True)
-    if (n_train, n_val) != (TRAIN_STEPS, VAL_STEPS):
-        fail(f"expected {TRAIN_STEPS} train and {VAL_STEPS} val steps, got {n_train} and {n_val}")
+    print(f"history ({dtype}): " + json.dumps(history), flush=True)
+    print(f"step losses ({dtype}): " + json.dumps(losses), flush=True)
+    if (n_train, n_val) != (TRAIN_STEPS, VAL_STEPS) or len(losses) != n_train:
+        fail(f"expected {TRAIN_STEPS} train and {VAL_STEPS} val steps, got {n_train}, {n_val}, {len(losses)}")
     if not all(np.isfinite(v) for k, v in history.items() if k != "epoch"):
-        fail(f"non-finite losses: {history}")
+        fail(f"non-finite losses ({dtype}): {history}")
     if launches["afm"] != n_train + n_val:
-        fail(f"afm launched {launches['afm']} times, expected {n_train + n_val}")
+        fail(f"afm launched {launches['afm']} times ({dtype}), expected {n_train + n_val}")
+    if model.compute_dtype != getattr(torch, dtype) or next(model.parameters()).dtype != torch.float32:
+        fail(f"HiSup ({dtype}): the model computes in {model.compute_dtype}")
     if not trainer.manager.exists("latest") or not trainer.manager.exists("best_val_loss"):
         fail("trainer wrote no latest/best_val_loss checkpoint")
     val_iou = history.get("val_iou")
@@ -403,7 +538,7 @@ def phase_train(cfg_overrides: list[str]) -> tuple[dict, dict]:
         fail(f"the val-IoU pass gave no IoU in [0, 1]: {val_iou}")
     # best_val_iou is written only above the initial best (0.0), which a
     # 4-step model need not reach
-    print(f"val-IoU pass: {n_val * B} val tiles polygonized in {iou_pass_s[0] * 1e3:.1f} ms (wall), "
+    print(f"val-IoU pass ({dtype}): {n_val * B} val tiles polygonized in {iou_pass_s[0] * 1e3:.1f} ms (wall), "
           f"val IoU {val_iou:.4f}, best_val_iou written: {trainer.manager.exists('best_val_iou')}", flush=True)
 
     # steady state on the same batches (not part of the counted run)
@@ -424,21 +559,98 @@ def phase_train(cfg_overrides: list[str]) -> tuple[dict, dict]:
     trainer._val_step(trainer.state, batches[0])
     torch.cuda.synchronize()
     val_ms = (time.perf_counter() - t) * 1e3
-    print(f"train step {step_ms:.1f} ms (median of {len(times)}: {[round(x, 1) for x in times]}), "
+    print(f"train step ({dtype}) {step_ms:.1f} ms (median of {len(times)}: {[round(x, 1) for x in times]}), "
           f"val step {val_ms:.1f} ms, host loader {loader_ms:.1f} ms per batch", flush=True)
     parts = [step_parts(trainer, batch) for batch in batches]
     breakdown = {k: statistics.median(p[k] for p in parts) for k in parts[0]}
-    print("train step by layer (ms, median of %d): %s" % (len(parts), json.dumps(breakdown)), flush=True)
+    print(f"train step ({dtype}) by layer (ms, CUDA events, median of {len(parts)}): {json.dumps(breakdown)}",
+          flush=True)
     flops = conv_flops(trainer.state.model, batches[0]["images"])
+    peak_flops = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_FP32_FLOPS
     print(
-        f"convolutions: {flops / 1e12:.3f} TFLOP in the forward, about twice that in the backward; "
+        f"convolutions ({dtype}): {flops / 1e12:.3f} TFLOP in the forward, about twice that in the backward; "
         f"forward {flops / breakdown['forward'] / 1e9:.1f} TFLOP/s, "
         f"backward {2 * flops / breakdown['backward'] / 1e9:.1f} TFLOP/s "
-        f"(FP32 peak {PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s, TF32 off)",
+        f"(peak {peak_flops / 1e12:.0f} TFLOP/s at {dtype}, TF32 off)",
         flush=True,
     )
-    check_against_cpu(trainer, batches[0])
-    return launches, {"step_ms": step_ms, "val_ms": val_ms, "peak_bytes": peak, "iou_pass_ms": iou_pass_s[0] * 1e3}
+    profile_forward(trainer, batches[0]["images"], dtype)
+    if dtype == "float32":
+        check_against_cpu(trainer, batches[0])
+    else:
+        hisup_bf16_card_against_cpu(trainer.cfg, first)
+    return launches, {"step_ms": step_ms, "val_ms": val_ms, "peak_bytes": peak, "iou_pass_ms": iou_pass_s[0] * 1e3,
+                      "val_iou": val_iou, "losses": losses, "breakdown": breakdown,
+                      "output_dir": cfg.output_dir}
+
+
+def hisup_bf16_card_against_cpu(cfg, first: dict) -> None:
+    """The bfloat16 model on the card against the same on the CPU, from the
+    first train step's weights, in eval mode on HISUP_BF16_CPU_TILES tiles
+    of its batch: each head within HISUP_BF16_REL_L2 in relative L2 (the
+    CPU path is held to flax's bfloat16 by tests/test_torch_hisup_bf16.py).
+    Each side's distance from the same weights' float32 output on the card
+    is printed beside it."""
+    from pixelspointspolygons_torch.models.hisup.factory import build_hisup
+
+    images = first["images"]
+    models = {}
+    for name, dev, dtype in (("card", CARD, torch.bfloat16), ("cpu", torch.device("cpu"), torch.bfloat16),
+                             ("float32", CARD, torch.float32)):
+        models[name] = build_hisup(cfg, device=dev, dtype=dtype)
+        models[name].load_state_dict(first["state"])
+        models[name].eval()
+    with torch.no_grad():
+        out = models["card"]({"images": images.to(CARD)})
+        ref = models["float32"]({"images": images.to(CARD)})
+        t = time.perf_counter()
+        out_cpu = models["cpu"]({"images": images})
+        cpu_s = time.perf_counter() - t
+    if any(v.dtype != torch.bfloat16 for v in list(out.values()) + list(out_cpu.values())):
+        fail(f"the bfloat16 HiSup gave {[v.dtype for v in out.values()]}")
+    apart = {k: round(rel_l2(out[k], v), 5) for k, v in out_cpu.items()}
+    card = {k: round(rel_l2(out[k], ref[k]), 5) for k in ref}
+    cpu = {k: round(rel_l2(out_cpu[k], ref[k]), 5) for k in ref}
+    print(f"HiSup bfloat16 card vs CPU on {len(images)} tiles from the first step's weights, eval mode (CPU bfloat16 "
+          f"forward {cpu_s:.1f} s), relative L2 per head: {apart} (tol {HISUP_BF16_REL_L2}); from the float32 output "
+          f"of the same weights: card {card}, CPU {cpu}", flush=True)
+    bad = [k for k, v in apart.items() if not v <= HISUP_BF16_REL_L2]
+    if bad:
+        fail(f"bfloat16 HiSup on the card differs from the CPU at {bad}: {apart}")
+
+
+def profile_forward(trainer, images: torch.Tensor, what: str, top: int = 10) -> None:
+    """One train-mode forward (no grad) traced by torch.profiler: its wall
+    time, the host's top-level aten calls, the kernels launched and their
+    device time, and the kernels that take the most, summed over their
+    launches. On a copy of the model, whose BatchNorm statistics the
+    train-mode forwards update in place of the trainer's."""
+    import copy
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    model = copy.deepcopy(trainer.state.model).train()
+    with torch.no_grad():
+        model({"images": images})
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            model({"images": images})
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+    events = prof.events()
+    aten = [e for e in events if e.name.startswith("aten::")
+            and (e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::"))]
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    rows = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
+    busy_ms = sum(sum(v) for v in by_name.values()) / 1e3
+    print(f"forward ({what}) traced (torch.profiler, one train-mode forward, no grad): {wall_ms:.1f} ms wall, "
+          f"{len(aten)} top-level aten calls, {len(kernels)} kernels, {busy_ms:.1f} ms of kernel time; most: "
+          + "; ".join(f"{k[:80]} x{len(v)} {sum(v) / 1e3:.1f} ms" for k, v in rows[:top]), flush=True)
 
 
 def step_parts(trainer, batch: dict) -> dict:
@@ -526,16 +738,18 @@ def check_against_cpu(trainer, batch: dict) -> None:
         fail(f"model output differs between card and CPU by {worst} (relative)")
 
 
-def phase_predict(cfg_overrides: list[str]) -> dict:
-    """The test split predicted from the training's `latest` checkpoint and
-    evaluated, through the functions `cli/predict.py::main` calls."""
+def phase_predict(cfg_overrides: list[str], dtype: str = "float32") -> dict:
+    """The test split predicted at `dtype` from the training's `latest`
+    checkpoint and evaluated, through the functions `cli/predict.py::main`
+    calls; at float32 also the maps against the CPU's and the host stage
+    on the ground truth."""
     from pixelspointspolygons_torch.cli.evaluate import evaluate
     from pixelspointspolygons_torch.cli.predict import get_predictor
     from pixelspointspolygons_torch.config import compose
     from pixelspointspolygons_torch.ops.afm import afm_cuda
     from pixelspointspolygons_torch.utils.coco import CocoIndex
 
-    cfg = compose(cfg_overrides + ["evaluation=test", "checkpoint=latest"])
+    cfg = compose(cfg_overrides + [f"host.compute_dtype={dtype}", "evaluation=test", "checkpoint=latest"])
     afm_cuda.launches = 0
     t0 = time.perf_counter()
     predictor = get_predictor(cfg)
@@ -545,10 +759,10 @@ def phase_predict(cfg_overrides: list[str]) -> dict:
     results = evaluate(cfg, pred_file)
     t2 = time.perf_counter()
     launches = afm_cuda.launches
-    if predictor.device.type != "cuda":
-        fail(f"the predictor ran on {predictor.device}")
+    if predictor.device.type != CARD.type or predictor.model.compute_dtype != getattr(torch, dtype):
+        fail(f"the predictor ran on {predictor.device} in {predictor.model.compute_dtype}")
     if launches:
-        fail(f"the predict path launched the afm kernel {launches} times, expected 0")
+        fail(f"the predict path ({dtype}) launched the afm kernel {launches} times, expected 0")
 
     try:
         with open(pred_file) as f:
@@ -571,7 +785,7 @@ def phase_predict(cfg_overrides: list[str]) -> dict:
     host = [t["host_ms"] for t in times]
     walls = [t["wall_ms"] for t in times]
     tiles_s = 1.0 / timing["prediction_time"]
-    print(f"predict path: {TEST_TILES} tiles in {len(times)} batches of {B}, {tiles_s:.2f} tiles/s "
+    print(f"predict path ({dtype}): {TEST_TILES} tiles in {len(times)} batches of {B}, {tiles_s:.2f} tiles/s "
           f"(the predictor's own s/tile over its loop); set-up, loop and file {(t1 - t0):.2f} s, "
           f"evaluation {(t2 - t1):.2f} s; {len(anns)} polygons; afm launches {launches}", flush=True)
     for i, t in enumerate(times):
@@ -579,11 +793,13 @@ def phase_predict(cfg_overrides: list[str]) -> dict:
               f"host stage {t['host_ms']:.2f} ms, wall {t['wall_ms']:.2f} ms", flush=True)
     print(f"  sums: device {sum(device):.1f} ms, host stage {sum(host):.1f} ms, wall {sum(walls):.1f} ms "
           f"(device + host stage in series would be {sum(device) + sum(host):.1f} ms)", flush=True)
-    print("metrics: " + json.dumps(results), flush=True)
-    check_maps_against_cpu(cfg, predictor)
-    oracle = phase_oracle(cfg, predictor)
-    return {"tiles_s": tiles_s, "device_ms": device, "host_ms": host, "wall_ms": walls,
-            "n_polygons": len(anns), "results": results, **oracle}
+    print(f"metrics ({dtype}): " + json.dumps(results), flush=True)
+    out = {"tiles_s": tiles_s, "device_ms": device, "host_ms": host, "wall_ms": walls,
+           "n_polygons": len(anns), "results": results, "launches": launches}
+    if dtype == "float32":
+        check_maps_against_cpu(cfg, predictor)
+        out.update(phase_oracle(cfg, predictor))
+    return out
 
 
 def check_maps_against_cpu(cfg, predictor) -> None:
@@ -751,14 +967,14 @@ def phase_pix2poly(overrides: list[str], device: str = "cuda") -> dict:
     return {"tiles_s": tiles_s, "batch_times": times, "results": results, "fixed": fixed, "exit_stops": exits}
 
 
-def p2p_varied(model):
+def p2p_varied(model, sharpen: float = P2P_SHARPEN):
     """A copy of `model` whose greedy decode varies with the position and
     the image. At flax's init (embeddings of std 1/16 and 0.02) every
     decoder position sees nearly the same input, and cross-attention
     averages over the 784 image tokens, so the decode repeats one or two
     tokens and every tile gets the same sequence. The copy redraws the token
     and position embeddings at unit scale from a seed and sharpens the
-    cross-attention (its q and k weights times P2P_SHARPEN), so the token
+    cross-attention (its q and k weights times `sharpen`), so the token
     checks compare many different argmaxes and rows stop at different
     steps."""
     import copy
@@ -770,8 +986,44 @@ def p2p_varied(model):
         for p in (m.decoder.embedding.weight, m.decoder.decoder_pos_embed, m.decoder.encoder_pos_embed):
             p.copy_(torch.randn(p.shape, generator=g, device=dev))
         for layer in m.decoder.layers():
-            layer.cross_attn.q.weight.mul_(P2P_SHARPEN)
-            layer.cross_attn.k.weight.mul_(P2P_SHARPEN)
+            layer.cross_attn.q.weight.mul_(sharpen)
+            layer.cross_attn.k.weight.mul_(sharpen)
+    return m
+
+
+def p2p_chain(model, tokenizer):
+    """A copy of `model` whose greedy decode walks one cycle through every
+    coordinate token, for the bfloat16 token check. Sharpened attention
+    (`p2p_varied`) varies the decode at float32, but at bfloat16 an ulp of
+    its large logits moves the attention itself, and unsharpened a random
+    model repeats a few tokens and its flat logits tie within tens of steps.
+    Here, after `p2p_varied`'s unit-scale embeddings, the output projection
+    reads the input token's own direction: row j sums the unit embeddings
+    of the tokens whose successor is j, on a cycle through the coordinate
+    tokens drawn from a seed (BOS, EOS and PAD lead to its start). Each
+    layer's three sublayers are scaled by P2P_BF16_SUBLAYER, and the
+    position embeddings by the same, so that the embedding of the input
+    token sets the argmax by a clear margin while attention, the image and
+    the cache still move the logits."""
+    m = p2p_varied(model, sharpen=1.0)
+    dec = m.decoder
+    emb = dec.embedding.weight
+    special = {tokenizer.BOS_code, tokenizer.EOS_code, tokenizer.PAD_code}
+    coords = [t for t in range(emb.shape[0]) if t not in special]
+    perm = torch.randperm(len(coords), generator=torch.Generator().manual_seed(P2P_SEED + 2)).tolist()
+    order = [coords[i] for i in perm]
+    succ = torch.full((emb.shape[0],), order[0], dtype=torch.long)
+    succ[order] = torch.tensor(order[1:] + order[:1])
+    with torch.no_grad():
+        for layer in dec.layers():
+            for lin in (layer.self_attn.o, layer.cross_attn.o, layer.ffn.dense1):
+                lin.weight.mul_(P2P_BF16_SUBLAYER)
+                lin.bias.mul_(P2P_BF16_SUBLAYER)
+        dec.decoder_pos_embed.mul_(P2P_BF16_SUBLAYER)
+        w = torch.zeros_like(dec.output.weight)
+        w.index_add_(0, succ.to(w.device), emb / emb.norm(dim=1, keepdim=True))
+        dec.output.weight.copy_(w)
+        dec.output.bias.zero_()
     return m
 
 
@@ -821,21 +1073,32 @@ def p2p_fixed_length(model, inputs: dict, tokenizer, dev: torch.device, rounds: 
           f"{ms['encoder']:.2f} ms, decode loop {ms['decode']:.2f} ms for {ran} steps ({out['ms_per_step']:.3f} ms/step; "
           f"host {host_ms:.2f} ms), ScoreNets {ms['scorenets']:.2f} ms, Sinkhorn ({model.sinkhorn_iterations} "
           f"iterations) {ms['sinkhorn']:.2f} ms", flush=True)
-    out.update(p2p_decode_profile(model, enc, tokenizer, out["ms_per_step"], what))
+    out.update(p2p_decode_profile(model, enc, tokenizer, what))
     return out
 
 
-def p2p_decode_profile(model, enc: torch.Tensor, tokenizer, ms_per_step: float, what: str = "") -> dict:
-    """What one step of the decode loop costs, from torch.profiler traces of
-    decodes of 8 and 24 steps (their difference over 16 steps, so the
-    set-up drops out): the host's top-level aten calls, the kernels launched
-    and their summed device time; the device's busy share of a step is that
-    time over `ms_per_step` (the unprofiled step)."""
+def p2p_decode_profile(model, enc: torch.Tensor, tokenizer, what: str = "") -> dict:
+    """What one step of the decode loop costs, from decodes of 8 and 24
+    steps (their difference over 16 steps, so the set-up drops out): the
+    step's time unprofiled (host clock, synchronized), and from
+    torch.profiler traces the host's top-level aten calls, the kernels
+    launched and their summed device time; the device's busy share of a
+    step is that time over this model's own unprofiled step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from pixelspointspolygons_torch.models.pix2poly import greedy_decode
 
+    walls = {}
+    with torch.inference_mode():
+        greedy_decode(model, enc, tokenizer.BOS_code, 8)  # warm-up
+        for steps in (8, 24):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            greedy_decode(model, enc, tokenizer.BOS_code, steps)
+            torch.cuda.synchronize()
+            walls[steps] = time.perf_counter() - t
+    ms_per_step = (walls[24] - walls[8]) * 1e3 / 16
     counts = []
     for steps in (8, 24):
         with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -847,7 +1110,8 @@ def p2p_decode_profile(model, enc: torch.Tensor, tokenizer, ms_per_step: float, 
         kernels = [e for e in events if e.device_type == DeviceType.CUDA]
         counts.append((len(aten), len(kernels), sum(e.time_range.elapsed_us() for e in kernels)))
     per = [(b - a) / 16 for a, b in zip(*counts)]
-    out = {"aten_per_step": per[0], "kernels_per_step": per[1], "kernel_us_per_step": per[2]}
+    out = {"aten_per_step": per[0], "kernels_per_step": per[1], "kernel_us_per_step": per[2],
+           "profiled_step_ms": ms_per_step}
     if per[1] <= 0:
         print("pix2poly decode step profile: the profiler recorded no device kernels (busy share not measured)",
               flush=True)
@@ -855,7 +1119,8 @@ def p2p_decode_profile(model, enc: torch.Tensor, tokenizer, ms_per_step: float, 
     out["busy_share"] = per[2] / (ms_per_step * 1e3)
     print(f"pix2poly decode step profile{what} (torch.profiler, steps 8..24): {per[0]:.1f} top-level aten calls and "
           f"{per[1]:.1f} kernels per step, {per[2]:.1f} us of kernel time per step: the card is busy "
-          f"{100 * out['busy_share']:.1f} % of a {ms_per_step:.3f} ms step", flush=True)
+          f"{100 * out['busy_share']:.1f} % of this model's {ms_per_step:.3f} ms step (unprofiled, steps 8..24)",
+          flush=True)
     return out
 
 
@@ -981,28 +1246,7 @@ def phase_p2p_train(overrides: list[str], dtype: str) -> dict:
     cfg = compose(overrides + [f"host.compute_dtype={dtype}"])
     trainer = Pix2PolyTrainer(cfg, device=CARD)
     iou_pass_s, step_losses = [], []
-
-    def timed_predict_and_eval(epoch, run=trainer.predict_and_eval):
-        t = time.perf_counter()
-        iou = run(epoch)
-        torch.cuda.synchronize()
-        iou_pass_s.append(time.perf_counter() - t)
-        return iou
-
-    def setup_and_record(run=trainer.setup):
-        """The trainer's set-up, then its train step records each step's metrics."""
-        run()
-        step = trainer._train_step
-
-        def recorded(state, batch):
-            metrics = step(state, batch)
-            step_losses.append(metrics)
-            return metrics
-
-        trainer._train_step = recorded
-
-    trainer.predict_and_eval = timed_predict_and_eval
-    trainer.setup = setup_and_record
+    record_steps(trainer, step_losses, iou_pass_s)
     torch.cuda.reset_peak_memory_stats()
     afm_cuda.launches = 0
     t0 = time.perf_counter()
@@ -1219,13 +1463,23 @@ def phase_p2p_predict_bf16(overrides: list[str]) -> dict:
 
     batch = next(iter(build_loader(cfg, "test", tokenizer=predictor.tokenizer, eval_mode=True)))
     inputs = to_device(batch, dev, ("images",))
-    p2p_bf16_card_against_cpu(model, {"images": inputs["images"][:P2P_CPU_TILES]}, predictor.tokenizer)
+    few = {"images": inputs["images"][:P2P_CPU_TILES]}
+    p2p_bf16_card_against_cpu(model, few, predictor.tokenizer, "the checkpoint's model")
+    random_model = build_pix2poly(cfg, predictor.tokenizer, device=dev, dtype=torch.bfloat16,
+                                  generator=torch.Generator(device=dev).manual_seed(P2P_SEED))
+    chain = p2p_chain(random_model, predictor.tokenizer)
+    counts = p2p_bf16_card_against_cpu(chain, {"images": inputs["images"][:P2P_BF16_CHAIN_TILES]},
+                                       predictor.tokenizer, "the chain copy of the seeded random model")
+    del random_model, chain
+    if counts["decode_positions"] < P2P_BF16_MIN_DECODE or counts["distinct"] < P2P_BF16_MIN_DISTINCT:
+        fail(f"the bfloat16 token check of the chain copy compared {counts['decode_positions']} decode positions "
+             f"and {counts['distinct']} distinct tokens, fewer than {P2P_BF16_MIN_DECODE} and {P2P_BF16_MIN_DISTINCT}")
     fixed = p2p_fixed_length(model, inputs, predictor.tokenizer, dev, what=" (bfloat16)")
     f32 = build_pix2poly(cfg, predictor.tokenizer, device=dev, dtype=torch.float32).eval()
     f32.load_state_dict(model.state_dict())
     with torch.inference_mode():
         enc32 = f32.encode(inputs)
-    calls32 = p2p_decode_profile(f32, enc32, predictor.tokenizer, fixed["ms_per_step"], " (float32, same weights)")
+    calls32 = p2p_decode_profile(f32, enc32, predictor.tokenizer, " (float32, same weights)")
     if not fixed["aten_per_step"] <= calls32["aten_per_step"]:
         fail(f"a bfloat16 decode step makes {fixed['aten_per_step']} aten calls, more than float32's "
              f"{calls32['aten_per_step']}: a weight is cast per step")
@@ -1233,6 +1487,8 @@ def phase_p2p_predict_bf16(overrides: list[str]) -> dict:
 
     bench = bench_torch.run(batch=B, iters=BENCH_ITERS, repeats=BENCH_REPEATS, device=dev.type)
     print(json.dumps(bench), flush=True)
+    if bench["spread_pct"] is None:
+        print(f"bench_torch.py spread_pct: not measured ({BENCH_REPEATS} repeats; it needs 5)", flush=True)
     if not bench["value"] > 0 or bench["compute_dtype"] != "bfloat16":
         fail(f"bench_torch.py gave {bench}")
     return {"tiles_s": tiles_s, "batch_times": times, "results": results, "fixed": fixed,
@@ -1246,12 +1502,16 @@ def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).norm() / want.norm().clamp(min=1e-12))
 
 
-def p2p_bf16_card_against_cpu(model, inputs: dict, tokenizer) -> None:
+def p2p_bf16_card_against_cpu(model, inputs: dict, tokenizer, what: str) -> dict:
     """bfloat16 on the card against bfloat16 on the CPU, on a few tiles:
-    encoder tokens, the greedy decode's tokens up to each row's first
-    near-tie on the CPU (margins from the CPU decode's own logits), the
-    teacher-forced logits of the card's tokens, and the raw scores of the
-    card's feats, each within P2P_BF16_REL_L2 in relative L2."""
+    encoder tokens, the teacher-forced logits of the card's tokens and the
+    raw scores of the card's feats, each within P2P_BF16_REL_L2 in relative
+    L2; the two greedy decodes token by token, each row up to the first
+    position where they part at a near-tie on the CPU (margins from the CPU
+    decode's own logits: there either token is right, and nothing after it
+    can be compared); and the CPU's argmax teacher-forced with the card's
+    tokens at every position outside near-ties. Returns the counts of
+    decode positions and of distinct tokens compared."""
     import copy
 
     from pixelspointspolygons_torch.models.pix2poly import greedy_decode
@@ -1276,23 +1536,165 @@ def p2p_bf16_card_against_cpu(model, inputs: dict, tokenizer) -> None:
         fail(f"the bfloat16 model computed in {enc.dtype}, {feats.dtype}, {logits.dtype}")
     errs = {"encoder": rel_l2(enc, enc_cpu), "logits": rel_l2(logits, logits_cpu),
             "raw scores": rel_l2(scores, scores_cpu)}
-    top2 = logits_cpu_decode.topk(2, dim=-1).values
-    ulp = torch.exp2(torch.floor(torch.log2(top2[..., 0].abs().clamp(min=1e-30))) - 7)
-    clear = (top2[..., 0] - top2[..., 1]) >= P2P_BF16_NEAR_TIE_ULPS * ulp
+    def clear_of(logits):
+        """Where the top-2 gap is at least P2P_BF16_NEAR_TIE_ULPS ulps of the top logit."""
+        top2 = logits.float().topk(2, dim=-1).values
+        ulp = torch.exp2(torch.floor(torch.log2(top2[..., 0].abs().clamp(min=1e-30))) - 7)
+        return (top2[..., 0] - top2[..., 1]) >= P2P_BF16_NEAR_TIE_ULPS * ulp
+
+    clear = clear_of(logits_cpu_decode)
     tokens = tokens.cpu()
-    compared = wrong = 0
+    compared = wrong = parted = 0
+    seen = set()
     for b in range(tokens.shape[0]):
-        first = int(torch.argmin(clear[b].int())) if not bool(clear[b].all()) else steps
-        wrong += int((tokens[b, :first] != tokens_cpu[b, :first]).sum())
+        differ = torch.nonzero(tokens[b] != tokens_cpu[b])
+        first = int(differ[0]) if len(differ) else steps
+        if first < steps and bool(clear[b, first]):
+            wrong += 1
+        parted += first < steps
         compared += first
-    print(f"pix2poly bfloat16 card vs CPU on {tokens.shape[0]} tiles (CPU encoder and decode {cpu_s:.1f} s): rel L2 {errs} "
-          f"(tol {P2P_BF16_REL_L2}); decode tokens: {wrong} of {compared} differ before each row's first near-tie "
-          f"(top-2 gap under {P2P_BF16_NEAR_TIE_ULPS} ulps; {tokens.shape[0] * steps} generated); "
-          f"{len(torch.unique(tokens))} distinct tokens", flush=True)
+        seen |= set(tokens[b, :first].tolist())
+    # teacher-forced with the card's tokens, the CPU's argmax at every clear
+    # position up to the first generated PAD (as the float32 check)
+    is_pad = tokens == tokenizer.PAD_code
+    first_pad = torch.where(is_pad.any(1), is_pad.float().argmax(1), torch.full_like(tokens[:, 0], steps))
+    clear_tf = clear_of(logits_cpu) & (torch.arange(steps)[None] <= first_pad[:, None])
+    wrong_tf = int(((logits_cpu.float().argmax(-1) != tokens) & clear_tf).sum())
+    seen |= set(tokens[clear_tf].tolist())
+    print(f"pix2poly bfloat16 card vs CPU, {what}, on {tokens.shape[0]} tiles (CPU encoder and decode {cpu_s:.1f} s): "
+          f"rel L2 {errs} (tol {P2P_BF16_REL_L2}); decode tokens equal at {compared} of {tokens.shape[0] * steps} "
+          f"positions, {parted} rows part at a near-tie (top-2 gap under {P2P_BF16_NEAR_TIE_ULPS} ulps), {wrong} "
+          f"outside one; teacher-forced with the card's tokens, the CPU's argmax differs at {wrong_tf} of "
+          f"{int(clear_tf.sum())} clear positions; {len(seen)} distinct tokens compared, "
+          f"{len(torch.unique(tokens))} generated", flush=True)
     if not all(e <= P2P_BF16_REL_L2 for e in errs.values()):
-        fail(f"bfloat16 Pix2Poly on the card differs from the CPU: {errs}")
-    if wrong:
-        fail(f"the card's bfloat16 decode differs from the CPU's at {wrong} positions outside near-ties")
+        fail(f"bfloat16 Pix2Poly on the card differs from the CPU ({what}): {errs}")
+    if wrong or wrong_tf:
+        fail(f"the card's bfloat16 tokens differ from the CPU's outside near-ties ({what}): {wrong} in the decode, "
+             f"{wrong_tf} teacher-forced")
+    return {"decode_positions": compared, "distinct": len(seen)}
+
+
+def grafted_equal_file(module, values: dict) -> int:
+    """How many of `values` (port names → the file's arrays after the key
+    map) differ from the module's tensors on the card, bit for bit."""
+    tensors = module.state_dict()
+    return sum(not torch.equal(tensors[k].cpu(), torch.from_numpy(np.ascontiguousarray(v))) for k, v in values.items())
+
+
+def one_train_step(trainer, dev_keys) -> dict:
+    """The trainer's own train step on its first train batch."""
+    from pixelspointspolygons_torch.data.loader import device_prefetch
+
+    batch = next(iter(device_prefetch(trainer.train_loader, trainer.device, dev_keys)))
+    metrics = {k: float(v) for k, v in trainer._train_step(trainer.state, batch).items()}
+    torch.cuda.synchronize()
+    if not all(np.isfinite(v) for v in metrics.values()) or trainer.state.step != 1:
+        fail(f"{type(trainer).__name__}: the step gave {metrics} at update {trainer.state.step}")
+    return metrics
+
+
+def phase_pretrained(hisup_overrides: list[str], p2p_overrides: list[str], float32_latest: str) -> dict:
+    """Pretrained encoders and the warm start at full width: a timm-layout
+    ViT-S/8 file and a reference-layout HRNetV2-W48 file, written from
+    seeded numpy, grafted by the trainers' set-up (`pretrained=true
+    checkpoint_file=...`), then one train step each; then a HiSup set-up
+    with `init_weights_from` the float32 training's checkpoint and one
+    step. The grafted tensors on the card must equal the file's."""
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.models.hisup.factory import build_hisup
+    from pixelspointspolygons_torch.models.pix2poly.factory import encoder_config
+    from pixelspointspolygons_torch.train import trainer_hisup, trainer_pix2poly
+    from pixelspointspolygons_torch.utils.torch_port import port_hrnet, port_timm_vit
+
+    os.makedirs(WORK, exist_ok=True)
+    vit_file, hrnet_file = os.path.join(WORK, "vit_s8_timm.pth"), os.path.join(WORK, "hrnetv2_w48.pth")
+    # files of the widths the configs build: ViT-S/8 at 224 px (a 28x28
+    # grid, 12 blocks of 384) and HRNetV2-W48
+    vit = encoder_config(compose(p2p_overrides))
+    grid = vit["img_size"] // vit["patch_size"]
+    torch.save({"model": timm_vit_state(vit["dim"], 12, vit["patch_size"], grid, seed=PRETRAINED_SEED)}, vit_file)
+    hrnet = build_hisup(compose(hisup_overrides), device="meta").encoder
+    # the ImageNet file has no HRNetV2 head (`last_layer.*`): it keeps its init
+    hr_sd = hrnet_reference_state(hrnet, seed=PRETRAINED_SEED, drop=("last_layer.",))
+    torch.save({"state_dict": hr_sd}, hrnet_file)
+    out = {}
+
+    def set_up(cls, overrides):
+        trainer = cls(compose(overrides))
+        trainer.generator = torch.Generator(device=CARD).manual_seed(int(trainer.cfg.get("seed", 42)))
+        t = time.perf_counter()
+        trainer.setup()
+        return trainer, time.perf_counter() - t
+
+    trainer, setup_s = set_up(trainer_pix2poly.Pix2PolyTrainer, p2p_overrides + [
+        "experiment.encoder.pretrained=true", f"experiment.encoder.checkpoint_file={vit_file}"])
+    trunk = trainer.state.model.encoder.vit
+    values = port_timm_vit(torch.load(vit_file, weights_only=True)["model"])
+    values = {k: v for k, v in values.items() if k in trunk.state_dict()}
+    bad = grafted_equal_file(trunk, values)
+    metrics = one_train_step(trainer, trainer_pix2poly._DEV_KEYS)
+    n_trunk = len(trunk.state_dict())
+    print(f"pretrained ViT-S/8 (timm layout, {len(values)} tensors): set-up with the graft {setup_s:.1f} s; "
+          f"{len(values)} tensors loaded, {n_trunk - len(values)} kept at init, {bad} differ from the file on the "
+          f"card; one Pix2Poly step {metrics}", flush=True)
+    if bad or len(values) != n_trunk:
+        fail(f"the ViT graft: {bad} tensors differ from the file, {n_trunk - len(values)} not loaded")
+    out["vit"] = {"loaded": len(values), "kept": n_trunk - len(values)}
+    del trainer, trunk
+
+    trainer, setup_s = set_up(trainer_hisup.HiSupTrainer, hisup_overrides + [
+        "experiment.encoder.hrnet.pretrained=true", f"experiment.encoder.hrnet.checkpoint_file={hrnet_file}"])
+    encoder = trainer.state.model.encoder
+    values, loaded, skipped = port_hrnet(torch.load(hrnet_file, weights_only=True)["state_dict"],
+                                         encoder.state_dict())
+    bad = grafted_equal_file(encoder, values)
+    metrics = one_train_step(trainer, trainer_hisup._DEV_KEYS)
+    kept = sorted(set(encoder.state_dict()) - set(values))
+    print(f"pretrained HRNetV2-W48 (reference layout, no head): set-up with the graft {setup_s:.1f} s; "
+          f"{len(values)} tensors loaded ({len(loaded)} modules), {len(kept)} kept at init ({kept}), "
+          f"{bad} differ from the file on the card; one HiSup step {metrics}", flush=True)
+    if bad or any(not k.startswith(("last_conv1.", "last_bn.", "last_conv2.")) for k in kept):
+        fail(f"the HRNet graft: {bad} tensors differ from the file, tensors kept at init {kept}")
+    n_trunk = len(encoder.state_dict())
+    out["hrnet"] = {"loaded": len(values), "kept": n_trunk - len(values)}
+    del trainer, encoder
+
+    trainer, setup_s = set_up(trainer_hisup.HiSupTrainer, hisup_overrides + [f"init_weights_from={float32_latest}"])
+    want = torch.load(float32_latest, map_location="cpu", weights_only=True)["model"]
+    got = trainer.state.model.state_dict()
+    bad = sum(not torch.equal(got[k].cpu(), want[k]) for k in want)
+    fresh = trainer.state.step == 0 and trainer.start_epoch == 0 and not trainer.state.optimizer.state
+    metrics = one_train_step(trainer, trainer_hisup._DEV_KEYS)
+    print(f"warm start from {float32_latest}: set-up {setup_s:.1f} s; {len(want) - bad} of {len(got)} tensors "
+          f"taken up, {bad} differ; fresh optimizer and schedule: {fresh}; one HiSup step {metrics}", flush=True)
+    if bad or set(want) != set(got) or not fresh:
+        fail(f"the warm start: {bad} tensors differ from the checkpoint, fresh optimizer {fresh}")
+    out["warm_start"] = {"loaded": len(want) - bad, "kept": len(got) - len(want) + bad}
+    return out
+
+
+def phase_entry() -> dict:
+    """`graft_entry_torch.entry()` (the twin of `__graft_entry__.entry()`)
+    on the card against the same function on the CPU."""
+    import graft_entry_torch
+
+    fn, args = graft_entry_torch.entry()
+    t = time.perf_counter()
+    logits, perm = fn(*args)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t) * 1e3
+    cpu_fn, cpu_args = graft_entry_torch.entry("cpu")
+    t = time.perf_counter()
+    cpu_logits, cpu_perm = cpu_fn(*cpu_args)
+    cpu_s = time.perf_counter() - t
+    errs = {"logits": rel_err(logits, cpu_logits), "perm": rel_err(perm, cpu_perm)}
+    print(f"entry twin (graft_entry_torch.entry): logits {tuple(logits.shape)} {logits.dtype}, perm "
+          f"{tuple(perm.shape)} {perm.dtype}; card {card_ms:.1f} ms (first call), CPU {cpu_s:.1f} s; card vs CPU "
+          f"max rel err {errs} (tol {ENTRY_REL_TOL})", flush=True)
+    if logits.device.type != CARD.type or not all(e <= ENTRY_REL_TOL for e in errs.values()):
+        fail(f"the entry twin on {logits.device} differs from the CPU: {errs}")
+    return errs
 
 
 def main() -> None:
@@ -1313,12 +1715,34 @@ def main() -> None:
     afm_row["launches"] = launches["afm"]
     print(f"main path: train step {train['step_ms']:.1f} ms, val step {train['val_ms']:.1f} ms, "
           f"val-IoU pass {train['iou_pass_ms']:.1f} ms, peak {train['peak_bytes']} bytes, card {smi}", flush=True)
+    # the bfloat16 run below writes its own `latest` in the same directory
+    float32_latest = os.path.join(WORK, "hisup_float32_latest.pt")
+    shutil.copyfile(os.path.join(train["output_dir"], "checkpoints", "latest.pt"), float32_latest)
     pred = phase_predict(overrides)
     print(f"predict path: {pred['tiles_s']:.2f} tiles/s, device {statistics.median(pred['device_ms']):.2f} ms and "
           f"host stage {statistics.median(pred['host_ms']):.2f} ms per batch of {B} (medians), "
           f"host stage on the ground truth {statistics.median(pred['oracle_host_ms']):.2f} ms per batch, "
           f"IoU {pred['results']['IoU']:.4f}, card {smi}", flush=True)
-    p2p = phase_pix2poly(smoke_overrides(num_train=TRAIN_STEPS * B, experiment="p2p_image"))
+    p2p_overrides = smoke_overrides(num_train=TRAIN_STEPS * B, experiment="p2p_image")
+    launches_bf16, train_bf16 = phase_train(overrides, "bfloat16")
+    loss_err = {k: abs(train_bf16["losses"][0][k] / train["losses"][0][k] - 1.0) for k in train["losses"][0]}
+    print(f"HiSup first train step from the same weights on the same batch: float32 {train['losses'][0]}, "
+          f"bfloat16 {train_bf16['losses'][0]}; rel diff {loss_err} (tol {HISUP_BF16_LOSS_TOL})", flush=True)
+    if not all(e <= HISUP_BF16_LOSS_TOL for e in loss_err.values()):
+        fail(f"the bfloat16 HiSup step's losses differ from float32's by {loss_err}")
+    pred_bf16 = phase_predict(overrides, "bfloat16")
+    for dtype, t in (("float32", train), ("bfloat16", train_bf16)):
+        print(f"HiSup train path ({dtype}): train step {t['step_ms']:.1f} ms, val step {t['val_ms']:.1f} ms, "
+              f"val-IoU pass {t['iou_pass_ms']:.1f} ms (val IoU {t['val_iou']:.4f}), peak {t['peak_bytes']} bytes, "
+              f"by layer {json.dumps({k: round(v, 2) for k, v in t['breakdown'].items()})}, card {smi}", flush=True)
+    for dtype, p in (("float32", pred), ("bfloat16", pred_bf16)):
+        print(f"HiSup predict path ({dtype}): {p['tiles_s']:.2f} tiles/s, device "
+              f"{statistics.median(p['device_ms']):.2f} ms and host stage {statistics.median(p['host_ms']):.2f} ms "
+              f"per batch of {B} (medians), IoU {p['results']['IoU']:.4f}, card {smi}", flush=True)
+    grafts = phase_pretrained(overrides, p2p_overrides, float32_latest)
+    print(f"pretrained and warm start (tensors loaded and kept at init): {json.dumps(grafts)}, card {smi}", flush=True)
+    phase_entry()
+    p2p = phase_pix2poly(p2p_overrides)
     bt = p2p["batch_times"]
     med = {k: statistics.median(t[k] for t in bt) for k in ("encoder_ms", "decode_ms", "scorenet_ms", "host_ms")}
     print(f"pix2poly predict path: {p2p['tiles_s']:.2f} tiles/s; per batch of {B} (medians): encoder "
@@ -1326,7 +1750,6 @@ def main() -> None:
           f"host stage {med['host_ms']:.2f} ms; fixed-length decode {p2p['fixed']['tiles_s']:.2f} tiles/s, "
           f"{p2p['fixed']['ms_per_step']:.3f} ms per decode step; IoU {p2p['results']['IoU']:.4f}, card {smi}",
           flush=True)
-    p2p_overrides = smoke_overrides(num_train=TRAIN_STEPS * B, experiment="p2p_image")
     trained = {dtype: phase_p2p_train(p2p_overrides, dtype) for dtype in ("float32", "bfloat16")}
     first = {dtype: t["losses"][0] for dtype, t in trained.items()}
     loss_err = {k: abs(first["bfloat16"][k] / first["float32"][k] - 1.0) for k in first["float32"]}
@@ -1351,6 +1774,7 @@ def main() -> None:
         "hisup_train": launches["afm"], "hisup_predict": 0, "pix2poly_predict": 0,
         "pix2poly_train_float32": trained["float32"]["launches"],
         "pix2poly_train_bfloat16": trained["bfloat16"]["launches"], "pix2poly_predict_bfloat16": pbf["launches"],
+        "hisup_train_bfloat16": launches_bf16["afm"], "hisup_predict_bfloat16": pred_bf16["launches"],
     }
     print(f"smoke run: {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"kernels": [afm_row]}), flush=True)

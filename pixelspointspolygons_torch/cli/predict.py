@@ -31,7 +31,7 @@ def get_predictor(cfg: Config, device: str | torch.device | None = None) -> Pred
         return Pix2PolyPredictor(cfg, device=device)
     if name == "ffl":
         raise NotImplementedError("FFL prediction: ROADMAP 'Port queue' item 'FFL'")
-    raise NotImplementedError(f"model {name!r}")
+    raise ValueError(f"unknown model {name!r}")
 
 
 def predict_and_evaluate(cfg: Config, device: str | torch.device | None = None) -> tuple[Predictor, dict]:

@@ -5,8 +5,12 @@ Usage: python -m pixelspointspolygons_torch.cli.train experiment=hisup_image \
     dataset=synthetic run_type=debug [key.path=value ...] [device=cpu]
 
 Runs on the card; `device=cpu` runs on the CPU instead. HiSup and Pix2Poly
-are ported (Pix2Poly also at `host.compute_dtype=bfloat16`); FFL raises
-NotImplementedError naming its ROADMAP item.
+are ported, both also at `host.compute_dtype=bfloat16`, with pretrained
+encoder files (`experiment.encoder.hrnet.pretrained=true
+experiment.encoder.hrnet.checkpoint_file=...`, or the ViT's
+`experiment.encoder.pretrained=true experiment.encoder.checkpoint_file=...`)
+and warm starts (`init_weights_from=<run>/checkpoints/latest.pt`); FFL
+raises NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ def main(argv: list[str] | None = None) -> dict:
     elif name == "ffl":
         raise NotImplementedError("FFL training: ROADMAP 'Port queue' item 'FFL'")
     else:
-        raise NotImplementedError(f"model {name!r}")
+        raise ValueError(f"unknown model {name!r}")
     return trainer.train()
 
 

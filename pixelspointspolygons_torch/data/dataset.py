@@ -128,7 +128,7 @@ class P3Dataset:
             return self._item_hisup(idx, rng)
         if self.model_type == "ffl":
             raise NotImplementedError("FFL items: ROADMAP 'Port queue' item 'FFL'")
-        raise NotImplementedError(self.model_type)
+        raise ValueError(f"unknown model {self.model_type!r}")
 
     def _common(self, info, rng, params) -> dict:
         item: dict = {"image_id": np.int32(info["id"])}

@@ -31,10 +31,8 @@ def set_tf32(enabled: bool) -> None:
 
 
 def check_compute_dtype(cfg) -> None:
-    """`host.compute_dtype=bfloat16` runs for Pix2Poly; the other model
-    families compute in float32 until their bfloat16 is ported."""
+    """`host.compute_dtype=bfloat16` runs for Pix2Poly and HiSup; FFL
+    computes in float32 until its bfloat16 is ported with its training."""
     bf16 = str(cfg.host.get("compute_dtype", "float32")).lower() in ("bf16", "bfloat16")
-    if bf16 and cfg.experiment.model.name != "pix2poly":
-        raise NotImplementedError(
-            f"host.compute_dtype=bfloat16 for {cfg.experiment.model.name}: ROADMAP 'Port queue' item 'bfloat16 (HiSup)'"
-        )
+    if bf16 and cfg.experiment.model.name == "ffl":
+        raise NotImplementedError("host.compute_dtype=bfloat16 for ffl: ROADMAP 'Port queue' item 'FFL'")

@@ -7,6 +7,12 @@ the AFM goes through `ops/afm.py::afm_auto`, which launches the hand-written
 CUDA kernel on the card. Head outputs are NCHW, as in the JAX module.
 `extract_junctions` (prediction) is plain PyTorch: in the JAX package it is
 an XLA fusion, not a Pallas kernel.
+
+`dtype` is the compute dtype, as flax's `dtype=` (JAX model.py:31-64,
+:123-247): convolutions cast their input and kernel to it and give it,
+BatchNorms compute in float32 and give it, the ECA's gate is a bfloat16
+sigmoid at bfloat16, the head outputs are in it, and the losses read them
+as float32. The targets (AFM included) are float32 at every dtype.
 """
 
 from __future__ import annotations
@@ -18,23 +24,58 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.afm import afm_auto
-from ..layers import BatchNorm
+from ..layers import BatchNorm, Conv1d, Conv2d, layout_of
 
 
-def _conv3(cin: int, cout: int, device=None) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 3, padding=1, bias=True, device=device)
+def _conv3(cin: int, cout: int, dtype=None, device=None) -> Conv2d:
+    return Conv2d(cin, cout, 3, padding=1, bias=True, dtype=dtype, device=device)
+
+
+def _resize_matrix(n_in: int, n_out: int, device=None) -> torch.Tensor:
+    """(n_in, n_out) weights of `jax.image.resize(..., "bilinear")` along one
+    axis (jax/_src/image/scale.py::compute_weight_mat, antialiased, in
+    float32): half-pixel centres, a triangle kernel widened by the scale
+    when it shrinks, each column normalized."""
+    scale = n_out / n_in
+    inv_scale = 1.0 / scale
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
+    x = (sample[None, :] - torch.arange(n_in, dtype=torch.float32, device=device)[:, None]).abs() / kernel_scale
+    w = (1.0 - x).clamp(min=0.0)
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(torch.finfo(torch.float32).eps),
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
+def resize_bilinear(x: torch.Tensor, size: int) -> torch.Tensor:
+    """`jax.image.resize(x, ..., "bilinear")` of an NCHW map to size x size.
+    Enlarging at float32 or float64 it is `F.interpolate` (half-pixel
+    centres; jax applies no antialiasing when it enlarges). Otherwise it is
+    JAX's arithmetic: the weight matrices cast to x's dtype, H contracted
+    first, then W, each product rounded to x's dtype; the result in x's
+    memory layout, as `F.interpolate` gives it."""
+    H, W = x.shape[2:]
+    if (H, W) == (size, size):
+        return x
+    if x.dtype in (torch.float32, torch.float64) and H <= size and W <= size:
+        return F.interpolate(x, size=(size, size), mode="bilinear", align_corners=False)
+    y = torch.matmul(_resize_matrix(H, size, x.device).to(x.dtype).T, x)
+    y = torch.matmul(y, _resize_matrix(W, size, x.device).to(x.dtype))
+    return y.contiguous(memory_format=layout_of(x))
 
 
 class ConvStack3(nn.Module):
     """3x (conv3x3 + BN + ReLU) — the reference's _make_conv (:152-165).
     Flax names Conv_i / BatchNorm_i are conv{i} / bn{i} here."""
 
-    def __init__(self, cin: int, dim_hid: int, dim_out: int, device=None):
+    def __init__(self, cin: int, dim_hid: int, dim_out: int, dtype=None, device=None):
         super().__init__()
         chans = (cin, dim_hid, dim_hid, dim_out)
         for i in range(3):
-            self.add_module(f"conv{i}", _conv3(chans[i], chans[i + 1], device=device))
-            self.add_module(f"bn{i}", BatchNorm(chans[i + 1], device=device))
+            self.add_module(f"conv{i}", _conv3(chans[i], chans[i + 1], dtype=dtype, device=device))
+            self.add_module(f"bn{i}", BatchNorm(chans[i + 1], dtype=dtype, device=device))
 
     def forward(self, x):
         for i in range(3):
@@ -45,10 +86,10 @@ class ConvStack3(nn.Module):
 class Predictor2(nn.Module):
     """conv3x3 → ReLU → conv1x1 (the reference's _make_predictor :167-174)."""
 
-    def __init__(self, cin: int, dim_out: int, device=None):
+    def __init__(self, cin: int, dim_out: int, dtype=None, device=None):
         super().__init__()
-        self.conv0 = _conv3(cin, cin // 4, device=device)
-        self.conv1 = nn.Conv2d(cin // 4, dim_out, 1, bias=True, device=device)
+        self.conv0 = _conv3(cin, cin // 4, dtype=dtype, device=device)
+        self.conv1 = Conv2d(cin // 4, dim_out, 1, bias=True, dtype=dtype, device=device)
 
     def forward(self, x):
         return self.conv1(F.relu(self.conv0(x)))
@@ -59,13 +100,13 @@ class ECA(nn.Module):
     Flax Conv_0 (the 1-D conv over channels) is `conv1d`, Conv_1 `proj`,
     BatchNorm_0 `bn`."""
 
-    def __init__(self, channels: int, gamma: int = 2, b: int = 1, device=None):
+    def __init__(self, channels: int, gamma: int = 2, b: int = 1, dtype=None, device=None):
         super().__init__()
         t = int(abs((math.log2(channels) + b) / gamma))
         k = t if t % 2 else t + 1
-        self.conv1d = nn.Conv1d(1, 1, k, padding=k // 2, bias=False, device=device)
-        self.proj = nn.Conv2d(channels, channels, 1, bias=False, device=device)
-        self.bn = BatchNorm(channels, device=device)
+        self.conv1d = Conv1d(1, 1, k, padding=k // 2, bias=False, dtype=dtype, device=device)
+        self.proj = Conv2d(channels, channels, 1, bias=False, dtype=dtype, device=device)
+        self.bn = BatchNorm(channels, dtype=dtype, device=device)
 
     def forward(self, x1, x2):
         y = (x1 + x2).mean(dim=(2, 3))  # (B, C) global average pool
@@ -124,32 +165,27 @@ class HiSup(nn.Module):
     returns NCHW head outputs: joff (B,2,S,S), jloc (B,3,S,S), mask
     (B,2,S,S), afm (B,2,S,S), remask (B,2,S,S)."""
 
-    def __init__(self, encoder: nn.Module, dim: int = 256, pred_size: int = 224, device=None):
+    def __init__(self, encoder: nn.Module, dim: int = 256, pred_size: int = 224, dtype=None, device=None):
         super().__init__()
         self.pred_size = pred_size
+        self.compute_dtype = dtype
         self.encoder = encoder
-        self.mask_head = ConvStack3(dim, dim, dim, device=device)
-        self.jloc_head = ConvStack3(dim, dim, dim, device=device)
-        self.afm_head = ConvStack3(dim, dim, dim, device=device)
-        self.joff_head = Predictor2(dim, 2, device=device)
-        self.a2m_att = ECA(dim, device=device)
-        self.a2j_att = ECA(dim, device=device)
-        self.mask_predictor = Predictor2(dim, 2, device=device)
-        self.jloc_predictor = Predictor2(dim, 3, device=device)
-        self.afm_predictor = Predictor2(dim, 2, device=device)
-        self.refuse_conv = ConvStack3(2, dim // 2, dim, device=device)
-        self.final_conv = ConvStack3(2 * dim, dim, 2, device=device)
+        kw = dict(dtype=dtype, device=device)
+        self.mask_head = ConvStack3(dim, dim, dim, **kw)
+        self.jloc_head = ConvStack3(dim, dim, dim, **kw)
+        self.afm_head = ConvStack3(dim, dim, dim, **kw)
+        self.joff_head = Predictor2(dim, 2, **kw)
+        self.a2m_att = ECA(dim, **kw)
+        self.a2j_att = ECA(dim, **kw)
+        self.mask_predictor = Predictor2(dim, 2, **kw)
+        self.jloc_predictor = Predictor2(dim, 3, **kw)
+        self.afm_predictor = Predictor2(dim, 2, **kw)
+        self.refuse_conv = ConvStack3(2, dim // 2, dim, **kw)
+        self.final_conv = ConvStack3(2 * dim, dim, 2, **kw)
 
     def forward(self, batch: dict) -> dict:
         feats = self.encoder(batch["images"]).permute(0, 3, 1, 2)  # (B, C, s, s)
-        if feats.shape[-1] != self.pred_size:
-            if feats.shape[-1] > self.pred_size:
-                # jax.image.resize antialiases when it shrinks; F.interpolate does not
-                raise NotImplementedError("HiSup decoder: encoder maps larger than pred_size")
-            # = jax.image.resize(..., "bilinear") when upsampling (half-pixel centres)
-            feats = F.interpolate(
-                feats, size=(self.pred_size, self.pred_size), mode="bilinear", align_corners=False
-            )
+        feats = resize_bilinear(feats, self.pred_size)
 
         joff = self.joff_head(feats)
         mask_f = self.mask_head(feats)

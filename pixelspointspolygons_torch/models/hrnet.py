@@ -7,8 +7,16 @@ leaf for leaf. The public forward takes and returns NHWC as the JAX module
 does; inside, tensors are NCHW (the NHWC input viewed as NCHW is already in
 torch's channels_last layout, which the convolutions keep).
 
-The align-corners bilinear resize (JAX: two interpolation matmuls,
-hrnet.py:39-66) is `F.interpolate(..., align_corners=True)`.
+`dtype` is the compute dtype, as flax's `dtype=` (JAX hrnet.py:69-229):
+each convolution casts its input and kernel to it and gives it, each
+BatchNorm computes in float32 and gives it (`layers.py`).
+
+The align-corners bilinear resize is JAX's two products with interpolation
+matrices (hrnet.py:39-66) built in the input's dtype: at bfloat16 the
+weights are rounded and each product is rounded to bfloat16, which
+`F.interpolate` (one rounding, exact weights) does not reproduce. At
+float32 and float64 it is `F.interpolate(..., align_corners=True)`, which
+agrees with the products to the last bits.
 """
 
 from __future__ import annotations
@@ -19,33 +27,63 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import BatchNorm
+from .layers import BatchNorm, Conv2d, layout_of
 
 
-def _conv(cin: int, cout: int, k: int, stride: int = 1, bias: bool = False, device=None) -> nn.Conv2d:
+def _conv(cin: int, cout: int, k: int, stride: int = 1, bias: bool = False, dtype=None, device=None) -> Conv2d:
     # explicit symmetric k//2 padding: torch's pad-1 grid at stride 2
-    return nn.Conv2d(cin, cout, k, stride, padding=k // 2, bias=bias, device=device)
+    return Conv2d(cin, cout, k, stride, padding=k // 2, bias=bias, dtype=dtype, device=device)
+
+
+def _interp_matrix(n_out: int, n_in: int, dtype: torch.dtype, device=None) -> torch.Tensor:
+    """(n_out, n_in) align-corners interpolation matrix, with JAX's
+    arithmetic (hrnet.py:39-52): positions in float32, the fraction `w` and
+    `1 - w` in `dtype`."""
+    if n_in == 1:
+        return torch.ones(n_out, 1, dtype=dtype, device=device)
+    if n_out == 1:
+        m = torch.zeros(1, n_in, dtype=dtype, device=device)
+        m[0, 0] = 1
+        return m
+    pos = torch.arange(n_out, dtype=torch.float32, device=device) * (n_in - 1) / (n_out - 1)
+    lo = pos.floor().long().clamp(0, n_in - 1)
+    hi = (lo + 1).clamp(max=n_in - 1)
+    w = (pos - lo.float()).to(dtype)
+    rows = torch.arange(n_out, device=device)
+    m = torch.zeros(n_out, n_in, dtype=dtype, device=device)
+    m.index_put_((rows, lo), 1 - w, accumulate=True)
+    m.index_put_((rows, hi), w, accumulate=True)
+    return m
 
 
 def resize_align_corners(x: torch.Tensor, out_hw: Sequence[int]) -> torch.Tensor:
-    if tuple(x.shape[2:]) == tuple(out_hw):
+    """Bilinear NCHW resize with align_corners=True."""
+    H2, W2 = int(out_hw[0]), int(out_hw[1])
+    H, W = x.shape[2:]
+    if (H, W) == (H2, W2):
         return x
-    return F.interpolate(x, size=tuple(int(s) for s in out_hw), mode="bilinear", align_corners=True)
+    if x.dtype in (torch.float32, torch.float64):
+        return F.interpolate(x, size=(H2, W2), mode="bilinear", align_corners=True)
+    # JAX's einsum contracts H first, then W, each product rounded to x.dtype;
+    # the result in x's memory layout, as F.interpolate gives it
+    y = torch.matmul(_interp_matrix(H2, H, x.dtype, x.device), x)
+    y = torch.matmul(y, _interp_matrix(W2, W, x.dtype, x.device).T)
+    return y.contiguous(memory_format=layout_of(x))
 
 
 class BasicBlock(nn.Module):
     """Two 3x3 convs + residual (reference hrnet48v2.py:37-66)."""
 
-    def __init__(self, cin: int, ch: int, stride: int = 1, device=None):
+    def __init__(self, cin: int, ch: int, stride: int = 1, dtype=None, device=None):
         super().__init__()
-        self.conv1 = _conv(cin, ch, 3, stride, device=device)
-        self.bn1 = BatchNorm(ch, device=device)
-        self.conv2 = _conv(ch, ch, 3, device=device)
-        self.bn2 = BatchNorm(ch, device=device)
+        self.conv1 = _conv(cin, ch, 3, stride, dtype=dtype, device=device)
+        self.bn1 = BatchNorm(ch, dtype=dtype, device=device)
+        self.conv2 = _conv(ch, ch, 3, dtype=dtype, device=device)
+        self.bn2 = BatchNorm(ch, dtype=dtype, device=device)
         self.down = stride != 1 or cin != ch
         if self.down:
-            self.down_conv = _conv(cin, ch, 1, stride, device=device)
-            self.down_bn = BatchNorm(ch, device=device)
+            self.down_conv = _conv(cin, ch, 1, stride, dtype=dtype, device=device)
+            self.down_bn = BatchNorm(ch, dtype=dtype, device=device)
 
     def forward(self, x):
         h = F.relu(self.bn1(self.conv1(x)))
@@ -58,19 +96,19 @@ class BasicBlock(nn.Module):
 class Bottleneck(nn.Module):
     """1x1 → 3x3 → 1x1(×4) + residual (reference hrnet48v2.py:69-107)."""
 
-    def __init__(self, cin: int, planes: int, stride: int = 1, device=None):
+    def __init__(self, cin: int, planes: int, stride: int = 1, dtype=None, device=None):
         super().__init__()
         out_ch = planes * 4
-        self.conv1 = _conv(cin, planes, 1, device=device)
-        self.bn1 = BatchNorm(planes, device=device)
-        self.conv2 = _conv(planes, planes, 3, stride, device=device)
-        self.bn2 = BatchNorm(planes, device=device)
-        self.conv3 = _conv(planes, out_ch, 1, device=device)
-        self.bn3 = BatchNorm(out_ch, device=device)
+        self.conv1 = _conv(cin, planes, 1, dtype=dtype, device=device)
+        self.bn1 = BatchNorm(planes, dtype=dtype, device=device)
+        self.conv2 = _conv(planes, planes, 3, stride, dtype=dtype, device=device)
+        self.bn2 = BatchNorm(planes, dtype=dtype, device=device)
+        self.conv3 = _conv(planes, out_ch, 1, dtype=dtype, device=device)
+        self.bn3 = BatchNorm(out_ch, dtype=dtype, device=device)
         self.down = stride != 1 or cin != out_ch
         if self.down:
-            self.down_conv = _conv(cin, out_ch, 1, stride, device=device)
-            self.down_bn = BatchNorm(out_ch, device=device)
+            self.down_conv = _conv(cin, out_ch, 1, stride, dtype=dtype, device=device)
+            self.down_bn = BatchNorm(out_ch, dtype=dtype, device=device)
 
     def forward(self, x):
         h = F.relu(self.bn1(self.conv1(x)))
@@ -85,26 +123,26 @@ class HRModule(nn.Module):
     """One HighResolutionModule: per-branch residual blocks, then full
     cross-resolution fusion (reference hrnet48v2.py:110-254)."""
 
-    def __init__(self, widths: Sequence[int], num_blocks: int = 4, device=None):
+    def __init__(self, widths: Sequence[int], num_blocks: int = 4, dtype=None, device=None):
         super().__init__()
         self.widths = list(widths)
         self.num_blocks = num_blocks
         n = len(widths)
         for i, w in enumerate(widths):
             for k in range(num_blocks):
-                self.add_module(f"branch{i}_b{k}", BasicBlock(w, w, device=device))
+                self.add_module(f"branch{i}_b{k}", BasicBlock(w, w, dtype=dtype, device=device))
         if n == 1:
             return
         for i in range(n):
             for j in range(n):
                 if j > i:  # coarser → finer: 1x1 conv + BN, then upsample
-                    self.add_module(f"fuse{i}_{j}_conv", _conv(widths[j], widths[i], 1, device=device))
-                    self.add_module(f"fuse{i}_{j}_bn", BatchNorm(widths[i], device=device))
+                    self.add_module(f"fuse{i}_{j}_conv", _conv(widths[j], widths[i], 1, dtype=dtype, device=device))
+                    self.add_module(f"fuse{i}_{j}_bn", BatchNorm(widths[i], dtype=dtype, device=device))
                 elif j < i:  # finer → coarser: chain of stride-2 3x3 convs
                     for k in range(i - j):
                         ch = widths[i] if k == i - j - 1 else widths[j]
-                        self.add_module(f"fuse{i}_{j}_{k}_conv", _conv(widths[j], ch, 3, 2, device=device))
-                        self.add_module(f"fuse{i}_{j}_{k}_bn", BatchNorm(ch, device=device))
+                        self.add_module(f"fuse{i}_{j}_{k}_conv", _conv(widths[j], ch, 3, 2, dtype=dtype, device=device))
+                        self.add_module(f"fuse{i}_{j}_{k}_bn", BatchNorm(ch, dtype=dtype, device=device))
 
     def forward(self, xs: list[torch.Tensor]) -> list[torch.Tensor]:
         n = len(self.widths)
@@ -151,19 +189,20 @@ class HRNetEncoder(nn.Module):
         num_modules: Sequence[int] = (1, 4, 3),
         stem_ch: int = 64,
         in_ch: int = 3,
+        dtype=None,
         device=None,
     ):
         super().__init__()
         self.in_size = in_size
         self.stage1_blocks = stage1_blocks
         self.num_modules = tuple(num_modules)
-        self.conv1 = _conv(in_ch, stem_ch, 3, 2, device=device)
-        self.bn1 = BatchNorm(stem_ch, device=device)
-        self.conv2 = _conv(stem_ch, stem_ch, 3, 2, device=device)
-        self.bn2 = BatchNorm(stem_ch, device=device)
+        self.conv1 = _conv(in_ch, stem_ch, 3, 2, dtype=dtype, device=device)
+        self.bn1 = BatchNorm(stem_ch, dtype=dtype, device=device)
+        self.conv2 = _conv(stem_ch, stem_ch, 3, 2, dtype=dtype, device=device)
+        self.bn2 = BatchNorm(stem_ch, dtype=dtype, device=device)
         cin = stem_ch
         for k in range(stage1_blocks):
-            self.add_module(f"layer1_b{k}", Bottleneck(cin, stage1_planes, device=device))
+            self.add_module(f"layer1_b{k}", Bottleneck(cin, stage1_planes, dtype=dtype, device=device))
             cin = stage1_planes * 4
 
         widths = [width * (2**i) for i in range(1 + len(num_modules))]
@@ -177,8 +216,8 @@ class HRNetEncoder(nn.Module):
             for i in range(len(cur)):
                 if i < len(pre):
                     if pre[i] != cur[i]:
-                        self.add_module(f"transition{t_idx}_{i}_conv", _conv(pre[i], cur[i], 3, device=device))
-                        self.add_module(f"transition{t_idx}_{i}_bn", BatchNorm(cur[i], device=device))
+                        self.add_module(f"transition{t_idx}_{i}_conv", _conv(pre[i], cur[i], 3, dtype=dtype, device=device))
+                        self.add_module(f"transition{t_idx}_{i}_bn", BatchNorm(cur[i], dtype=dtype, device=device))
                         plan.append(("conv", 0))
                     else:
                         plan.append(("keep", 0))
@@ -186,17 +225,17 @@ class HRNetEncoder(nn.Module):
                     n_chain = i + 1 - len(pre)
                     for j in range(n_chain):
                         ch = cur[i] if j == i - len(pre) else pre[-1]
-                        self.add_module(f"transition{t_idx}_{i}_{j}_conv", _conv(pre[-1], ch, 3, 2, device=device))
-                        self.add_module(f"transition{t_idx}_{i}_{j}_bn", BatchNorm(ch, device=device))
+                        self.add_module(f"transition{t_idx}_{i}_{j}_conv", _conv(pre[-1], ch, 3, 2, dtype=dtype, device=device))
+                        self.add_module(f"transition{t_idx}_{i}_{j}_bn", BatchNorm(ch, dtype=dtype, device=device))
                     plan.append(("chain", n_chain))
             self._transitions.append(plan)
             for m in range(nmod):
-                self.add_module(f"stage{stage}_m{m}", HRModule(cur, num_blocks, device=device))
+                self.add_module(f"stage{stage}_m{m}", HRModule(cur, num_blocks, dtype=dtype, device=device))
             pre = cur
         c = sum(pre)
-        self.last_conv1 = nn.Conv2d(c, c, 1, bias=True, device=device)
-        self.last_bn = BatchNorm(c, device=device)
-        self.last_conv2 = nn.Conv2d(c, out_dim, 1, bias=True, device=device)
+        self.last_conv1 = Conv2d(c, c, 1, bias=True, dtype=dtype, device=device)
+        self.last_bn = BatchNorm(c, dtype=dtype, device=device)
+        self.last_conv2 = Conv2d(c, out_dim, 1, bias=True, dtype=dtype, device=device)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         x = images.permute(0, 3, 1, 2)  # NHWC → NCHW view (channels_last strides)

@@ -17,9 +17,10 @@
   in their own `reset_flax_parameters(generator)`.
 
 Compute dtype (flax's `dtype=`, e.g. bfloat16). The parameters stay float32
-and each layer computes in its `dtype`: `Dense` and `Embed` cast input and
-parameters to it and give it; `LayerNorm` and `BatchNorm` compute their
-statistics and affine transform in float32 and give `dtype`; attention
+and each layer computes in its `dtype`: `Dense`, `Embed`, `Conv2d` and
+`Conv1d` cast input and parameters to it and give it; `LayerNorm` and
+`BatchNorm` compute their statistics and affine transform in float32 and
+give `dtype`; attention
 logits are the product in `dtype` divided by √Dh rounded to `dtype`, the
 softmax computes in float32 and rounds its output to `dtype`. `dtype=None` computes in the parameters' own
 dtype (float32, or float64 after `.double()`). Inside `cast_once(module)`
@@ -40,6 +41,13 @@ from torch import nn
 def cast_to(t: torch.Tensor | None, dtype: torch.dtype | None) -> torch.Tensor | None:
     """`t` in `dtype`, with no call where it is already (or `dtype` is None)."""
     return t if t is None or dtype is None or t.dtype == dtype else t.to(dtype)
+
+
+def layout_of(x: torch.Tensor) -> torch.memory_format:
+    """channels_last for a 4-D tensor stored so (the convolutions of an
+    NHWC input keep it), else the contiguous format."""
+    return torch.channels_last if x.dim() == 4 and x.is_contiguous(memory_format=torch.channels_last) \
+        else torch.contiguous_format
 
 
 def widen(dtype: torch.dtype) -> torch.dtype:
@@ -97,6 +105,28 @@ def init_flax_defaults(module: nn.Module, generator: torch.Generator | None = No
             nn.init.zeros_(m.bias)
         if hasattr(m, "reset_flax_parameters"):
             m.reset_flax_parameters(generator)
+
+
+class _CastConv:
+    """flax `nn.Conv(dtype=dtype)`: input, kernel and bias cast to `dtype`,
+    the output in it (`dtype` is the compute dtype; the parameters stay as
+    they are, and at None or their own dtype no cast is issued)."""
+
+    def __init__(self, *args, dtype=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return self._conv_forward(cast_to(x, dt), cast_to(self.weight, dt), cast_to(self.bias, dt))
+
+
+class Conv2d(_CastConv, nn.Conv2d):
+    pass
+
+
+class Conv1d(_CastConv, nn.Conv1d):
+    pass
 
 
 class Dense(nn.Linear):

@@ -32,7 +32,7 @@ def encoder_config(cfg) -> dict:
         )
     if name in _DEFERRED:
         raise NotImplementedError(f"Pix2Poly encoder {name!r}: ROADMAP 'Port queue' item {_DEFERRED[name]}")
-    raise NotImplementedError(f"encoder {name!r} not supported for pix2poly")
+    raise ValueError(f"unknown encoder {name!r} for pix2poly")
 
 
 def build_pix2poly(cfg, tokenizer: Tokenizer | None = None, device=None,

@@ -187,7 +187,7 @@ class Pix2Poly(nn.Module):
         if enc_name in ("pointpillars_vit", "early_fusion_vit"):
             raise NotImplementedError(f"Pix2Poly encoder {enc_name!r}: ROADMAP 'Port queue' item 'LiDAR and fusion'")
         if enc_name != "vit":
-            raise NotImplementedError(f"encoder {enc_name!r} for pix2poly")
+            raise ValueError(f"unknown encoder {enc_name!r} for pix2poly")
         self.vocab_size = vocab_size
         self.dim = dim
         self.num_layers = num_layers

@@ -22,6 +22,7 @@ import torch
 from ..data.loader import build_loader, to_device
 from ..models.hisup.factory import build_hisup
 from ..models.hisup.model import HiSup, extract_junctions
+from ..train.state import compute_dtype
 from ..utils.coco import generate_coco_ann
 from .hisup_polygon import polygons_from_masks
 from .predictor import Predictor
@@ -45,14 +46,15 @@ class HiSupPredictor(Predictor):
         owns (the trainer's val pass); else one is built and takes its
         weights from the checkpoint."""
         super().__init__(cfg, device)
-        self.model = build_hisup(cfg, device=self.device) if model is None else model
+        self.model = build_hisup(cfg, device=self.device, dtype=compute_dtype(cfg)) if model is None else model
         self.in_size = int(cfg.experiment.encoder.in_size)
         ev = cfg.experiment.model.get("eval") or {}
         self.junc_threshold = float(ev.get("junc_threshold", 0.008))
         self.junc_topk = int(ev.get("junc_topk", 300))
         self.dp_tolerance = float(ev.get("dp_tolerance", 1.0))
-        # remask is a probability map and travels to the host as float16
-        # (JAX :46-48); it is thresholded at 0.5 after that rounding
+        # remask is a probability map (softmaxed at the compute dtype) and
+        # travels to the host as float16 (JAX :40-48); it is thresholded at
+        # 0.5 after that rounding
         self.remask_dtype = torch.float16
         # per batch of the last predict_dataset: device ms of forward +
         # junction extraction (CUDA events; None on the CPU), host stage ms,
@@ -98,11 +100,12 @@ class HiSupPredictor(Predictor):
 
     @staticmethod
     def _fetch(handles) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Wait for one batch's copy alone; its outputs as float32 numpy."""
+        """Wait for one batch's copy alone; its outputs as float32 numpy
+        (the scores are bfloat16 at bfloat16, which numpy lacks)."""
         outs, events = handles
         if events is not None:
             events[2].synchronize()
-        return tuple(t.numpy().astype(np.float32) for t in outs)
+        return tuple(t.float().numpy() for t in outs)
 
     def predict_batch(self, batch: dict):
         """Polygons and scores of one host batch, synchronously."""

@@ -4,10 +4,15 @@ loaders → optimizer → train_val_loop → checkpoints) on one device.
 
 Float32 runs as float32: TF32 is off for matmuls and cuDNN convolutions
 (the JAX package's host.compute_dtype=float32).
+
+`checkpoint=<name>` resumes a run (weights, optimizer, schedule, epoch);
+without it, `init_weights_from=<file>` warm-starts from the weights of
+another run's checkpoint, as the JAX trainer does (trainer.py:91-121).
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -15,7 +20,7 @@ import torch
 
 from ..config.engine import Config
 from ..device import check_compute_dtype, resolve_device, set_tf32
-from ..utils.checkpoint import CheckpointManager, save_best_and_latest
+from ..utils.checkpoint import CheckpointManager, save_best_and_latest, smart_restore_params
 from ..utils.logger import make_logger
 from ..utils.seeding import seed_everything
 
@@ -28,8 +33,6 @@ def check_supported(cfg: Config) -> None:
     if bool(cfg.training.get("remat") or False):
         raise NotImplementedError("training.remat: ROADMAP 'Port queue' item 'Activation recomputation'")
     check_compute_dtype(cfg)
-    if cfg.get("init_weights_from"):
-        raise NotImplementedError("init_weights_from (orbax): the port starts from numpy trees via utils/bridge.py")
 
 
 class Trainer:
@@ -96,6 +99,7 @@ class Trainer:
     def maybe_resume(self) -> None:
         name = self.cfg.get("checkpoint")
         if not name:
+            self._maybe_warm_start()
             return
         payload = self.manager.restore(name, map_location=self.device)
         self.manager.check_modality_compat(payload.get("cfg"), self.cfg)
@@ -104,6 +108,28 @@ class Trainer:
         self.best["val_loss"] = float(payload.get("best_val_loss", self.best["val_loss"]))
         self.best["val_iou"] = float(payload.get("best_val_iou", self.best["val_iou"]))
         self.logger.info(f"resumed from {name!r} at epoch {self.start_epoch}")
+
+    def _maybe_warm_start(self) -> None:
+        """Weights only from `init_weights_from`, a checkpoint file that the
+        port's `CheckpointManager` wrote (`<output_dir>/checkpoints/<name>.pt`):
+        parameters and BatchNorm statistics grafted by name and shape
+        (`smart_restore_params`; tensors without a match keep their init),
+        while the optimizer, the schedule and the epoch start afresh."""
+        src = self.cfg.get("init_weights_from")
+        if not src:
+            return
+        path = os.path.abspath(str(src))
+        if os.path.isdir(path):
+            raise ValueError(
+                f"init_weights_from={path} is a directory (an orbax checkpoint of the JAX package?): the port "
+                "reads only its own torch.save checkpoints, <output_dir>/checkpoints/<name>.pt"
+            )
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"init_weights_from checkpoint not found: {path}")
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        model = self.state.model
+        model.load_state_dict(smart_restore_params(model.state_dict(), payload["model"], self.logger))
+        self.logger.info(f"warm-started weights from {path} (fresh optimizer)")
 
     @staticmethod
     def summarize_deferred(records: list[dict]) -> dict:

@@ -4,7 +4,11 @@ pixelspointspolygons_tpu/train/trainer_hisup.py (reference
 train/trainer_hisup.py:31-63).
 
 Batches reach the device one step ahead, from pinned memory
-(`data.loader.device_prefetch`).
+(`data.loader.device_prefetch`). The model computes in
+`host.compute_dtype` (float32 or bfloat16) with float32 parameters; the
+targets, the losses and AdamW's update stay float32. A configured HRNet
+checkpoint is grafted in right after the model is built
+(`utils/pretrained.py`), before a resume or warm start.
 """
 
 from __future__ import annotations
@@ -17,8 +21,9 @@ from ..models.hisup.factory import build_hisup
 from ..parallel import all_gather_objects
 from ..predict.predictor_hisup import HiSupPredictor, batch_annotations
 from ..utils.coco import CocoIndex
+from ..utils.pretrained import apply_pretrained_encoder
 from .hisup_step import make_train_step, make_val_step
-from .state import TrainState, cosine_with_warmup, make_optimizer, make_scheduler, num_params
+from .state import TrainState, compute_dtype, cosine_with_warmup, make_optimizer, make_scheduler, num_params
 from .trainer import Trainer
 
 # batch leaves the steps consume on the device
@@ -32,14 +37,16 @@ class HiSupTrainer(Trainer):
         self.train_loader = build_loader(cfg, "train")
         self.val_loader = build_loader(cfg, "val")
 
-        model = build_hisup(cfg, device=self.device, generator=self.generator)
+        model = build_hisup(cfg, device=self.device, generator=self.generator, dtype=compute_dtype(cfg))
+        apply_pretrained_encoder(cfg, model, self.logger)
         total_steps = len(self.train_loader) * int(m.num_epochs)
         base_lr = float(m.learning_rate)
         schedule = cosine_with_warmup(base_lr, total_steps)
         optimizer = make_optimizer("adamw", model.parameters(), base_lr, weight_decay=float(m.weight_decay))
         self.state = TrainState(model, optimizer, make_scheduler(optimizer, schedule, base_lr))
         self.maybe_resume()
-        self.logger.info(f"model has {num_params(model)/1e6:.2f}M params on {self.device}")
+        self.logger.info(f"model has {num_params(model)/1e6:.2f}M params on {self.device}, "
+                         f"computing in {model.compute_dtype}")
 
         weights = {k: float(v) for k, v in m.loss_weights.items()}
         size = int(m.decoder.in_feature_size)

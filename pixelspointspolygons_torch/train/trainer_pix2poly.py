@@ -10,10 +10,11 @@
   dtype, through a predictor that shares the model.
 
 The model computes in `host.compute_dtype` (float32 or bfloat16) with
-float32 parameters. A pretrained ViT checkpoint (`encoder.vit.pretrained`
-with a `checkpoint_file`) is ROADMAP 'Port queue' item 'Pretrained
-encoders'; the JAX trainer's val-prediction figure (matplotlib) is item
-'Val visualization'.
+float32 parameters. A configured ViT checkpoint (`encoder.vit.pretrained`
+with a `checkpoint_file`) is grafted in right after the model is built
+(`utils/pretrained.py`), before a resume or warm start. The JAX trainer's
+val-prediction figure (matplotlib) is ROADMAP 'Port queue' item 'Val
+visualization'.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from ..models.pix2poly import Tokenizer, build_pix2poly
 from ..parallel import all_gather_objects
 from ..predict.predictor_pix2poly import Pix2PolyPredictor
 from ..utils.coco import CocoIndex, generate_coco_ann
+from ..utils.pretrained import apply_pretrained_encoder
 from .pix2poly_step import make_train_step, make_val_step
 from .state import TrainState, compute_dtype, linear_warmup_decay, make_optimizer, make_scheduler, num_params
 from .trainer import Trainer
@@ -33,22 +35,9 @@ from .trainer import Trainer
 _DEV_KEYS = ("images", "y", "y_perm")
 
 
-def check_pretrained(cfg) -> None:
-    """The JAX trainer grafts a configured ViT checkpoint into the encoder
-    (utils/pretrained.py:143-186); at the config's `pretrained: false` it
-    does nothing, and neither does the port. A configured checkpoint is
-    refused rather than skipped."""
-    vit = cfg.experiment.encoder.get("vit")
-    if vit is not None and bool(vit.get("pretrained") or False) and vit.get("checkpoint_file"):
-        raise NotImplementedError(
-            f"pretrained ViT weights ({vit.checkpoint_file}): ROADMAP 'Port queue' item 'Pretrained encoders'"
-        )
-
-
 class Pix2PolyTrainer(Trainer):
     def setup(self) -> None:
         cfg = self.cfg
-        check_pretrained(cfg)
         m = cfg.experiment.model
         self.tokenizer = Tokenizer(cfg)
         self.train_loader = build_loader(cfg, "train", tokenizer=self.tokenizer)
@@ -56,6 +45,7 @@ class Pix2PolyTrainer(Trainer):
 
         model = build_pix2poly(cfg, self.tokenizer, device=self.device, generator=self.generator,
                                dtype=compute_dtype(cfg))
+        apply_pretrained_encoder(cfg, model, self.logger)
         total_steps = len(self.train_loader) * int(m.num_epochs)
         base_lr = float(m.learning_rate)
         schedule = linear_warmup_decay(base_lr, total_steps, 0.05)

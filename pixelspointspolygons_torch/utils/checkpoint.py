@@ -7,12 +7,15 @@ best_val_loss / best_val_iou / latest / epoch_%d, each one file
 schedule states, the update count, the epoch, the best metrics and the
 resolved config (for the modality check on resume, trainer.py:176-188).
 Only process 0 writes.
+
+`smart_restore_params` grafts the tensors of another run's checkpoint into
+a model by name and shape (the warm start, `init_weights_from`).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
@@ -65,6 +68,40 @@ class CheckpointManager:
         )
         if a != b:
             raise ValueError(f"checkpoint modality {a} does not match config modality {b}")
+
+
+def smart_restore_params(target: Mapping[str, Any], loaded: Mapping[str, Any], logger=None) -> dict:
+    """Fuzzy restore of a flat `{dotted.name: tensor}` mapping (a
+    `state_dict`: parameters and BatchNorm buffers) — port of JAX
+    utils/checkpoint.py:100-150 (reference misc/shared_utils.py:67-118):
+    for each target tensor, the loaded one of the same path and shape;
+    else the loaded one, not taken yet, that alone shares the longest
+    path suffix and the shape (a wrapper prefix renamed across versions);
+    else the target keeps its init. Returns the new mapping."""
+    tflat = {tuple(k.split(".")): v for k, v in target.items()}
+    lflat = {tuple(k.split(".")): v for k, v in loaded.items()}
+    out = dict(tflat)
+    used = set()
+    for path, leaf in tflat.items():
+        if path in lflat and tuple(np.shape(lflat[path])) == tuple(np.shape(leaf)):
+            out[path] = lflat[path]
+            used.add(path)
+            continue
+        matched = False
+        for k in range(len(path), 0, -1):
+            suffix = path[-k:]
+            cands = [lp for lp in lflat
+                     if lp not in used and lp[-k:] == suffix and tuple(np.shape(lflat[lp])) == tuple(np.shape(leaf))]
+            if len(cands) == 1:
+                out[path] = lflat[cands[0]]
+                used.add(cands[0])
+                matched = True
+                break
+            if len(cands) > 1:
+                break  # ambiguous at this depth; shorter suffixes only get worse
+        if not matched and logger is not None:
+            logger.warning(f"checkpoint: no match for {'.'.join(path)} — keeping init")
+    return {".".join(path): v for path, v in out.items()}
 
 
 def save_best_and_latest(

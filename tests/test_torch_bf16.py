@@ -323,3 +323,4 @@ def test_bench_torch_prints_one_json_line(capsys, monkeypatch):
     assert {"metric", "value", "unit", "vs_baseline", "spread_pct", "compute_dtype"} <= set(out)
     assert out["metric"] == "pix2poly_e2e_inference" and out["compute_dtype"] == "bfloat16"
     assert out["unit"] == "tiles/sec" and out["value"] > 0 and out["vs_baseline"] > 0 and out["device"] == "cpu"
+    assert out["spread_pct"] is None  # not measured from fewer than 5 repeats

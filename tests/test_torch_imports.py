@@ -1,11 +1,14 @@
 """The PyTorch port stands alone: no file of `pixelspointspolygons_torch/`
-and not `chip_smoke.py`, `afm_bench.py` or `bench_torch.py` imports JAX,
-flax, optax, orbax or the JAX package, and a fresh process that imports
-every module of the port, takes a HiSup and a Pix2Poly train step and
-decodes with a Pix2Poly on the CPU has none of them loaded."""
+and not `chip_smoke.py`, `afm_bench.py`, `bench_torch.py`,
+`hisup_resize_bench.py` or `graft_entry_torch.py` imports JAX, flax, optax, orbax or the JAX package,
+and a fresh process that imports every module of the port, takes a HiSup
+and a Pix2Poly train step and decodes with a Pix2Poly on the CPU has none
+of them loaded. Every `NotImplementedError` the port raises names a ROADMAP
+'Port queue' item that ROADMAP.md still lists."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -16,7 +19,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pixelspointspolygons_tp
 
 
 def _sources():
-    files = [os.path.join(ROOT, name) for name in ("chip_smoke.py", "afm_bench.py", "bench_torch.py")]
+    files = [os.path.join(ROOT, name)
+             for name in ("chip_smoke.py", "afm_bench.py", "bench_torch.py", "hisup_resize_bench.py",
+                          "graft_entry_torch.py")]
     for d, _, names in os.walk(PORT):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -43,7 +48,8 @@ def _imported_roots(path):
 def test_sources_import_nothing_of_jax():
     files = _sources()
     assert len(files) > 20 and os.path.join(PORT, "ops", "afm.py") in files
-    assert os.path.join(ROOT, "bench_torch.py") in files
+    assert os.path.join(ROOT, "bench_torch.py") in files and os.path.join(ROOT, "graft_entry_torch.py") in files
+    assert os.path.join(PORT, "utils", "pretrained.py") in files and os.path.join(PORT, "utils", "torch_port.py") in files
     bad = [
         f"{os.path.relpath(path, ROOT)}:{line} imports {root}"
         for path in files
@@ -57,6 +63,52 @@ def test_ast_scan_catches_an_import(tmp_path):
     p = tmp_path / "m.py"
     p.write_text("def f():\n    from jax import numpy\n    import importlib\n    importlib.import_module('orbax.checkpoint')\n")
     assert {r for r, _ in _imported_roots(str(p))} >= {"jax", "orbax"}
+
+
+_ITEM = re.compile(r"ROADMAP\s+'Port\s+queue'\s+item\s+'([^'{]+)'")
+
+
+def _roadmap_items() -> set[str]:
+    """The item names of ROADMAP.md's port queue, each set in bold (`**'Name'`)."""
+    with open(os.path.join(ROOT, "ROADMAP.md")) as f:
+        text = f.read()
+    queue = text[text.index("### 1. Port queue"):text.index("### 2.")]
+    return set(re.findall(r"\*\*'([^']+)'", queue))
+
+
+def _named_items(source: str, tree: ast.AST) -> set[str]:
+    """The items a module names: in its messages, and as the values of a
+    `_DEFERRED` table (encoder name -> "'item'") that its messages format."""
+    names = {" ".join(m.split()) for m in _ITEM.findall(source)}  # names may wrap in docstrings
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
+                and any(getattr(t, "id", None) == "_DEFERRED" for t in node.targets)):
+            names |= {v.value.strip("'") for v in node.value.values}
+    return names
+
+
+def test_every_refusal_names_a_roadmap_item():
+    """Each `raise NotImplementedError(...)` of the port names an item, and
+    each item named anywhere in the port is one ROADMAP.md lists."""
+    items = _roadmap_items()
+    assert {"FFL", "LiDAR and fusion", "DDP and SyncBN"} <= items
+    assert not {"bfloat16 (HiSup)", "Pretrained encoders"} & items
+    named, bare = set(), []
+    for path in _sources():
+        with open(path) as f:
+            source = f.read()
+        tree = ast.parse(source, path)
+        named |= {(m, os.path.relpath(path, ROOT)) for m in _named_items(source, tree)}
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Raise) and node.exc is not None:
+                call = node.exc
+                name = getattr(getattr(call, "func", None), "id", getattr(call, "id", None))
+                segment = ast.get_source_segment(source, call) or ""
+                if name == "NotImplementedError" and "ROADMAP 'Port queue' item" not in segment:
+                    bare.append(f"{os.path.relpath(path, ROOT)}:{node.lineno}")
+    assert named and not bare, bare
+    unknown = sorted(f"{where}: {item}" for item, where in named if item not in items)
+    assert not unknown, unknown
 
 
 _STEP = textwrap.dedent(

@@ -328,14 +328,15 @@ def test_cli_needs_a_card_unless_asked_for_the_cpu(entry, tmp_path):
 
 
 def test_bfloat16_not_ported(tiny_vit, tmp_path):
-    """HiSup's predictor refuses bfloat16, naming its ROADMAP item; the
-    Pix2Poly predictor builds its model at bfloat16 (float32 parameters)
-    and predicts a batch from a float32 checkpoint, its scores reaching the
+    """FFL's predictor refuses to start, naming its ROADMAP item (HiSup's
+    builds at bfloat16 since, tests/test_torch_hisup_bf16.py); the Pix2Poly
+    predictor builds its model at bfloat16 (float32 parameters) and
+    predicts a batch from a float32 checkpoint, its scores reaching the
     host as float32."""
-    hisup = compose(["experiment=hisup_image", "dataset=synthetic", f"host.model_root={tmp_path}",
-                     "host.compute_dtype=bfloat16"])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP 'Port queue' item 'bfloat16 \(HiSup\)'"):
-        cli_predict.get_predictor(hisup, "cpu")
+    ffl = compose(["experiment=ffl_image", "dataset=synthetic", f"host.model_root={tmp_path}",
+                   "host.compute_dtype=bfloat16"])
+    with pytest.raises(NotImplementedError, match=r"ROADMAP 'Port queue' item 'FFL'"):
+        cli_predict.get_predictor(ffl, "cpu")
     cfg = compose(_overrides(tmp_path, ["host.compute_dtype=bfloat16", "checkpoint=latest"]))
     _write_latest(cfg)
     predictor = cli_predict.get_predictor(cfg, "cpu")

@@ -379,10 +379,12 @@ def test_trainer_needs_a_card_unless_asked_for_the_cpu(tmp_path):
 
 
 def test_pretrained_encoder_refused(tiny_vit, tmp_path):
-    """A configured ViT checkpoint is refused, naming its ROADMAP item, not skipped."""
+    """A configured ViT checkpoint that is absent is refused, as by the JAX
+    trainer (utils/pretrained.py), not skipped; the grafting itself is held
+    to JAX's in tests/test_torch_pretrained.py."""
     cfg = compose(overrides(tmp_path, ["experiment.encoder.pretrained=true",
                                        f"experiment.encoder.checkpoint_file={tmp_path}/vit.pth"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP 'Port queue' item 'Pretrained encoders'"):
+    with pytest.raises(FileNotFoundError, match="ViT checkpoint not found"):
         Pix2PolyTrainer(cfg, device="cpu").train()
 
 

@@ -171,13 +171,15 @@ def test_cli_other_models_not_ported(experiment, tmp_path, monkeypatch):
         ("training.device_cache=true", "Device cache"),
         ("training.device_cache=auto", "Device cache"),
         ("training.remat=true", "Activation recomputation"),
-        # HiSup at bfloat16 (Pix2Poly runs at it: tests/test_torch_bf16.py)
-        pytest.param("host.compute_dtype=bfloat16", "bfloat16 (HiSup)", id="host.compute_dtype=bfloat16-bfloat16"),
+        # FFL at bfloat16 (HiSup and Pix2Poly run at it: tests/test_torch_hisup_bf16.py,
+        # tests/test_torch_bf16.py)
+        pytest.param("experiment.model.name=ffl host.compute_dtype=bfloat16", "FFL",
+                     id="host.compute_dtype=bfloat16-bfloat16"),
     ],
 )
 def test_options_not_ported_raise(override, item, tmp_path):
     with pytest.raises(NotImplementedError, match=re.escape(f"ROADMAP 'Port queue' item '{item}'")):
-        check_supported(compose(_overrides(tmp_path, [override])))
+        check_supported(compose(_overrides(tmp_path, override.split())))
 
 
 def test_trainer_needs_a_card_unless_asked_for_the_cpu(tmp_path):
