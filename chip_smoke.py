@@ -85,8 +85,22 @@ fails:
      a HiSup set-up with `init_weights_from` the float32 training's
      checkpoint and one step; the tensors loaded and kept at init, and the
      grafted tensors on the card against the file's;
- 13. `graft_entry_torch.entry()` on the card against the CPU.
-They run in the order 1-5, 10-13, 6-9. The line before the last is the
+ 13. `graft_entry_torch.entry()` on the card against the CPU;
+ 14. the FFL predict path: a seeded random FFL-image at full width (ViT-S/8
+     at 224 px, `ViTCNNEncoder`, heads of width 256; its seg head shifted
+     and sharpened so that its maps have contours) written as `latest`, the
+     64-tile test split predicted and evaluated through `cli/predict.py`'s
+     functions with the counters set to 0 just before and read just after
+     (0 AFM launches, 0 failed batches, the four prediction files); tiles
+     per second, each batch's forward (CUDA events), contours (host), ACM
+     (CUDA events, its steps, rings, vertices, bucket and rings dropped)
+     and post-processing (host), peak memory, the metric dict; on 2 tiles
+     the card's seg and crossfield against the CPU's, and the ACM's 500
+     steps on the card against the CPU from the same float16 maps; one ACM
+     step profiled (aten calls, kernels, the card's busy share); the
+     polygonizer on maps that the ground truth implies, evaluated (IoU
+     bound); `cli.predict_demo` on one tile.
+They run in the order 1-5, 10-14, 6-9. The line before the last is the
 card's name and power limit, the one before it a JSON object with every
 kernel's numbers; the last line is {"ok": true, "device": {...}}.
 """
@@ -202,6 +216,39 @@ ENTRY_REL_TOL = 1e-3
 # bench_torch.py inside the smoke run: few iterations (its own defaults are
 # 20 iterations in each of 5 repeats)
 BENCH_ITERS, BENCH_REPEATS = 1, 3
+# FFL-image: the seeded random model's weights; its seg and crossfield on
+# FFL_CPU_TILES tiles on the card against the CPU, float32 with TF32 off on
+# both, within FFL_MAP_TOL (seg in [0, 1], crossfield in [-2, 2]: the maps
+# of MAP_TOL above)
+FFL_SEED = 0
+FFL_SEG_QUANTILE, FFL_SEG_SHARPEN = 0.7, 10.0
+FFL_CPU_TILES = 2
+FFL_MAP_TOL = 1e-3
+# the ACM's 500 steps on the card against the CPU from the same maps. Each
+# step's gradient differs in its last bits (CUDA's complex products and
+# sums against the CPU's), and the ACM amplifies such differences: its
+# crossfield term reads the pixel at each edge's rounded midpoint, so a
+# vertex crossing a pixel boundary a step earlier or later takes another
+# path. On the CPU, a synthetic tile's contours nudged by 4 ulps part from
+# the unnudged run after 500 steps by up to 1.32 px, 46 % of the vertices
+# beyond 1e-3 px (tests/test_torch_ffl_polygonize.py::
+# test_acm_amplifies_last_bit_differences; ROADMAP 3.9). So
+# the bulk is held (median ACM_BOUNDS[1] px), the parted share
+# (ACM_BOUNDS[2] of the vertices beyond ACM_FAR_PX) and the largest
+# parting (ACM_BOUNDS[0] px, about the distance the vertices travel); the
+# quality of the result is held by FFL_ORACLE_MIN_IOU below.
+ACM_FAR_PX = 1e-3
+ACM_BOUNDS = (2.0, 1e-4, 0.25)
+# FP32 operations of one ACM step per position, counted from `_acm_loss`:
+# about 80 in the loss (edge, norm, rounded midpoint, complex z^4 + c2 z^2
+# + c0 and its squared modulus, the bilinear level term, the length), twice
+# that in its gradient, 6 in the update
+ACM_OPS_PER_VERTEX_STEP = 250
+# the polygonizer on the ground truth's maps (ffl_oracle_maps): IoU 0.9700
+# at its first reading on an NVIDIA H100 80GB HBM3 (700 W); merged touching
+# buildings (row houses) keep it below 1, as HiSup's, whose bound
+# (ORACLE_MIN_IOU) it takes
+FFL_ORACLE_MIN_IOU = 0.95
 
 
 def fail(msg: str) -> None:
@@ -874,6 +921,39 @@ def phase_oracle(cfg, predictor) -> dict:
     if not iou["IoU"] >= ORACLE_MIN_IOU:
         fail(f"polygonizing the ground truth gave IoU {iou['IoU']}")
     return {"oracle_host_ms": ms, "oracle_iou": iou["IoU"]}
+
+
+def ffl_oracle_maps(polygons: list, size: int) -> tuple[np.ndarray, np.ndarray]:
+    """FFL maps that the ground truth of one tile implies: seg (1, S, S) the
+    buildings' mask (rasterized as the dataset's masks are) blurred as
+    tests/test_ffl.py blurs its square (7x7, sigma 2); crossfield (4, S, S)
+    from each building's frame, u along its first edge as the complex
+    direction dy + i dx (the polygonizer's (y, x) convention) and v = i u,
+    and the axis-aligned frame (u = 1, v = i) on the background. The
+    synthetic buildings are rectangles and L-shapes rotated as a whole, so
+    one frame fits every edge of a building; the first edge that is not cut
+    along the tile's border by the clipping gives it."""
+    import cv2
+
+    from pixelspointspolygons_torch.ops.crossfield import uv_to_c0c2
+    from pixelspointspolygons_torch.utils.coco import seg_to_mask
+
+    mask = np.zeros((size, size), np.float32)
+    u = np.full((size, size), 1.0 + 0.0j, np.complex64)
+    for poly in polygons:
+        poly = np.asarray(poly, np.float64).reshape(-1, 2)  # (x, y)
+        inside = seg_to_mask([poly.ravel().tolist()], size, size) > 0
+        mask[inside] = 1.0
+        for a, b in zip(poly, np.roll(poly, -1, axis=0)):
+            on_border = [(a[k] == b[k]) and (a[k] <= 0 or a[k] >= size - 1) for k in (0, 1)]
+            if math.hypot(*(b - a)) >= 1.0 and not any(on_border):
+                dx, dy = b - a
+                u[inside] = complex(dy, dx) / math.hypot(dx, dy)
+                break
+    seg = cv2.GaussianBlur(mask, (7, 7), 2.0)
+    u_t = torch.from_numpy(u)
+    c0, c2 = uv_to_c0c2(u_t, 1j * u_t)
+    return seg[None], torch.stack([c0.real, c0.imag, c2.real, c2.imag]).numpy()
 
 
 def sync(device: torch.device) -> None:
@@ -1697,6 +1777,309 @@ def phase_entry() -> dict:
     return errs
 
 
+def phase_ffl(overrides: list[str]) -> dict:
+    """FFL-image prediction at full width from a seeded random model,
+    through the functions `cli/predict.py::main` calls, then its checks:
+    the forward on the card against the CPU, the ACM on the card against the
+    CPU, one ACM step profiled, the polygonizer on the ground truth, and
+    `cli.predict_demo`."""
+    from pixelspointspolygons_torch.cli.evaluate import evaluate
+    from pixelspointspolygons_torch.cli.predict import get_predictor
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.models.ffl import build_ffl
+    from pixelspointspolygons_torch.ops.afm import afm_cuda
+    from pixelspointspolygons_torch.train.state import TrainState, linear_warmup_decay, make_optimizer, make_scheduler
+    from pixelspointspolygons_torch.utils.checkpoint import CheckpointManager
+    from pixelspointspolygons_torch.utils.coco import CocoIndex
+
+    cfg = compose(overrides + ["evaluation=test", "checkpoint=latest"])
+    model = ffl_seeded_model(cfg)
+    lr = float(cfg.experiment.model.learning_rate)
+    opt = make_optimizer("adam", model.parameters(), lr)
+    CheckpointManager(cfg.output_dir).save(
+        "latest", TrainState(model, opt, make_scheduler(opt, linear_warmup_decay(lr, 1000), lr)), 0, cfg
+    )
+    n_params = sum(p.numel() for p in model.parameters())
+    del model, opt
+
+    afm_cuda.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    predictor = get_predictor(cfg)
+    pred_file = predictor.predict_dataset(cfg.evaluation.split)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    results = evaluate(cfg, pred_file)
+    t2 = time.perf_counter()
+    launches = afm_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    if predictor.device.type != CARD.type or predictor.polygonizer.device.type != CARD.type:
+        fail(f"the FFL predictor ran on {predictor.device}")
+    if launches:
+        fail(f"the FFL predict path launched the afm kernel {launches} times, expected 0")
+    if predictor.failed_batches:
+        fail(f"FFL prediction: {predictor.failed_batches} batches failed (see the warnings above)")
+    keys = [f"acm.tol_{t}" for t in cfg.experiment.polygonization.acm_method.tolerance]
+    files = [pred_file, pred_file.replace(".json", "_time.json")] + [pred_file.replace(".json", f"_{k}.json")
+                                                                     for k in keys]
+    try:
+        per_key = {}
+        for path in files:
+            with open(path) as f:
+                per_key[path] = json.load(f)
+    except (OSError, ValueError) as e:
+        fail(f"FFL prediction file: {e}")
+    anns, timing = per_key[files[0]], per_key[files[1]]
+    test_ids = set(CocoIndex(cfg.experiment.dataset.annotations["test"]).imgs)
+    if timing["num_images"] != TEST_TILES or len(test_ids) != TEST_TILES:
+        fail(f"FFL predicted {timing['num_images']} of {len(test_ids)} test tiles, expected {TEST_TILES}")
+    if not all({a["image_id"] for a in per_key[f]} <= test_ids for f in files[2:] + files[:1]):
+        fail("an FFL prediction file holds image ids outside the test split")
+    if anns != per_key[pred_file.replace(".json", "_acm.tol_1.json")]:
+        fail("the canonical FFL prediction file is not the acm.tol_1 file")
+    bad = [k for k in ("IoU", "C-IoU") if not np.isfinite(results.get(k, np.nan))]
+    if bad:
+        fail(f"FFL: non-finite metrics {bad}: {results}")
+
+    times = predictor.batch_times
+    tiles_s = 1.0 / timing["prediction_time"]
+    print(f"ffl predict path: {timing['num_images']} tiles in {len(times)} batches of {B}, {tiles_s:.2f} tiles/s "
+          f"(the predictor's own s/tile over its loop), {n_params} parameters; set-up, loop and files "
+          f"{t1 - t0:.2f} s, evaluation {t2 - t1:.2f} s; polygons per file "
+          f"{ {k: len(per_key[pred_file.replace('.json', f'_{k}.json')]) for k in keys} }; afm launches {launches}; "
+          f"failed batches {predictor.failed_batches}; peak memory {peak} bytes ({peak / 2**30:.2f} GiB)", flush=True)
+    for i, t in enumerate(times):
+        print(f"  batch {i}: forward {t['device_ms']:.2f} ms (CUDA events); contours {t['contours_ms']:.2f} ms (host); "
+              f"ACM {t['acm_ms']:.2f} ms ({t['acm_steps']} steps, CUDA events, "
+              f"{t['acm_ms'] / max(t['acm_steps'], 1):.3f} ms/step) over {t['rings']} rings, {t['vertices']} vertices, "
+              f"bucket {t['bucket']}, {t['dropped']} rings dropped; post-processing {t['post_ms']:.2f} ms (host); "
+              f"host stage {t['host_ms']:.2f} ms; wall {t['wall_ms']:.2f} ms", flush=True)
+    print("ffl metrics: " + json.dumps(results), flush=True)
+
+    acm = ffl_acm_against_cpu(predictor, ffl_forward_against_cpu(cfg, predictor))
+    oracle = ffl_oracle(cfg, predictor)
+    demo_s = ffl_demo(overrides)
+    return {"tiles_s": tiles_s, "batch_times": times, "results": results, "launches": launches, "peak_bytes": peak,
+            "acm": acm, "oracle": oracle, "demo_s": demo_s}
+
+
+def ffl_seeded_model(cfg):
+    """The full-width FFL of `cfg` with weights drawn on the CPU from
+    FFL_SEED (as the entry twin's: a generator on the card draws others).
+    At these weights the seg head's output stays near 0.5 (0.39-0.69 on 2
+    test tiles; all above 0.5 in another torch version's draw), so whether
+    the maps have contours at all depends on the draw, and without them the
+    ACM optimizes nothing; so its output layer is shifted and sharpened, as
+    a trained model's is sharp: the logits become FFL_SEG_SHARPEN x (logit -
+    its FFL_SEG_QUANTILE quantile over 2 test tiles on the CPU)."""
+    from pixelspointspolygons_torch.data.loader import build_loader, to_device
+    from pixelspointspolygons_torch.models.ffl import build_ffl
+
+    model = build_ffl(cfg, generator=torch.Generator().manual_seed(FFL_SEED)).eval()
+    batch = next(iter(build_loader(cfg, "test", eval_mode=True)))
+    with torch.inference_mode():
+        seg = model(to_device({"images": batch["images"][:2]}, torch.device("cpu"), ("images",)))["seg"]
+    shift = float(torch.quantile(torch.logit(seg.double()).flatten(), FFL_SEG_QUANTILE))
+    with torch.no_grad():
+        model.seg_out.weight.mul_(FFL_SEG_SHARPEN)
+        model.seg_out.bias.sub_(shift).mul_(FFL_SEG_SHARPEN)
+    print(f"ffl seeded model: seg {float(seg.min()):.4f}..{float(seg.max()):.4f} on 2 test tiles; seg head shifted by "
+          f"{shift:.4f} and sharpened x{FFL_SEG_SHARPEN}", flush=True)
+    return model
+
+
+def ffl_forward_against_cpu(cfg, predictor) -> tuple:
+    """The model's seg and crossfield on FFL_CPU_TILES test tiles on the card
+    against a copy on the CPU; returns the first test batch's float16 maps
+    on the card (the predictor's forward)."""
+    import copy
+
+    from pixelspointspolygons_torch.data.loader import build_loader, to_device
+
+    batch = next(iter(build_loader(cfg, "test", eval_mode=True)))
+    few = {"images": batch["images"][:FFL_CPU_TILES]}
+    with torch.inference_mode():
+        card = predictor.model.eval()(to_device(few, CARD, ("images",)))
+        t = time.perf_counter()
+        cpu = copy.deepcopy(predictor.model).cpu().eval()(to_device(few, torch.device("cpu"), ("images",)))
+        cpu_s = time.perf_counter() - t
+    errs = {k: float((card[k].cpu() - v).abs().max()) for k, v in cpu.items()}
+    print(f"ffl card vs CPU on {FFL_CPU_TILES} test tiles (CPU forward {cpu_s:.1f} s): max abs err {errs} "
+          f"(tol {FFL_MAP_TOL})", flush=True)
+    if set(errs) != {"seg", "crossfield"} or not all(e <= FFL_MAP_TOL for e in errs.values()):
+        fail(f"the FFL model's maps on the card differ from the CPU's: {errs}")
+    maps = predictor.forward(to_device(batch, CARD, ("images",)))
+    return maps["seg"], maps["crossfield"]
+
+
+def acm_card_against_cpu(poly, maps: tuple, what: str, bounds: tuple) -> dict:
+    """The ACM's steps on the packed contours of `maps` (seg, crossfield
+    tensors on the card) on the card and on the CPU from the same values,
+    position by position; fails outside `bounds` = (max px, median px,
+    largest share of the vertices beyond ACM_FAR_PX) or if no vertex
+    moved."""
+    from pixelspointspolygons_torch.predict import ffl_polygonize as fp
+
+    seg, crossfield = (m.float().cpu().numpy() for m in maps)
+    level = float(poly.cfg.common_params.init_data_level)
+    packed = fp.pack_contours([fp.extract_contours_flagged(seg[b, 0], level) for b in range(len(seg))])
+    vmask = packed[1]
+    card = poly._optimize(packed[:5], seg[:, 0], crossfield, maps)
+    card_ms = poly.stats["acm_ms"]
+    t = time.perf_counter()
+    cpu = poly._optimize(packed[:5], seg[:, 0], crossfield, tuple(m.cpu() for m in maps))
+    cpu_s = time.perf_counter() - t
+    d = np.abs(card - cpu)[vmask].max(axis=1)
+    moved = float(np.abs(cpu - packed[0])[vmask].max())
+    out = {"max_px": float(d.max()), "median_px": float(np.median(d)), "far_share": float((d > ACM_FAR_PX).mean()),
+           "card_ms": card_ms, "vertices": int(vmask.sum())}
+    print(f"ffl ACM card vs CPU, {what} ({len(packed[5])} rings, {out['vertices']} vertices, bucket {len(vmask)}, "
+          f"{packed[6]} dropped; card {card_ms:.1f} ms, CPU {cpu_s:.1f} s, {poly.stats['acm_steps']} steps; vertices "
+          f"moved up to {moved:.3f} px): |card - CPU| max {out['max_px']:.3g} px, median {out['median_px']:.3g} px, "
+          f"99th percentile {np.quantile(d, 0.99):.3g} px, {100 * out['far_share']:.2f} % beyond {ACM_FAR_PX} px "
+          f"(bounds: max {bounds[0]}, median {bounds[1]}, share beyond {ACM_FAR_PX} px {bounds[2]})", flush=True)
+    got = (out["max_px"], out["median_px"], out["far_share"])
+    if moved <= 0.1 or any(g > b for g, b in zip(got, bounds)):
+        fail(f"ACM on the card against the CPU, {what}: outside the bounds, or no vertex moved")
+    return out
+
+
+def ffl_acm_against_cpu(predictor, maps: tuple) -> dict:
+    """ACM on FFL_CPU_TILES tiles of one batch (the CPU's 500 steps over
+    all 16 would take about a minute) on the card and on the CPU from the
+    same float16-rounded maps (the card's forward); then one ACM step
+    profiled on the card at the whole batch's packing, the predict path's
+    size."""
+    from pixelspointspolygons_torch.predict import ffl_polygonize as fp
+
+    poly = predictor.polygonizer
+    out = acm_card_against_cpu(poly, tuple(m[:FFL_CPU_TILES] for m in maps),
+                               f"{FFL_CPU_TILES} tiles of the seeded model's first test batch", ACM_BOUNDS)
+    seg, _ = (m.float().cpu().numpy() for m in maps)
+    level = float(poly.cfg.common_params.init_data_level)
+    packed = fp.pack_contours([fp.extract_contours_flagged(seg[b, 0], level) for b in range(len(seg))])
+    args = [torch.from_numpy(a).to(CARD) for a in (packed[0], packed[1], packed[2].astype(np.int64),
+                                                     packed[3].astype(np.int64), packed[4])]
+    seg_d, cf_d = (m.float() for m in maps)
+    profile = ffl_acm_profile((*args[:4], seg_d[:, 0], cf_d, args[4]), fp.acm_kwargs(poly.cfg.acm_method))
+    return {**out, "profile_vertices": int(packed[1].sum()), "profile_bucket": len(packed[1]), **profile}
+
+
+def ffl_acm_profile(args: tuple, kw: dict) -> dict:
+    """What one ACM step costs on the card, from runs of 1 and 11 steps
+    (their difference over 10 steps, so the set-up drops out): the step's
+    time unprofiled (host clock, synchronized), and from torch.profiler
+    traces the host's top-level aten calls, the kernels launched and their
+    summed device time; the card's busy share is that time over the step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pixelspointspolygons_torch.predict.ffl_polygonize import acm_optimize
+
+    def run(steps):
+        acm_optimize(*args, **{**kw, "steps": steps})
+        torch.cuda.synchronize()
+
+    run(2)  # warm-up
+    walls = {}
+    for steps in (1, 11):
+        t = time.perf_counter()
+        run(steps)
+        walls[steps] = time.perf_counter() - t
+    ms_per_step = (walls[11] - walls[1]) * 1e3 / 10
+    counts = []
+    for steps in (1, 11):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(steps)
+        events = prof.events()
+        aten = [e for e in events if e.name.startswith("aten::")
+                and (e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::"))]
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+        counts.append((len(aten), len(kernels), sum(e.time_range.elapsed_us() for e in kernels)))
+    per = [(b - a) / 10 for a, b in zip(*counts)]
+    # the least time of the whole loop: its inputs read once and its output
+    # written once, or ACM_OPS_PER_VERTEX_STEP operations per position and
+    # step at the FP32 peak
+    n, steps = len(args[0]), kw["steps"]
+    nbytes = sum(t.numel() * t.element_size() for t in args) + args[0].numel() * 4
+    t_ops = n * steps * ACM_OPS_PER_VERTEX_STEP / PEAK_FP32_FLOPS * 1e3
+    bound_ms, bound_by = max((t_ops, "operations"), (nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"))
+    out = {"aten_per_step": per[0], "kernels_per_step": per[1], "kernel_us_per_step": per[2],
+           "step_ms": ms_per_step, "loop_bound_ms": bound_ms, "loop_bound_by": bound_by}
+    print(f"ffl ACM loop bound at {n} positions: {bound_ms:.4f} ms for {steps} steps ({bound_by}; "
+          f"{nbytes / 1e6:.2f} MB, {n * steps * ACM_OPS_PER_VERTEX_STEP / 1e9:.3f} GFLOP)", flush=True)
+    if per[1] <= 0:
+        print("ffl ACM step profile: the profiler recorded no device kernels (busy share not measured)", flush=True)
+        return out
+    out["busy_share"] = per[2] / (ms_per_step * 1e3)
+    print(f"ffl ACM step profile (K5 baseline; torch.profiler, steps 1..11, {len(args[0])} positions): "
+          f"{per[0]:.1f} top-level aten calls and {per[1]:.1f} kernels per step, {per[2]:.1f} us of kernel time "
+          f"per step: the card is busy {100 * out['busy_share']:.1f} % of the {ms_per_step:.3f} ms step "
+          f"(unprofiled, steps 1..11)", flush=True)
+    return out
+
+
+def ffl_oracle(cfg, predictor) -> dict:
+    """The polygonizer on the card on maps that the test split's ground
+    truth implies (`ffl_oracle_maps`), evaluated as a prediction: what the
+    contours, the ACM and the post-processing give on building shapes,
+    which a random model's maps do not show."""
+    from pixelspointspolygons_torch.eval.metrics import compute_iou_ciou
+    from pixelspointspolygons_torch.utils.coco import CocoIndex, generate_coco_ann
+
+    gt = CocoIndex(cfg.experiment.dataset.annotations["test"])
+    size = int(cfg.experiment.encoder.in_size)
+    key = f"tol_{cfg.experiment.polygonization.acm_method.get('eval_tolerance', 1)}"
+    ids = sorted(gt.imgs)
+    anns, ms = [], []
+    for k in range(0, len(ids), B):
+        chunk = ids[k:k + B]
+        maps = [ffl_oracle_maps([s for a in gt.imgToAnns.get(i, []) for s in a["segmentation"]], size) for i in chunk]
+        seg, cf = np.stack([m[0] for m in maps]), np.stack([m[1] for m in maps])
+        t = time.perf_counter()
+        out = predictor.polygonizer(seg, cf, maps=(torch.from_numpy(seg).to(CARD), torch.from_numpy(cf).to(CARD)))
+        ms.append((time.perf_counter() - t) * 1e3)
+        for i, polys in zip(chunk, out["acm"][key]):
+            anns.extend(generate_coco_ann(polys, i))
+    iou = compute_iou_ciou(gt, gt.load_res(anns))
+    maps = [ffl_oracle_maps([s for a in gt.imgToAnns.get(i, []) for s in a["segmentation"]], size)
+            for i in ids[:FFL_CPU_TILES]]
+    acm = acm_card_against_cpu(predictor.polygonizer, tuple(torch.from_numpy(np.stack([m[j] for m in maps])).to(CARD)
+                                                            for j in (0, 1)),
+                               f"{FFL_CPU_TILES} tiles' ground-truth maps", ACM_BOUNDS)
+    print(f"ffl polygonizer on the ground truth (card ACM): {[round(x, 1) for x in ms]} ms per batch of {B}, "
+          f"{len(anns)} polygons for {len(gt.anns)} buildings, IoU {iou['IoU']:.4f} C-IoU {iou['C-IoU']:.4f} "
+          f"(IoU at least {FFL_ORACLE_MIN_IOU})", flush=True)
+    if not iou["IoU"] >= FFL_ORACLE_MIN_IOU:
+        fail(f"the FFL polygonizer on the ground truth gave IoU {iou['IoU']}")
+    return {"ms": ms, "iou": iou["IoU"], "c_iou": iou["C-IoU"], "acm": acm}
+
+
+def ffl_demo(overrides: list[str]) -> float:
+    """`cli.predict_demo` on one test tile, in the work directory (it writes
+    its png where it runs)."""
+    from pixelspointspolygons_torch.cli import predict_demo
+    from pixelspointspolygons_torch.config import compose
+
+    cfg = compose(overrides)
+    test_dir = os.path.join(cfg.experiment.dataset.in_path, "images", "test")
+    image = os.path.join(test_dir, sorted(os.listdir(test_dir))[0])
+    cwd = os.getcwd()
+    os.chdir(WORK)
+    try:
+        t = time.perf_counter()
+        polys, out_file = predict_demo.main(overrides + ["checkpoint=latest", f"+image_file={image}"])
+        demo_s = time.perf_counter() - t
+        ok = os.path.isfile(out_file)
+    finally:
+        os.chdir(cwd)
+    print(f"ffl predict_demo on {os.path.basename(image)}: {len(polys)} polygons, {out_file} written {ok}, "
+          f"{demo_s:.2f} s", flush=True)
+    if not ok:
+        fail("cli.predict_demo wrote no png")
+    return demo_s
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
@@ -1742,6 +2125,15 @@ def main() -> None:
     grafts = phase_pretrained(overrides, p2p_overrides, float32_latest)
     print(f"pretrained and warm start (tensors loaded and kept at init): {json.dumps(grafts)}, card {smi}", flush=True)
     phase_entry()
+    ffl = phase_ffl(smoke_overrides(num_train=TRAIN_STEPS * B, experiment="ffl_image"))
+    bt = ffl["batch_times"]
+    med = {k: statistics.median(t[k] for t in bt) for k in ("device_ms", "contours_ms", "acm_ms", "post_ms")}
+    print(f"ffl predict path: {ffl['tiles_s']:.2f} tiles/s; per batch of {B} (medians): forward "
+          f"{med['device_ms']:.2f} ms, contours {med['contours_ms']:.2f} ms, ACM {med['acm_ms']:.2f} ms, "
+          f"post-processing {med['post_ms']:.2f} ms; ACM step {ffl['acm']['step_ms']:.3f} ms "
+          f"({ffl['acm']['aten_per_step']:.1f} aten calls, {ffl['acm']['kernels_per_step']:.1f} kernels); "
+          f"IoU {ffl['results']['IoU']:.4f}; ground-truth IoU {ffl['oracle']['iou']:.4f}; peak "
+          f"{ffl['peak_bytes'] / 2**30:.2f} GiB, card {smi}", flush=True)
     p2p = phase_pix2poly(p2p_overrides)
     bt = p2p["batch_times"]
     med = {k: statistics.median(t[k] for t in bt) for k in ("encoder_ms", "decode_ms", "scorenet_ms", "host_ms")}
@@ -1775,6 +2167,7 @@ def main() -> None:
         "pix2poly_train_float32": trained["float32"]["launches"],
         "pix2poly_train_bfloat16": trained["bfloat16"]["launches"], "pix2poly_predict_bfloat16": pbf["launches"],
         "hisup_train_bfloat16": launches_bf16["afm"], "hisup_predict_bfloat16": pred_bf16["launches"],
+        "ffl_predict": ffl["launches"],
     }
     print(f"smoke run: {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"kernels": [afm_row]}), flush=True)

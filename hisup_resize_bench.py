@@ -46,7 +46,7 @@ def main() -> None:
     from pixelspointspolygons_torch.models import hrnet
     from pixelspointspolygons_torch.models.hisup import model as hisup
     from pixelspointspolygons_torch.models.hisup.factory import build_hisup
-    from pixelspointspolygons_torch.models.layers import layout_of
+    from pixelspointspolygons_torch.models.layers import _resize_matrix, layout_of
 
     set_tf32(False)
     card = torch.device("cuda")
@@ -70,8 +70,8 @@ def main() -> None:
         H, W = x.shape[2:]
         if (H, W) == (n, n):
             return x
-        y = torch.matmul(hisup._resize_matrix(H, n, x.device).to(x.dtype).T, x)
-        y = torch.matmul(y, hisup._resize_matrix(W, n, x.device).to(x.dtype))
+        y = torch.matmul(_resize_matrix(H, n, x.device).to(x.dtype).T, x)
+        y = torch.matmul(y, _resize_matrix(W, n, x.device).to(x.dtype))
         return y.contiguous(memory_format=layout_of(x))
 
     def use(form: str) -> None:

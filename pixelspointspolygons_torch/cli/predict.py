@@ -4,9 +4,8 @@ scripts/predict.py:9-46).
 Usage: python -m pixelspointspolygons_torch.cli.predict experiment=hisup_image \
     dataset=synthetic evaluation=test checkpoint=latest [key.path=value ...] [device=cpu]
 
-Runs on the card; `device=cpu` runs on the CPU instead. HiSup and
-Pix2Poly (`experiment=p2p_image`) are ported; FFL raises
-NotImplementedError naming its ROADMAP item.
+Runs on the card; `device=cpu` runs on the CPU instead. HiSup, Pix2Poly
+(`experiment=p2p_image`) and FFL (`experiment=ffl_image`) are ported.
 """
 
 from __future__ import annotations
@@ -30,7 +29,9 @@ def get_predictor(cfg: Config, device: str | torch.device | None = None) -> Pred
 
         return Pix2PolyPredictor(cfg, device=device)
     if name == "ffl":
-        raise NotImplementedError("FFL prediction: ROADMAP 'Port queue' item 'FFL'")
+        from ..predict.predictor_ffl import FFLPredictor
+
+        return FFLPredictor(cfg, device=device)
     raise ValueError(f"unknown model {name!r}")
 
 

@@ -9,6 +9,8 @@ arrays) so a batch is a dict of fixed-shape numpy arrays.
 - HiSup: junctions with concave/convex tags (convex-hull test), the polygon
   edges and the instance mask; the jloc/joff/afm targets are built on the
   device in the train step (models/hisup/model.py::encode_targets).
+- FFL: in eval mode only, the image and its id, which is what prediction
+  reads; the FFL training items come with ROADMAP 'Port queue' item 'FFL'.
 """
 
 from __future__ import annotations
@@ -127,7 +129,9 @@ class P3Dataset:
         if self.model_type == "hisup":
             return self._item_hisup(idx, rng)
         if self.model_type == "ffl":
-            raise NotImplementedError("FFL items: ROADMAP 'Port queue' item 'FFL'")
+            if not self.eval_mode:
+                raise NotImplementedError("FFL training items: ROADMAP 'Port queue' item 'FFL'")
+            return self._item_ffl_eval(idx, rng)
         raise ValueError(f"unknown model {self.model_type!r}")
 
     def _common(self, info, rng, params) -> dict:
@@ -157,6 +161,13 @@ class P3Dataset:
         item["y"] = self.tokenizer.pad(tokens)
         item["y_perm"] = perm
         return item
+
+    def _item_ffl_eval(self, idx: int, rng) -> dict:
+        """What FFL prediction reads of an item: the image and its id. The
+        JAX item (`_item_ffl`, :336-374) also carries the FFL ground truth,
+        which only training reads."""
+        info = self.coco.imgs[self.tile_ids[idx]]
+        return self._common(info, rng, augment.sample_params(rng, self.augmentations))
 
     def _item_hisup(self, idx: int, rng) -> dict:
         info = self.coco.imgs[self.tile_ids[idx]]

@@ -24,46 +24,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.afm import afm_auto
-from ..layers import BatchNorm, Conv1d, Conv2d, layout_of
+from ..layers import BatchNorm, Conv1d, Conv2d, resize_bilinear
 
 
 def _conv3(cin: int, cout: int, dtype=None, device=None) -> Conv2d:
     return Conv2d(cin, cout, 3, padding=1, bias=True, dtype=dtype, device=device)
-
-
-def _resize_matrix(n_in: int, n_out: int, device=None) -> torch.Tensor:
-    """(n_in, n_out) weights of `jax.image.resize(..., "bilinear")` along one
-    axis (jax/_src/image/scale.py::compute_weight_mat, antialiased, in
-    float32): half-pixel centres, a triangle kernel widened by the scale
-    when it shrinks, each column normalized."""
-    scale = n_out / n_in
-    inv_scale = 1.0 / scale
-    kernel_scale = max(inv_scale, 1.0)
-    sample = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
-    x = (sample[None, :] - torch.arange(n_in, dtype=torch.float32, device=device)[:, None]).abs() / kernel_scale
-    w = (1.0 - x).clamp(min=0.0)
-    total = w.sum(dim=0, keepdim=True)
-    w = torch.where(total.abs() > 1000.0 * float(torch.finfo(torch.float32).eps),
-                    w / torch.where(total != 0, total, 1.0), 0.0)
-    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return torch.where(inside[None, :], w, 0.0)
-
-
-def resize_bilinear(x: torch.Tensor, size: int) -> torch.Tensor:
-    """`jax.image.resize(x, ..., "bilinear")` of an NCHW map to size x size.
-    Enlarging at float32 or float64 it is `F.interpolate` (half-pixel
-    centres; jax applies no antialiasing when it enlarges). Otherwise it is
-    JAX's arithmetic: the weight matrices cast to x's dtype, H contracted
-    first, then W, each product rounded to x's dtype; the result in x's
-    memory layout, as `F.interpolate` gives it."""
-    H, W = x.shape[2:]
-    if (H, W) == (size, size):
-        return x
-    if x.dtype in (torch.float32, torch.float64) and H <= size and W <= size:
-        return F.interpolate(x, size=(size, size), mode="bilinear", align_corners=False)
-    y = torch.matmul(_resize_matrix(H, size, x.device).to(x.dtype).T, x)
-    y = torch.matmul(y, _resize_matrix(W, size, x.device).to(x.dtype))
-    return y.contiguous(memory_format=layout_of(x))
 
 
 class ConvStack3(nn.Module):

@@ -5,6 +5,10 @@ pixelspointspolygons_tpu/models/vit.py (:32-129).
   pre-norm blocks, final LayerNorm → (B, 1 + N, dim) tokens.
 - `ViTEncoder`: backbone → drop CLS → AdaptiveAvgPool1d channel bottleneck
   (384 → out_dim) → (B, N, out_dim).
+- `ViTCNNEncoder` (JAX :132-158): backbone → drop CLS → the token grid
+  resized bilinearly to out_size (`layers.resize_bilinear`, JAX's
+  `jax.image.resize`) → Conv3×3 + BatchNorm + ReLU → (B, S, S, out_dim)
+  NHWC, the dense map of the HiSup and FFL heads.
 
 Images arrive NHWC, as the loader gives them. The flax patch embedding is an
 NHWC conv whose (B, gh, gw, dim) output is flattened row-major over
@@ -16,7 +20,6 @@ ln0/ln1, MultiHeadAttention_0 is attn, MlpBlock_0 is mlp. `dtype` is the
 compute dtype (`layers.py`): at bfloat16 the patch embedding, the CLS token
 and the position embeddings are cast to it, so the residual stream is
 bfloat16, as in the flax modules (JAX vit.py:77-96).
-(`vit_cnn` is ROADMAP 'Port queue' item 'Remaining HiSup encoders'.)
 """
 
 from __future__ import annotations
@@ -25,7 +28,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import LayerNorm, MlpBlock, MultiHeadAttention, cast_to, adaptive_avg_pool1d
+from .layers import (
+    BatchNorm,
+    Conv2d,
+    LayerNorm,
+    MlpBlock,
+    MultiHeadAttention,
+    adaptive_avg_pool1d,
+    cast_to,
+    resize_bilinear,
+)
 
 
 class ViTBlock(nn.Module):
@@ -98,3 +110,27 @@ class ViTEncoder(nn.Module):
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         return adaptive_avg_pool1d(self.vit(images)[:, 1:], self.out_dim)
+
+
+class ViTCNNEncoder(nn.Module):
+    """Dense-map encoder of the HiSup and FFL heads. Output (B, S, S,
+    out_dim) NHWC (a permuted view of the NCHW map). The flax auto-names
+    Conv_0 and BatchNorm_0 are conv0 and bn0 (`utils/bridge.py`)."""
+
+    def __init__(self, img_size: int = 224, patch_size: int = 8, dim: int = 384, depth: int = 12,
+                 num_heads: int = 6, out_size: int = 224, out_dim: int = 256, layer_scale: bool = False,
+                 dtype=None, device=None):
+        super().__init__()
+        self.out_size = out_size
+        self.vit = ViTBackbone(img_size, patch_size, dim, depth, num_heads, layer_scale=layer_scale, dtype=dtype,
+                               device=device)
+        self.conv0 = Conv2d(dim, out_dim, 3, padding=1, bias=True, dtype=dtype, device=device)
+        self.bn0 = BatchNorm(out_dim, dtype=dtype, device=device)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        x = self.vit(images)[:, 1:]
+        B, N, C = x.shape
+        g = int(round(N ** 0.5))
+        x = x.transpose(1, 2).reshape(B, C, g, g)  # token i is patch (i // g, i % g)
+        x = resize_bilinear(x, self.out_size)
+        return F.relu(self.bn0(self.conv0(x))).permute(0, 2, 3, 1)
