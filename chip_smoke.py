@@ -99,8 +99,25 @@ fails:
      steps on the card against the CPU from the same float16 maps; one ACM
      step profiled (aten calls, kernels, the card's busy share); the
      polygonizer on maps that the ground truth implies, evaluated (IoU
-     bound); `cli.predict_demo` on one tile.
-They run in the order 1-5, 10-14, 6-9. The line before the last is the
+     bound); `cli.predict_demo` on one tile;
+ 15. FFL-image training at full width (batch 16) through the trainer of
+     `cli/train.py`, from a seeded model drawn on the CPU and taken up by
+     `init_weights_from`: at float32 (the ground-truth cache emptied first,
+     so the loader is cold) and at bfloat16, each 4 train steps, 1 val step
+     and the val-IoU pass (the ACM on the model's maps) with the counters
+     set to 0 just before and read just after (0 AFM launches); step time,
+     the step cut by CUDA events into forward, losses, backward and Adam,
+     one forward traced, peak memory, the host loader's ms per batch cold
+     and warm, each loss term of the first step, the val IoU with its ACM's
+     rings, vertices and bucket; one float32 step on 2 tiles on the card
+     against the CPU (losses and gradients); bfloat16's first-step losses
+     against float32's; the bfloat16 maps on the card against the CPU; FFL
+     prediction at bfloat16 of the first 16 test tiles from that training's
+     `latest` (0 AFM launches, 0 failed batches); ASM on the ground truth's
+     maps of one test batch (IoU bound; skeleton, optimization and
+     post-processing ms), its optimization on 2 tiles on the card against
+     the CPU, and one ASM step profiled.
+They run in the order 1-5, 10-15, 6-9. The line before the last is the
 card's name and power limit, the one before it a JSON object with every
 kernel's numbers; the last line is {"ok": true, "device": {...}}.
 """
@@ -249,6 +266,46 @@ ACM_OPS_PER_VERTEX_STEP = 250
 # buildings (row houses) keep it below 1, as HiSup's, whose bound
 # (ORACLE_MIN_IOU) it takes
 FFL_ORACLE_MIN_IOU = 0.95
+# FFL training (phase 15) starts from FFL_SEED's weights drawn on the CPU
+# (as phase 14's, without its seg-head shift), taken up through
+# `init_weights_from` by both dtypes' runs:
+# - one float32 step on HISUP_BF16_CPU_TILES tiles on the card and on the
+#   CPU: the losses to 1e-4 relative and the two gradients to 2e-3 of each
+#   other in relative L2 over all parameters: each float32 gradient within
+#   1e-3 of the exact one, as Pix2Poly's (the two read 2.36e-4 apart on an
+#   NVIDIA H100 80GB HBM3 at 700 W, PERF.md);
+# - the bfloat16 run's first step against the float32 run's, from the same
+#   weights on the same batch, relative: the total and the seg and
+#   alignment terms 1e-2 (HiSup's); seg_interior_crossfield 5e-2
+#   (Pix2Poly's: it aligns the field with the seg's normalized gradient,
+#   whose direction bfloat16's steps turn where the seg is nearly flat);
+#   crossfield_smooth 0.5: it is the mean |Laplacian| of a field that is
+#   smooth at these weights, and bfloat16's rounding of every layer adds
+#   roughness (0.263 apart on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md);
+# - the card's bfloat16 maps against the CPU's, from the first step's
+#   weights in eval mode: 5e-2 in relative L2, as HiSup's;
+# - prediction at bfloat16 on the first FFL_BF16_TEST_TILES test tiles.
+FFL_LOSS_TOL, FFL_GRAD_TOL = 1e-4, 2e-3
+FFL_BF16_LOSS_TOL = {"loss": 1e-2, "seg": 1e-2, "crossfield_align": 1e-2, "crossfield_align90": 1e-2,
+                     "seg_interior_crossfield": 5e-2, "crossfield_smooth": 0.5}
+FFL_BF16_REL_L2 = 5e-2
+FFL_BF16_TEST_TILES = 16
+# ASM on the ground truth's maps of one test batch: IoU at least
+# ASM_ORACLE_MIN_IOU (0.8380 on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md:
+# the skeleton merges touching buildings). Its optimization on
+# ASM_CPU_TILES of those tiles on the card against the CPU: RMSprop divides
+# each gradient by its own running size, so a gradient at the rounding
+# noise steps by lr·sign(noise) and last-bit differences grow faster than
+# in the ACM (ROADMAP 3.10; tests/test_torch_ffl_asm.py: on the CPU, JAX's
+# run parts from itself by a median of 0.14 px when its start is nudged by
+# 4 ulps, from the port's by 7.6e-6 px after one step). So one step is held
+# by its median (ASM_ONE_STEP_MEDIAN_PX) and its share beyond ACM_FAR_PX
+# (ASM_ONE_STEP_SHARE), the 300 steps by their median (ASM_MEDIAN_PX); the
+# quality of the result is held by the IoU.
+ASM_ORACLE_MIN_IOU = 0.80
+ASM_CPU_TILES = 2
+ASM_ONE_STEP_MEDIAN_PX, ASM_ONE_STEP_SHARE = 1e-4, 0.02
+ASM_MEDIAN_PX = 0.1
 
 
 def fail(msg: str) -> None:
@@ -507,11 +564,13 @@ def phase_afm(cfg) -> dict:
     }
 
 
-def record_steps(trainer, step_losses: list, iou_pass_s: list, first: dict | None = None) -> None:
+def record_steps(trainer, step_losses: list, iou_pass_s: list, first: dict | None = None,
+                 loader_ms: list | None = None) -> None:
     """Have the trainer's set-up wrap its train step so that it records
     each step's metrics, and time its val-IoU pass. With `first`, the first
-    step's weights and HISUP_BF16_CPU_TILES of its images are copied into
-    it (to the host, so that the copy adds nothing to the peak)."""
+    step's weights and HISUP_BF16_CPU_TILES samples of its batch are copied
+    into it (to the host, so that the copy adds nothing to the peak). With
+    `loader_ms`, the host ms of each train batch the loader builds."""
     def timed_predict_and_eval(epoch, run=trainer.predict_and_eval):
         t = time.perf_counter()
         iou = run(epoch)
@@ -523,15 +582,25 @@ def record_steps(trainer, step_losses: list, iou_pass_s: list, first: dict | Non
         run()
         step = trainer._train_step
 
-        def recorded(state, batch):
+        def recorded(state, batch, *args):
             if first is not None and not first:
                 first["state"] = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
-                first["images"] = batch["images"][:HISUP_BF16_CPU_TILES].cpu()
-            metrics = step(state, batch)
+                first["batch"] = {k: v[:HISUP_BF16_CPU_TILES].cpu() for k, v in batch.items()}
+            metrics = step(state, batch, *args)
             step_losses.append(metrics)
             return metrics
 
         trainer._train_step = recorded
+        if loader_ms is not None:
+            make = trainer.train_loader._make_batch
+
+            def timed(idxs):
+                t = time.perf_counter()
+                out = make(idxs)
+                loader_ms.append((time.perf_counter() - t) * 1e3)
+                return out
+
+            trainer.train_loader._make_batch = timed
 
     trainer.predict_and_eval = timed_predict_and_eval
     trainer.setup = setup_and_record
@@ -640,7 +709,7 @@ def hisup_bf16_card_against_cpu(cfg, first: dict) -> None:
     is printed beside it."""
     from pixelspointspolygons_torch.models.hisup.factory import build_hisup
 
-    images = first["images"]
+    images = first["batch"]["images"]
     models = {}
     for name, dev, dtype in (("card", CARD, torch.bfloat16), ("cpu", torch.device("cpu"), torch.bfloat16),
                              ("float32", CARD, torch.float32)):
@@ -2080,6 +2149,399 @@ def ffl_demo(overrides: list[str]) -> float:
     return demo_s
 
 
+def phase_ffl_train(overrides: list[str], dtype: str) -> dict:
+    """FFL-image training at full width through the trainer that
+    `cli/train.py` builds, at `dtype`: 4 train + 1 val steps and the val-IoU
+    pass with the kernel counters set to 0 just before and read just after
+    (the float32 run from an empty ground-truth cache, so its loader is
+    cold), then the steady-state step, its parts, one forward traced, and
+    the card against the CPU."""
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.data.loader import device_prefetch
+    from pixelspointspolygons_torch.ops.afm import afm_cuda
+    from pixelspointspolygons_torch.train.trainer_ffl import FFL_BATCH_KEYS, FFLTrainer
+
+    cfg = compose(overrides + [f"host.compute_dtype={dtype}"])
+    if dtype == "float32":
+        shutil.rmtree(os.path.join(cfg.experiment.dataset.in_path, "ffl_cache_torch"), ignore_errors=True)
+    trainer = FFLTrainer(cfg, device=CARD)
+    iou_pass_s, step_losses, first, cold_ms = [], [], {}, []
+    record_steps(trainer, step_losses, iou_pass_s, first, cold_ms)
+    torch.cuda.reset_peak_memory_stats()
+    afm_cuda.launches = 0
+    t0 = time.perf_counter()
+    history = trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = afm_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    n_train, n_val = len(trainer.train_loader), len(trainer.val_loader)
+    model = trainer.state.model
+    losses = [{k: float(v) for k, v in m.items()} for m in step_losses]
+    print(f"ffl train path ({dtype}): {n_train} train + {n_val} val steps and the val-IoU pass in {wall:.1f} s "
+          f"(set-up included), peak memory {peak / 2**30:.2f} GiB; afm launches {launches}; model computes in "
+          f"{model.compute_dtype}, parameters {next(model.parameters()).dtype}", flush=True)
+    print(f"ffl history ({dtype}): " + json.dumps(history), flush=True)
+    print(f"ffl step losses ({dtype}), the first step's terms first: " + json.dumps(losses), flush=True)
+    if (n_train, n_val) != (TRAIN_STEPS, VAL_STEPS) or len(losses) != n_train:
+        fail(f"ffl: expected {TRAIN_STEPS} train and {VAL_STEPS} val steps, got {n_train}, {n_val}, {len(losses)}")
+    if not all(np.isfinite(v) for k, v in history.items() if k != "epoch"):
+        fail(f"ffl ({dtype}): non-finite losses: {history}")
+    if launches:
+        fail(f"the FFL train path launched the afm kernel {launches} times, expected 0")
+    if model.compute_dtype != getattr(torch, dtype) or next(model.parameters()).dtype != torch.float32:
+        fail(f"ffl ({dtype}): the model computes in {model.compute_dtype}")
+    if not trainer.manager.exists("latest") or not trainer.manager.exists("best_val_loss"):
+        fail("the FFL trainer wrote no latest/best_val_loss checkpoint")
+    val_iou = history.get("val_iou")
+    if val_iou is None or not 0.0 <= val_iou <= 1.0 or len(iou_pass_s) != 1:
+        fail(f"the FFL val-IoU pass gave no IoU in [0, 1]: {val_iou}")
+    acm = trainer._predictor.polygonizer.stats
+    print(f"ffl val-IoU pass ({dtype}): {n_val * B} val tiles polygonized in {iou_pass_s[0] * 1e3:.1f} ms (wall), "
+          f"val IoU {val_iou:.4f}; its ACM {acm['acm_ms']:.1f} ms ({acm['acm_steps']} steps, CUDA events) over "
+          f"{acm['rings']} rings, {acm['vertices']} vertices, bucket {acm['bucket']}, {acm['dropped']} rings dropped; "
+          f"contours {acm['contours_ms']:.1f} ms, post-processing {acm['post_ms']:.1f} ms (host)", flush=True)
+
+    # steady state on the same batches (not part of the counted run)
+    t = time.perf_counter()
+    host = list(trainer.train_loader)
+    warm_ms = (time.perf_counter() - t) * 1e3 / len(host)
+    batches = list(device_prefetch(host, trainer.device, FFL_BATCH_KEYS))
+    weights = trainer._weights_for_epoch(0)
+    trainer._train_step(trainer.state, batches[0], weights)
+    torch.cuda.synchronize()
+    times = []
+    for batch in batches:
+        t = time.perf_counter()
+        trainer._train_step(trainer.state, batch, weights)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    step_ms = statistics.median(times)
+    t = time.perf_counter()
+    trainer._val_step(trainer.state, batches[0], weights)
+    torch.cuda.synchronize()
+    val_ms = (time.perf_counter() - t) * 1e3
+    parts = [ffl_step_parts(trainer, batch, weights) for batch in batches]
+    breakdown = {k: statistics.median(p[k] for p in parts) for k in parts[0]}
+    cold = statistics.median(cold_ms) if dtype == "float32" else None
+    print(f"ffl train step ({dtype}) {step_ms:.1f} ms (median of {len(times)}: {[round(x, 1) for x in times]}), "
+          f"val step {val_ms:.1f} ms; host loader per batch of {B}: "
+          + (f"cold {cold:.1f} ms (the ground truth computed; median of the run's {len(cold_ms)}: "
+             f"{[round(x, 1) for x in cold_ms]}), " if cold is not None else "")
+          + f"warm {warm_ms:.1f} ms (from the cache)", flush=True)
+    print(f"ffl train step ({dtype}) by layer (ms, CUDA events, median of {len(parts)}): {json.dumps(breakdown)}",
+          flush=True)
+    profile_forward(trainer, batches[0]["images"], f"ffl {dtype}")
+    if dtype == "float32":
+        ffl_train_card_against_cpu(cfg, first)
+    else:
+        ffl_bf16_card_against_cpu(cfg, first)
+    return {"step_ms": step_ms, "val_ms": val_ms, "peak_bytes": peak, "iou_pass_ms": iou_pass_s[0] * 1e3,
+            "val_iou": val_iou, "losses": losses, "breakdown": breakdown, "launches": launches,
+            "loader_cold_ms": cold, "loader_warm_ms": warm_ms, "val_acm": dict(acm)}
+
+
+def ffl_step_parts(trainer, batch: dict, weights: dict) -> dict:
+    """One FFL train step cut by CUDA events on the stream into forward,
+    losses, backward and Adam, with the calls of train/ffl_step.py."""
+    from pixelspointspolygons_torch.models.ffl.losses import make_ffl_loss
+    from pixelspointspolygons_torch.train.ffl_step import model_inputs
+
+    state = trainer.state
+    loss_fn, _ = make_ffl_loss(trainer.cfg)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    state.model.train()
+    ev[0].record()
+    outputs = state.model(model_inputs(batch))
+    ev[1].record()
+    total, _ = loss_fn(outputs, batch, weights)
+    ev[2].record()
+    state.optimizer.zero_grad(set_to_none=True)
+    total.backward()
+    ev[3].record()
+    state.optimizer.step()
+    ev[4].record()
+    torch.cuda.synchronize()
+    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(("forward", "losses", "backward", "optimizer"))}
+
+
+def ffl_train_card_against_cpu(cfg, first: dict) -> None:
+    """One float32 train step on HISUP_BF16_CPU_TILES tiles of the first
+    batch from the trainer's initial weights, on the card and on the CPU
+    with fresh Adam states: the losses and the gradients (the CPU path is
+    held to the JAX package by tests/test_torch_train_ffl.py)."""
+    from pixelspointspolygons_torch.models.ffl import build_ffl
+    from pixelspointspolygons_torch.models.ffl.losses import make_ffl_loss
+    from pixelspointspolygons_torch.train.ffl_step import make_train_step
+    from pixelspointspolygons_torch.train.state import TrainState, make_optimizer, make_scheduler
+
+    lr = float(cfg.experiment.model.learning_rate)
+    loss_fn, weights_for_epoch = make_ffl_loss(cfg)
+    step = make_train_step(loss_fn)
+
+    def state_on(device):
+        model = build_ffl(cfg, device=device)
+        model.load_state_dict(first["state"])
+        opt = make_optimizer("adam", model.parameters(), lr)
+        return TrainState(model, opt, make_scheduler(opt, lambda n: lr, lr))
+
+    card, cpu = state_on(CARD), state_on(torch.device("cpu"))
+    got = step(card, {k: v.to(CARD) for k, v in first["batch"].items()}, weights_for_epoch(0))
+    t = time.perf_counter()
+    want = step(cpu, first["batch"], weights_for_epoch(0))
+    cpu_s = time.perf_counter() - t
+    loss_err = {k: abs(float(got[k]) / float(want[k]) - 1.0) for k in want}
+    g_card = {n: p.grad.detach().cpu().double() for n, p in card.model.named_parameters()}
+    g_cpu = {n: p.grad.detach().double() for n, p in cpu.model.named_parameters()}
+    grad_err = (sum(float(((g_card[k] - g_cpu[k]) ** 2).sum()) for k in g_cpu)
+                / sum(float((g_cpu[k] ** 2).sum()) for k in g_cpu)) ** 0.5
+    print(f"ffl train step card vs CPU on {len(first['batch']['images'])} tiles from the initial weights (float32; "
+          f"CPU step {cpu_s:.1f} s): losses {({k: round(float(v), 6) for k, v in want.items()})}, rel err "
+          f"{loss_err} (tol {FFL_LOSS_TOL}); gradients rel L2 {grad_err:.3g} (tol {FFL_GRAD_TOL})", flush=True)
+    if not all(e <= FFL_LOSS_TOL for e in loss_err.values()) or not grad_err <= FFL_GRAD_TOL:
+        fail(f"the FFL train step differs between card and CPU: losses {loss_err}, gradients {grad_err}")
+
+
+def ffl_bf16_card_against_cpu(cfg, first: dict) -> None:
+    """The bfloat16 FFL on the card against the same on the CPU, from the
+    first train step's weights, in eval mode on HISUP_BF16_CPU_TILES tiles of
+    its batch: each map within FFL_BF16_REL_L2 in relative L2 (the CPU path
+    is held to flax's bfloat16 by tests/test_torch_ffl_bf16.py). Each side's
+    distance from the same weights' float32 maps on the card beside it."""
+    from pixelspointspolygons_torch.models.ffl import build_ffl
+
+    images = first["batch"]["images"]
+    models = {}
+    for name, dev, dtype in (("card", CARD, torch.bfloat16), ("cpu", torch.device("cpu"), torch.bfloat16),
+                             ("float32", CARD, torch.float32)):
+        models[name] = build_ffl(cfg, device=dev, dtype=dtype)
+        models[name].load_state_dict(first["state"])
+        models[name].eval()
+    with torch.no_grad():
+        out = models["card"]({"images": images.to(CARD)})
+        ref = models["float32"]({"images": images.to(CARD)})
+        t = time.perf_counter()
+        out_cpu = models["cpu"]({"images": images})
+        cpu_s = time.perf_counter() - t
+    if any(v.dtype != torch.bfloat16 for v in list(out.values()) + list(out_cpu.values())):
+        fail(f"the bfloat16 FFL gave {[v.dtype for v in out.values()]}")
+    apart = {k: round(rel_l2(out[k], v), 5) for k, v in out_cpu.items()}
+    card = {k: round(rel_l2(out[k], ref[k]), 5) for k in ref}
+    cpu = {k: round(rel_l2(out_cpu[k], ref[k]), 5) for k in ref}
+    print(f"ffl bfloat16 card vs CPU on {len(images)} tiles from the first step's weights, eval mode (CPU bfloat16 "
+          f"forward {cpu_s:.1f} s), relative L2 per map: {apart} (tol {FFL_BF16_REL_L2}); from the float32 maps of "
+          f"the same weights: card {card}, CPU {cpu}", flush=True)
+    if set(apart) != {"seg", "crossfield"} or not all(v <= FFL_BF16_REL_L2 for v in apart.values()):
+        fail(f"bfloat16 FFL on the card differs from the CPU: {apart}")
+
+
+def phase_ffl_predict_bf16(overrides: list[str]) -> dict:
+    """FFL prediction at bfloat16 from the bfloat16 training's `latest`,
+    through the functions `cli/predict.py::main` calls, on the first
+    FFL_BF16_TEST_TILES test tiles."""
+    from pixelspointspolygons_torch.cli.evaluate import evaluate
+    from pixelspointspolygons_torch.cli.predict import get_predictor
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.ops.afm import afm_cuda
+
+    cfg = compose(overrides + ["host.compute_dtype=bfloat16", "evaluation=test", "checkpoint=latest",
+                               f"run_type.test_subset={FFL_BF16_TEST_TILES}"])
+    afm_cuda.launches = 0
+    t0 = time.perf_counter()
+    predictor = get_predictor(cfg)
+    pred_file = predictor.predict_dataset(cfg.evaluation.split)
+    torch.cuda.synchronize()
+    results = evaluate(cfg, pred_file)
+    wall = time.perf_counter() - t0
+    launches = afm_cuda.launches
+    with open(pred_file.replace(".json", "_time.json")) as f:
+        timing = json.load(f)
+    if predictor.model.compute_dtype != torch.bfloat16 or predictor.map_dtype != torch.float16:
+        fail(f"FFL prediction at bfloat16: the model computes in {predictor.model.compute_dtype}")
+    if launches or predictor.failed_batches or timing["num_images"] != FFL_BF16_TEST_TILES:
+        fail(f"FFL prediction at bfloat16: {launches} afm launches, {predictor.failed_batches} failed batches, "
+             f"{timing['num_images']} tiles")
+    if not all(np.isfinite(results.get(k, np.nan)) for k in ("IoU", "C-IoU")):
+        fail(f"FFL prediction at bfloat16: non-finite metrics {results}")
+    tiles_s = 1.0 / timing["prediction_time"]
+    print(f"ffl predict path (bfloat16): {timing['num_images']} tiles in {len(predictor.batch_times)} batches of {B}, "
+          f"{tiles_s:.2f} tiles/s (the predictor's own s/tile over its loop); set-up, loop, files and evaluation "
+          f"{wall:.2f} s; afm launches {launches}; failed batches {predictor.failed_batches}; IoU "
+          f"{results['IoU']:.4f}", flush=True)
+    for i, t in enumerate(predictor.batch_times):
+        print(f"  batch {i}: forward {t['device_ms']:.2f} ms (CUDA events); contours {t['contours_ms']:.2f} ms (host); "
+              f"ACM {t['acm_ms']:.2f} ms ({t['acm_steps']} steps, CUDA events) over {t['rings']} rings, "
+              f"{t['vertices']} vertices, bucket {t['bucket']}, {t['dropped']} rings dropped; post-processing "
+              f"{t['post_ms']:.2f} ms (host); host stage {t['host_ms']:.2f} ms; wall {t['wall_ms']:.2f} ms", flush=True)
+    return {"tiles_s": tiles_s, "batch_times": predictor.batch_times, "launches": launches, "results": results}
+
+
+def ffl_asm_oracle(overrides: list[str], device: torch.device) -> dict:
+    """`method=[asm]` on the maps that the first B test tiles' ground truth
+    implies (`ffl_oracle_maps`), on `device`, evaluated against those
+    tiles: the IoU, the wall ms and the ASM's stages."""
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.data import ensure_synthetic_dataset
+    from pixelspointspolygons_torch.eval.metrics import compute_iou_ciou
+    from pixelspointspolygons_torch.predict.ffl_polygonize import Polygonizer
+    from pixelspointspolygons_torch.utils.coco import CocoIndex, generate_coco_ann
+
+    cfg = compose(overrides + ["experiment.polygonization.method=[asm]"])
+    ensure_synthetic_dataset(cfg)
+    gt = CocoIndex(cfg.experiment.dataset.annotations["test"])
+    ids = sorted(gt.imgs)[:B]
+    gt = CocoIndex({**gt.dataset, "images": [gt.imgs[i] for i in ids],
+                    "annotations": [a for a in gt.dataset["annotations"] if a["image_id"] in ids]})
+    size = int(cfg.experiment.encoder.in_size)
+    maps = [ffl_oracle_maps([s for a in gt.imgToAnns.get(i, []) for s in a["segmentation"]], size) for i in ids]
+    seg, cf = np.stack([m[0] for m in maps]), np.stack([m[1] for m in maps])
+    poly = Polygonizer(cfg.experiment.polygonization, device=device)
+    t = time.perf_counter()
+    out = poly(seg, cf, maps=(torch.from_numpy(seg).to(device), torch.from_numpy(cf).to(device)))
+    wall_ms = (time.perf_counter() - t) * 1e3
+    key = f"tol_{cfg.experiment.polygonization.asm_method.tolerance[0]}"
+    anns = [a for i, polys in zip(ids, out["asm"][key]) for a in generate_coco_ann(polys, i)]
+    iou = compute_iou_ciou(gt, gt.load_res(anns))
+    return {"iou": iou["IoU"], "c_iou": iou["C-IoU"], "polygons": len(anns), "buildings": len(gt.anns),
+            "wall_ms": wall_ms, "stats": dict(poly.stats["asm"]), "seg": seg, "cf": cf, "poly": poly}
+
+
+def phase_ffl_asm(overrides: list[str]) -> dict:
+    """ASM on the card: the ground truth's maps of one batch (IoU bound;
+    the batch's ms split into skeleton, optimization and post-processing);
+    its optimization on ASM_CPU_TILES tiles on the card against the CPU,
+    after one step and after all; one step profiled at the batch's
+    packing."""
+    from pixelspointspolygons_torch.predict import ffl_asm
+
+    res = ffl_asm_oracle(overrides, CARD)
+    st = res["stats"]
+    print(f"ffl ASM on the ground truth's maps of {B} test tiles (card): {res['wall_ms']:.1f} ms (wall) = skeleton "
+          f"{st['skeleton_ms']:.1f} ms (host) + optimization {st['optimize_ms']:.1f} ms ({st['steps']} steps, CUDA "
+          f"events) + post-processing {st['post_ms']:.1f} ms (host), contours {res['poly'].stats['contours_ms']:.1f} "
+          f"ms; {st['nodes']} nodes, {st['paths']} paths, bucket {st['bucket']}, {st['dropped']} paths dropped; "
+          f"{res['polygons']} polygons for {res['buildings']} buildings, IoU {res['iou']:.4f} C-IoU "
+          f"{res['c_iou']:.4f} (IoU at least {ASM_ORACLE_MIN_IOU})", flush=True)
+    if not res["iou"] >= ASM_ORACLE_MIN_IOU or st["steps"] <= 0:
+        fail(f"ASM on the ground truth gave IoU {res['iou']}")
+
+    mc = res["poly"].cfg.asm_method
+    seg, cf = res["seg"][:ASM_CPU_TILES], res["cf"][:ASM_CPU_TILES]
+    packed = ffl_asm.pack_skeletons(ffl_asm.skeleton_graphs(mc, seg))
+    valid = packed[2]
+
+    def asm_args(packed, seg, cf, device, steps=None):
+        schedule, kw = ffl_asm.asm_kwargs(mc, steps)
+        t = [torch.from_numpy(a).to(device) for a in packed[:7]]
+        for i in (1, 4, 5):
+            t[i] = t[i].long()
+        maps = [torch.from_numpy(m).to(device) for m in (seg[:, 0], cf)]
+        return t, maps, torch.from_numpy(schedule).to(device), kw
+
+    def optimize(device, steps=None):
+        t, maps, schedule, kw = asm_args(packed, seg, cf, device, steps)
+        return ffl_asm.asm_optimize(*t, *maps, schedule, **kw).cpu().numpy()
+
+    parted = {}
+    for steps in (1, None):
+        card = optimize(CARD, steps)
+        cpu = optimize(torch.device("cpu"), steps)
+        d = np.abs(card - cpu)[valid].max(1)
+        parted["one" if steps else "all"] = {"max_px": float(d.max()), "median_px": float(np.median(d)),
+                                             "far_share": float((d > ACM_FAR_PX).mean())}
+    moved = float(np.abs(cpu - packed[0])[valid].max())
+    print(f"ffl ASM card vs CPU on {ASM_CPU_TILES} tiles' ground-truth maps ({int(valid.sum())} nodes, bucket "
+          f"{len(valid)}; nodes moved up to {moved:.3f} px): after one step {parted['one']} (median at most "
+          f"{ASM_ONE_STEP_MEDIAN_PX} px, at most {ASM_ONE_STEP_SHARE} beyond {ACM_FAR_PX} px); after "
+          f"{st['steps']} steps {parted['all']} (median at most {ASM_MEDIAN_PX} px; the share beyond {ACM_FAR_PX} px "
+          f"printed, ROADMAP 3.10)", flush=True)
+    if (moved <= 0.1 or parted["one"]["median_px"] > ASM_ONE_STEP_MEDIAN_PX
+            or parted["one"]["far_share"] > ASM_ONE_STEP_SHARE or parted["all"]["median_px"] > ASM_MEDIAN_PX):
+        fail(f"ASM on the card against the CPU: outside the bounds, or no node moved: {parted}")
+    # the step at the whole batch's packing, the predict path's size
+    whole = ffl_asm.pack_skeletons(ffl_asm.skeleton_graphs(mc, res["seg"]))
+    profile = ffl_asm_profile(*asm_args(whole, res["seg"], res["cf"], CARD))
+    return {"oracle": {k: v for k, v in res.items() if k not in ("seg", "cf", "poly")}, "parted": parted,
+            "profile": profile}
+
+
+def ffl_asm_profile(tensors: list, maps: list, schedule: torch.Tensor, kw: dict) -> dict:
+    """One ASM step on the card, from runs of 1 and 11 steps (their
+    difference over 10, so the set-up drops out): the step's wall time
+    unprofiled (host clock, synchronized), and from torch.profiler traces
+    the top-level aten calls, the kernels and their device time per step;
+    the busy share is that time over the step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pixelspointspolygons_torch.predict.ffl_asm import asm_optimize
+
+    def run(steps):
+        asm_optimize(*tensors, *maps, schedule[:steps], **kw)
+        torch.cuda.synchronize()
+
+    run(2)  # warm-up
+    walls = {}
+    for steps in (1, 11):
+        t = time.perf_counter()
+        run(steps)
+        walls[steps] = time.perf_counter() - t
+    ms_per_step = (walls[11] - walls[1]) * 1e3 / 10
+    counts = []
+    for steps in (1, 11):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(steps)
+        events = prof.events()
+        aten = [e for e in events if e.name.startswith("aten::")
+                and (e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::"))]
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+        counts.append((len(aten), len(kernels), sum(e.time_range.elapsed_us() for e in kernels)))
+    per = [(b - a) / 10 for a, b in zip(*counts)]
+    out = {"aten_per_step": per[0], "kernels_per_step": per[1], "kernel_us_per_step": per[2], "step_ms": ms_per_step}
+    if per[1] <= 0:
+        print("ffl ASM step profile: the profiler recorded no device kernels (busy share not measured)", flush=True)
+        return out
+    out["busy_share"] = per[2] / (ms_per_step * 1e3)
+    print(f"ffl ASM step profile (K5; torch.profiler, steps 1..11, {len(tensors[0])} nodes): {per[0]:.1f} top-level "
+          f"aten calls and {per[1]:.1f} kernels per step, {per[2]:.1f} us of kernel time per step: the card is busy "
+          f"{100 * out['busy_share']:.1f} % of the {ms_per_step:.3f} ms step (unprofiled, steps 1..11)", flush=True)
+    return out
+
+
+def phase_ffl_training(overrides: list[str], smi: str) -> dict:
+    """Phase 15: FFL-image training at float32 and bfloat16 from the same
+    weights (FFL_SEED's, drawn on the CPU, taken up through
+    `init_weights_from`), bfloat16 prediction from its `latest`, and ASM."""
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.models.ffl import build_ffl
+
+    init = os.path.join(WORK, "ffl_seeded_init.pt")
+    model = build_ffl(compose(overrides), generator=torch.Generator().manual_seed(FFL_SEED))
+    torch.save({"model": model.state_dict()}, init)
+    del model
+    overrides = overrides + [f"init_weights_from={init}"]
+    trained = {dtype: phase_ffl_train(overrides, dtype) for dtype in ("float32", "bfloat16")}
+    first = {dtype: t["losses"][0] for dtype, t in trained.items()}
+    loss_err = {k: abs(first["bfloat16"][k] / first["float32"][k] - 1.0) for k in first["float32"]}
+    print(f"ffl first train step from the same weights on the same batch: float32 {first['float32']}, bfloat16 "
+          f"{first['bfloat16']}; rel diff {loss_err} (tol {FFL_BF16_LOSS_TOL})", flush=True)
+    if set(loss_err) != set(FFL_BF16_LOSS_TOL) or any(e > FFL_BF16_LOSS_TOL[k] for k, e in loss_err.items()):
+        fail(f"the bfloat16 FFL step's losses differ from float32's by {loss_err}")
+    for dtype, t in trained.items():
+        print(f"ffl train path ({dtype}): train step {t['step_ms']:.1f} ms, val step {t['val_ms']:.1f} ms, val-IoU "
+              f"pass {t['iou_pass_ms']:.1f} ms (val IoU {t['val_iou']:.4f}), peak {t['peak_bytes']} bytes, loader "
+              f"cold {t['loader_cold_ms']} and warm {t['loader_warm_ms']:.1f} ms per batch, by layer "
+              f"{json.dumps({k: round(v, 2) for k, v in t['breakdown'].items()})}, card {smi}", flush=True)
+    pred = phase_ffl_predict_bf16(overrides)
+    bt = pred["batch_times"]
+    med = {k: statistics.median(t[k] for t in bt) for k in ("device_ms", "contours_ms", "acm_ms", "post_ms")}
+    print(f"ffl predict path (bfloat16): {pred['tiles_s']:.2f} tiles/s; per batch of {B} (medians): forward "
+          f"{med['device_ms']:.2f} ms, contours {med['contours_ms']:.2f} ms, ACM {med['acm_ms']:.2f} ms, "
+          f"post-processing {med['post_ms']:.2f} ms; card {smi}", flush=True)
+    asm = phase_ffl_asm(overrides)
+    return {"trained": trained, "predict_bf16": pred, "asm": asm}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
@@ -2125,7 +2587,8 @@ def main() -> None:
     grafts = phase_pretrained(overrides, p2p_overrides, float32_latest)
     print(f"pretrained and warm start (tensors loaded and kept at init): {json.dumps(grafts)}, card {smi}", flush=True)
     phase_entry()
-    ffl = phase_ffl(smoke_overrides(num_train=TRAIN_STEPS * B, experiment="ffl_image"))
+    ffl_overrides = smoke_overrides(num_train=TRAIN_STEPS * B, experiment="ffl_image")
+    ffl = phase_ffl(ffl_overrides)
     bt = ffl["batch_times"]
     med = {k: statistics.median(t[k] for t in bt) for k in ("device_ms", "contours_ms", "acm_ms", "post_ms")}
     print(f"ffl predict path: {ffl['tiles_s']:.2f} tiles/s; per batch of {B} (medians): forward "
@@ -2134,6 +2597,7 @@ def main() -> None:
           f"({ffl['acm']['aten_per_step']:.1f} aten calls, {ffl['acm']['kernels_per_step']:.1f} kernels); "
           f"IoU {ffl['results']['IoU']:.4f}; ground-truth IoU {ffl['oracle']['iou']:.4f}; peak "
           f"{ffl['peak_bytes'] / 2**30:.2f} GiB, card {smi}", flush=True)
+    ffl_train = phase_ffl_training(ffl_overrides, smi)
     p2p = phase_pix2poly(p2p_overrides)
     bt = p2p["batch_times"]
     med = {k: statistics.median(t[k] for t in bt) for k in ("encoder_ms", "decode_ms", "scorenet_ms", "host_ms")}
@@ -2168,6 +2632,9 @@ def main() -> None:
         "pix2poly_train_bfloat16": trained["bfloat16"]["launches"], "pix2poly_predict_bfloat16": pbf["launches"],
         "hisup_train_bfloat16": launches_bf16["afm"], "hisup_predict_bfloat16": pred_bf16["launches"],
         "ffl_predict": ffl["launches"],
+        "ffl_train_float32": ffl_train["trained"]["float32"]["launches"],
+        "ffl_train_bfloat16": ffl_train["trained"]["bfloat16"]["launches"],
+        "ffl_predict_bfloat16": ffl_train["predict_bf16"]["launches"],
     }
     print(f"smoke run: {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"kernels": [afm_row]}), flush=True)

@@ -4,13 +4,13 @@ cfg.experiment.model.name).
 Usage: python -m pixelspointspolygons_torch.cli.train experiment=hisup_image \
     dataset=synthetic run_type=debug [key.path=value ...] [device=cpu]
 
-Runs on the card; `device=cpu` runs on the CPU instead. HiSup and Pix2Poly
-are ported, both also at `host.compute_dtype=bfloat16`, with pretrained
-encoder files (`experiment.encoder.hrnet.pretrained=true
+Runs on the card; `device=cpu` runs on the CPU instead. HiSup, Pix2Poly
+and FFL (`experiment=ffl_image`) train, each also at
+`host.compute_dtype=bfloat16`, with pretrained encoder files
+(`experiment.encoder.hrnet.pretrained=true
 experiment.encoder.hrnet.checkpoint_file=...`, or the ViT's
 `experiment.encoder.pretrained=true experiment.encoder.checkpoint_file=...`)
-and warm starts (`init_weights_from=<run>/checkpoints/latest.pt`); FFL
-raises NotImplementedError naming its ROADMAP item.
+and warm starts (`init_weights_from=<run>/checkpoints/latest.pt`).
 """
 
 from __future__ import annotations
@@ -30,7 +30,9 @@ def main(argv: list[str] | None = None) -> dict:
 
         trainer = Pix2PolyTrainer(cfg, device=device)
     elif name == "ffl":
-        raise NotImplementedError("FFL training: ROADMAP 'Port queue' item 'FFL'")
+        from ..train.trainer_ffl import FFLTrainer
+
+        trainer = FFLTrainer(cfg, device=device)
     else:
         raise ValueError(f"unknown model {name!r}")
     return trainer.train()

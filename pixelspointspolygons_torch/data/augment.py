@@ -11,8 +11,8 @@ targets, so replay consistency is structural instead of bolted on:
     image  = apply_image(image, params, mean, std, max_pix)
     kps    = apply_d4_keypoints(kps, params["d4"], H, W)
 
-The LiDAR and cross-field replays of the JAX module come with the slices
-that read those targets.
+The LiDAR replay of the JAX module comes with ROADMAP 'Port queue' item
+'LiDAR and fusion'.
 
 D4 group elements use the albumentations naming: e, r90, r180, r270, v, hvt,
 h, t (the lidar/angle transform tables mirror p3_coco.py:138-207 semantics).
@@ -101,6 +101,29 @@ def apply_d4_keypoints(pts: np.ndarray, g: str, height: int, width: int) -> np.n
     else:
         raise ValueError(g)
     return np.stack([x, y], axis=1)
+
+
+def apply_d4_crossfield_angle(angle: np.ndarray, g: str) -> np.ndarray:
+    """Tangent angles (radians mod π) under the D4 element, applied AFTER the
+    dense map itself was moved with apply_d4_image (JAX :116-139; reference
+    p3_coco.py:185-205 table)."""
+    if g == "e":
+        return angle
+    if g == "r90":
+        return (angle + np.pi / 2) % np.pi
+    if g == "r180":
+        return (angle + np.pi) % np.pi
+    if g == "r270":
+        return (angle + 3 * np.pi / 2) % np.pi
+    if g == "v":
+        return (np.pi - angle) % np.pi
+    if g == "hvt":
+        return (3 * np.pi / 2 - angle) % np.pi
+    if g == "h":
+        return (-angle) % np.pi
+    if g == "t":
+        return (np.pi / 2 - angle) % np.pi
+    raise ValueError(g)
 
 
 # --- photometric + normalize -----------------------------------------------

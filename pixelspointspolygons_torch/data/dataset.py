@@ -1,5 +1,5 @@
 """P3 dataset, Pix2Poly and HiSup image items — the port's copy of
-pixelspointspolygons_tpu/data/dataset.py (:40-63, :120-334).
+pixelspointspolygons_tpu/data/dataset.py (:40-63, :120-374).
 
 Every item has static shapes (padded token, permutation, junction and edge
 arrays) so a batch is a dict of fixed-shape numpy arrays.
@@ -9,13 +9,17 @@ arrays) so a batch is a dict of fixed-shape numpy arrays.
 - HiSup: junctions with concave/convex tags (convex-hull test), the polygon
   edges and the instance mask; the jloc/joff/afm targets are built on the
   device in the train step (models/hisup/model.py::encode_targets).
-- FFL: in eval mode only, the image and its id, which is what prediction
-  reads; the FFL training items come with ROADMAP 'Port queue' item 'FFL'.
+- FFL: the rasterized polygons [interior, edge, vertex], the distance and
+  size maps and the tangent-angle field (`ffl_gt.py`, computed once per
+  tile and cached under `<dataset_dir>/ffl_cache_torch/<split>`), moved by
+  the sampled D4 element, and the split's class frequencies; in eval mode
+  only the image and its id, which is what prediction reads.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 
 import cv2
 import numpy as np
@@ -23,6 +27,7 @@ import numpy as np
 from ..utils.coco import CocoIndex, seg_to_mask
 from ..utils.logger import make_logger
 from . import augment
+from .ffl_gt import compute_ffl_gt
 
 MAX_JUNCTIONS = 256
 MAX_EDGES = 256
@@ -102,6 +107,13 @@ class P3Dataset:
         self.image_std = list(enc.get("image_std", [1.0, 1.0, 1.0]))
         self.max_pixel_value = float(enc.get("image_max_pixel_value", 255.0))
 
+        stats_file = ds.ffl_stats[split] if self.model_type == "ffl" else None
+        self.class_freq = None
+        if stats_file and os.path.isfile(stats_file):
+            self.class_freq = np.load(stats_file)["class_freq"].astype(np.float32)
+        # the port's own cache (the JAX package's is ffl_cache/<split>)
+        self._ffl_cache_dir = os.path.join(self.dataset_dir, "ffl_cache_torch", split)
+
     def __len__(self) -> int:
         return len(self.tile_ids)
 
@@ -129,9 +141,7 @@ class P3Dataset:
         if self.model_type == "hisup":
             return self._item_hisup(idx, rng)
         if self.model_type == "ffl":
-            if not self.eval_mode:
-                raise NotImplementedError("FFL training items: ROADMAP 'Port queue' item 'FFL'")
-            return self._item_ffl_eval(idx, rng)
+            return self._item_ffl_eval(idx, rng) if self.eval_mode else self._item_ffl(idx, rng)
         raise ValueError(f"unknown model {self.model_type!r}")
 
     def _common(self, info, rng, params) -> dict:
@@ -164,10 +174,49 @@ class P3Dataset:
 
     def _item_ffl_eval(self, idx: int, rng) -> dict:
         """What FFL prediction reads of an item: the image and its id. The
-        JAX item (`_item_ffl`, :336-374) also carries the FFL ground truth,
-        which only training reads."""
+        training item (`_item_ffl`) also carries the FFL ground truth."""
         info = self.coco.imgs[self.tile_ids[idx]]
         return self._common(info, rng, augment.sample_params(rng, self.augmentations))
+
+    def _item_ffl(self, idx: int, rng) -> dict:
+        """The FFL training and val item (JAX :336-359)."""
+        info = self.coco.imgs[self.tile_ids[idx]]
+        params = augment.sample_params(rng, self.augmentations)
+        item = self._common(info, rng, params)
+
+        gt = self._ffl_gt(info)
+        g = params["d4"]
+        poly_img = augment.apply_d4_image(gt["gt_polygons_image"], g).astype(np.float32) / 255.0
+        angle = augment.apply_d4_image(gt["gt_crossfield_angle"], g).astype(np.float32) * np.pi / 255.0
+        # the stored field is normals; rotate to tangents (p3_coco.py:289-290)
+        angle = (angle + np.pi / 2) % np.pi
+        if self.split == "train" and not self.eval_mode:
+            angle = augment.apply_d4_crossfield_angle(angle, g)
+        item.update(
+            gt_polygons_image=np.ascontiguousarray(np.transpose(poly_img, (2, 0, 1))),
+            distances=np.ascontiguousarray(augment.apply_d4_image(gt["distances"], g))[None],
+            sizes=np.ascontiguousarray(augment.apply_d4_image(gt["sizes"], g))[None],
+            gt_crossfield_angle=np.ascontiguousarray(angle)[None],
+            class_freq=self.class_freq if self.class_freq is not None else np.array([0.9, 0.1], np.float32),
+        )
+        return item
+
+    def _ffl_gt(self, info) -> dict:
+        """The tile's FFL ground truth, from the cache or computed and cached
+        (JAX :361-374). The write goes to a temporary file named after the
+        process and thread, then `os.replace`, so loader threads and
+        processes never read a half-written file."""
+        cache = os.path.join(self._ffl_cache_dir, f"{info['id']}.npz")
+        if os.path.isfile(cache):
+            with np.load(cache) as z:
+                return {k: z[k] for k in z.files}
+        gt = compute_ffl_gt(self._polygons(info), info["height"], info["width"])
+        os.makedirs(self._ffl_cache_dir, exist_ok=True)
+        # np.savez appends .npz to a name without it
+        tmp = cache + f".tmp{os.getpid()}_{threading.get_ident()}.npz"
+        np.savez_compressed(tmp, **gt)
+        os.replace(tmp, cache)
+        return gt
 
     def _item_hisup(self, idx: int, rng) -> dict:
         info = self.coco.imgs[self.tile_ids[idx]]

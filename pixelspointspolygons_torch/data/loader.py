@@ -19,9 +19,11 @@ from ..parallel import process_index as _process_index
 from .dataset import P3Dataset
 
 # float fields that the JAX package ships to the device as float16
-# (parallel/mesh.py _F16_SAFE_KEYS); the port rounds them the same way so
-# both train on the same numbers, and promotes back to float32 on the device
-F16_KEYS = frozenset({"images", "mask", "mask_ori"})
+# (parallel/mesh.py _F16_SAFE_KEYS: the images, HiSup's masks and FFL's
+# rasters, distance and size maps and angle field); the port rounds them the
+# same way so both train on the same numbers, and promotes back to float32
+# on the device
+F16_KEYS = frozenset({"images", "mask", "mask_ori", "gt_polygons_image", "distances", "sizes", "gt_crossfield_angle"})
 
 
 def collate(items: list[dict]) -> dict:

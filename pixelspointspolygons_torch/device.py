@@ -28,11 +28,3 @@ def set_tf32(enabled: bool) -> None:
     torch.backends.cuda.matmul.allow_tf32 = enabled
     torch.backends.cudnn.allow_tf32 = enabled
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = enabled
-
-
-def check_compute_dtype(cfg) -> None:
-    """`host.compute_dtype=bfloat16` runs for Pix2Poly and HiSup; FFL
-    computes in float32 until its bfloat16 is ported with its training."""
-    bf16 = str(cfg.host.get("compute_dtype", "float32")).lower() in ("bf16", "bfloat16")
-    if bf16 and cfg.experiment.model.name == "ffl":
-        raise NotImplementedError("host.compute_dtype=bfloat16 for ffl: ROADMAP 'Port queue' item 'FFL'")

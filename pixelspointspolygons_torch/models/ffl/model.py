@@ -43,6 +43,7 @@ class FFL(nn.Module):
                  compute_crossfield: bool = True, out_size: int = 224, dtype=None, device=None):
         super().__init__()
         self.encoder = encoder
+        self.compute_dtype = dtype
         self.out_size = out_size
         self.compute_seg = compute_seg
         self.compute_crossfield = compute_crossfield

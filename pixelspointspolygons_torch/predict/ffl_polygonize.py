@@ -16,7 +16,8 @@ of pixelspointspolygons_tpu/predict/ffl_polygonize.py.
   at corners, Douglas-Peucker per polyline, the image-border face union,
   the area and probability filters) is JAX's host code, copied.
 
-The `asm` method comes with ROADMAP 'Port queue' item 'FFL'.
+The `asm` method (`ffl_asm.py`) skeletonizes instead of tracing contours
+and optimizes a skeleton graph; it shares the post-processing.
 """
 
 from __future__ import annotations
@@ -491,14 +492,13 @@ def c0c2_to_uv_lazy(c0c2: np.ndarray):
 
 class Polygonizer:
     """Method dispatcher (reference predict/ffl/polygonize.py:10-88). ACM
-    runs on the device of the maps handed to `__call__`, else on `device`."""
+    and ASM run on the device of the maps handed to `__call__`, else on
+    `device`."""
 
     def __init__(self, poly_cfg, seg_threshold: float = 0.5, device: str | torch.device = "cpu"):
         self.cfg = poly_cfg
         self.methods = list(poly_cfg.method) if not isinstance(poly_cfg.method, str) else [poly_cfg.method]
-        if "asm" in self.methods:
-            raise NotImplementedError("FFL polygonization method 'asm': ROADMAP 'Port queue' item 'FFL'")
-        unknown = set(self.methods) - {"simple", "acm"}
+        unknown = set(self.methods) - {"simple", "acm", "asm"}
         if unknown:
             raise ValueError(f"polygonization methods {sorted(unknown)}")
         self.seg_threshold = seg_threshold
@@ -506,7 +506,8 @@ class Polygonizer:
         # the last call's stages: host ms of the contours and of the
         # post-processing, the ACM's ms (CUDA events on the card, the host
         # clock on the CPU) and steps, its rings, vertices, bucket and the
-        # rings dropped past MAX_TOTAL_VERTS
+        # rings dropped past MAX_TOTAL_VERTS; under "asm" the ASM's
+        # (`ffl_asm.asm_polygonize`)
         self.stats: dict = {}
 
     def __call__(self, seg: np.ndarray, crossfield: np.ndarray, maps: tuple | None = None) -> dict:
@@ -529,8 +530,14 @@ class Polygonizer:
                 t = time.perf_counter()
                 out["simple"] = self._simple(contours, indicator)
                 self.stats["post_ms"] += (time.perf_counter() - t) * 1e3
-            else:
+            elif method == "acm":
                 out["acm"] = self._acm(contours, indicator, crossfield, maps)
+            else:
+                from .ffl_asm import asm_polygonize
+
+                self.stats["asm"] = {}
+                out["asm"] = asm_polygonize(self.cfg, seg, crossfield, self._device_maps(seg, crossfield, maps),
+                                            self.stats["asm"])
         return out
 
     def _filter_and_convert(self, rings_b, indicator_b, min_area, seg_threshold):
@@ -562,16 +569,22 @@ class Polygonizer:
             out[f"tol_{tol}"] = per_sample
         return out
 
+    def _device_maps(self, seg: np.ndarray, crossfield: np.ndarray, maps) -> tuple:
+        """(seg, crossfield) as float32 tensors on the device of `maps`, or
+        uploaded from the host arrays to `device`."""
+        if maps is None:
+            maps = (torch.from_numpy(seg), torch.from_numpy(crossfield))
+            maps = tuple(m.to(self.device) for m in maps)
+        dev = maps[0].device
+        return tuple(m.to(dev, torch.float32) for m in maps)
+
     def _optimize(self, packed, indicator, crossfield, maps) -> np.ndarray:
         """acm_optimize of the packed contours on the maps' device; the
         optimized positions as float32 numpy."""
         mc = self.cfg.acm_method
         pos, vmask, next_idx, point_batch, pinned = packed
-        if maps is None:
-            maps = (torch.from_numpy(indicator[:, None].copy()), torch.from_numpy(crossfield))
-            maps = tuple(m.to(self.device) for m in maps)
-        dev = maps[0].device
-        seg_d, cf_d = (m.to(dev, torch.float32) for m in maps)
+        seg_d, cf_d = self._device_maps(indicator[:, None].copy(), crossfield, maps)
+        dev = seg_d.device
         args = [torch.from_numpy(a).to(dev) for a in (pos, vmask, next_idx.astype(np.int64),
                                                        point_batch.astype(np.int64), pinned)]
         cuda = dev.type == "cuda"

@@ -23,7 +23,7 @@ import torch
 from ..config.engine import Config
 from ..data.dataset import load_image_file
 from ..data.loader import device_prefetch
-from ..device import check_compute_dtype, resolve_device, set_tf32
+from ..device import resolve_device, set_tf32
 from ..utils.checkpoint import CheckpointManager
 from ..utils.coco import save_annotations
 from ..utils.logger import make_logger
@@ -38,7 +38,6 @@ _COLORS = [
 
 class Predictor:
     def __init__(self, cfg: Config, device: str | torch.device | None = None):
-        check_compute_dtype(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         set_tf32(False)

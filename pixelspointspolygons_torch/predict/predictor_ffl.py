@@ -5,13 +5,16 @@ predict/predictor_ffl.py:42-177: one prediction file per method and
 tolerance, and the canonical copy in `evaluation.pred_file`).
 
 The seg and crossfield maps are rounded to float16 on the device (JAX
-:38-43). Their host copy gives the contours and the post-processing; the
-ACM optimizes on the device copy of the same rounded maps, so it reads the
-values JAX's ACM reads (JAX uploads the host's float16 maps as float32) and
-nothing is uploaded again. `predict_dataset` keeps one batch in flight as
-the HiSup predictor does (`Predictor._in_flight`): the host traces batch
-k's contours while the card runs batch k+1's forward, and batch k's ACM
-queues behind that forward.
+:38-43; from the model's bfloat16 outputs at `host.compute_dtype=bfloat16`),
+or, in the trainer's val IoU, kept as the model gives them, widened to
+float32 (`map_dtype`; JAX trainer_ffl.py:109-111). Their host copy gives
+the contours and the post-processing; the ACM (or ASM) optimizes on the
+device copy of the same maps, so it reads the values JAX's reads (JAX
+uploads the host's maps as float32) and nothing is uploaded again.
+`predict_dataset` keeps one batch in flight as the HiSup predictor does
+(`Predictor._in_flight`): the host traces batch k's contours while the
+card runs batch k+1's forward, and batch k's ACM queues behind that
+forward.
 """
 
 from __future__ import annotations
@@ -53,6 +56,9 @@ class FFLPredictor(Predictor):
         # batches of the last predict_dataset whose polygonization raised
         # (logged and skipped, as in JAX :101-105)
         self.failed_batches = 0
+        # the dtype the maps leave the forward in: float16 as JAX's predictor
+        # ships them; the trainer's val IoU sets float32 (the model's values)
+        self.map_dtype = torch.float16
 
     def load_checkpoint(self) -> dict:
         payload = super().load_checkpoint()
@@ -62,9 +68,9 @@ class FFLPredictor(Predictor):
     @torch.inference_mode()
     def forward(self, inputs: dict) -> dict[str, torch.Tensor]:
         """Eval-mode forward; "seg" (B, Cs, S, S) and "crossfield"
-        (B, 4, S, S) rounded to float16 on the device."""
+        (B, 4, S, S) in `map_dtype` on the device."""
         self.model.eval()
-        return {k: v.to(torch.float16) for k, v in self.model(inputs).items()}
+        return {k: v.to(self.map_dtype) for k, v in self.model(inputs).items()}
 
     @torch.inference_mode()
     def _dispatch(self, inputs: dict):
@@ -88,7 +94,7 @@ class FFLPredictor(Predictor):
     @staticmethod
     def _fetch(handles) -> tuple[np.ndarray, np.ndarray, tuple]:
         """Wait for one batch's copy alone: (seg, crossfield) as float32
-        numpy, and the device's float16 (seg, crossfield)."""
+        numpy, and the device's (seg, crossfield) in `map_dtype`."""
         (dev, host), events = handles
         if events is not None:
             events[2].synchronize()

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..config.engine import Config
-from ..device import check_compute_dtype, resolve_device, set_tf32
+from ..device import resolve_device, set_tf32
 from ..utils.checkpoint import CheckpointManager, save_best_and_latest, smart_restore_params
 from ..utils.logger import make_logger
 from ..utils.seeding import seed_everything
@@ -32,7 +32,6 @@ def check_supported(cfg: Config) -> None:
         raise NotImplementedError("training.device_cache: ROADMAP 'Port queue' item 'Device cache'")
     if bool(cfg.training.get("remat") or False):
         raise NotImplementedError("training.remat: ROADMAP 'Port queue' item 'Activation recomputation'")
-    check_compute_dtype(cfg)
 
 
 class Trainer:

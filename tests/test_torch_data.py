@@ -132,10 +132,18 @@ def test_hisup_item_matches_jax(datasets, augs, split):
 
 
 def test_other_model_items_raise(datasets):
-    pcfg = datasets[1]
-    pds = P3Dataset(pcfg, "train")
-    pds.model_type = "ffl"
-    with pytest.raises(NotImplementedError, match="ROADMAP 'Port queue' item 'FFL'"):
+    """FFL training items, which once named ROADMAP item 'FFL', are built as
+    JAX builds them from the same tiles (with no stats file, the default
+    class frequencies; their parity at FFL's own config is in
+    tests/test_torch_train_ffl.py); a model the dataset does not know
+    raises."""
+    jcfg, pcfg, _ = datasets
+    pds, jds = P3Dataset(pcfg, "train"), JaxDataset(jcfg, "train")
+    pds.model_type = jds.model_type = "ffl"
+    for seed in range(2):
+        _assert_items_equal(pds.get_item(0, np.random.RandomState(seed)), jds.get_item(0, np.random.RandomState(seed)))
+    pds.model_type = "unknown"
+    with pytest.raises(ValueError, match="unknown model"):
         pds.get_item(0, np.random.RandomState(0))
 
 

@@ -35,7 +35,6 @@ from pixelspointspolygons_tpu.models.vit import ViTCNNEncoder as JaxViTCNN
 from pixelspointspolygons_tpu.ops import bilinear as jax_bilinear
 from pixelspointspolygons_tpu.ops import crossfield as jax_cf
 from pixelspointspolygons_torch.config import compose
-from pixelspointspolygons_torch.device import check_compute_dtype
 from pixelspointspolygons_torch.models.ffl import FFL, build_ffl
 from pixelspointspolygons_torch.models.ffl import model as ffl_model
 from pixelspointspolygons_torch.models.hisup import factory as hisup_factory
@@ -44,6 +43,7 @@ from pixelspointspolygons_torch.models.hrnet import HRNetEncoder
 from pixelspointspolygons_torch.models.vit import ViTCNNEncoder
 from pixelspointspolygons_torch.ops import bilinear, crossfield
 from pixelspointspolygons_torch.predict.ffl_polygonize import Polygonizer
+from pixelspointspolygons_torch.train.state import compute_dtype
 from pixelspointspolygons_torch.utils.bridge import flax_to_state_dict
 
 VIT = dict(img_size=32, patch_size=8, dim=32, depth=1, num_heads=2)  # tests/test_ffl.py::tiny_ffl
@@ -260,10 +260,20 @@ def test_encoders_not_ported_raise(encoder, item):
 
 
 def test_options_not_ported_raise():
-    """FFL at bfloat16 and the ASM polygonization name item 'FFL'."""
-    bf16 = compose(["experiment=ffl_image", "dataset=synthetic", "host.compute_dtype=bfloat16"])
-    with pytest.raises(NotImplementedError, match="ROADMAP 'Port queue' item 'FFL'"):
-        check_compute_dtype(bf16)
+    """FFL at bfloat16 and the ASM polygonization, which once named item
+    'FFL', are ported: the model builds computing in bfloat16 with float32
+    parameters (held to flax's in tests/test_torch_ffl_bf16.py), the
+    polygonizer takes `[acm,asm]` (tests/test_torch_ffl_asm.py); a method
+    that does not exist still raises."""
+    bf16 = compose(["experiment=ffl_image", "dataset=synthetic", "host.compute_dtype=bfloat16",
+                    "experiment.encoder.in_size=16"])
+    model = build_ffl(bf16, dtype=compute_dtype(bf16))
+    assert model.compute_dtype == torch.bfloat16 and all(p.dtype == torch.float32 for p in model.parameters())
+    with torch.no_grad():
+        out = model.eval()({"images": torch.from_numpy(_images(5, size=16))})
+    assert out["seg"].dtype == out["crossfield"].dtype == torch.bfloat16
     asm = compose(["experiment=ffl_image", "dataset=synthetic", "experiment.polygonization.method=[acm,asm]"])
-    with pytest.raises(NotImplementedError, match="ROADMAP 'Port queue' item 'FFL'"):
+    assert Polygonizer(asm.experiment.polygonization).methods == ["acm", "asm"]
+    asm.experiment.polygonization.method = ["acm", "snake"]
+    with pytest.raises(ValueError, match="snake"):
         Polygonizer(asm.experiment.polygonization)

@@ -394,12 +394,39 @@ def test_cli_predict_evaluate_and_demo_on_cpu(tiny_hrnet, tmp_path, monkeypatch,
 
 @pytest.mark.parametrize("entry", [cli_predict, cli_predict_demo])
 @pytest.mark.parametrize("experiment,item", [("ffl_image", "FFL")])
-def test_cli_other_models_not_ported(entry, experiment, item, tmp_path):
-    """FFL prediction runs in float32 (tests/test_torch_predict_ffl.py); at
-    bfloat16 it still names its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP 'Port queue' item '{item}'"):
-        entry.main([f"experiment={experiment}", "dataset=synthetic", f"host.model_root={tmp_path}", "device=cpu",
-                    "host.compute_dtype=bfloat16"])
+def test_cli_other_models_not_ported(entry, experiment, item, tmp_path, monkeypatch):
+    """FFL at bfloat16, which once raised here naming ROADMAP item 'FFL',
+    predicts through each entry on the CPU from a tiny model's `latest`
+    (float32 in tests/test_torch_predict_ffl.py; bfloat16 against flax in
+    tests/test_torch_ffl_bf16.py)."""
+    from pixelspointspolygons_torch.models.ffl import build_ffl
+    from pixelspointspolygons_torch.models.ffl import model as ffl_model
+    from pixelspointspolygons_torch.train.state import TrainState, make_optimizer, make_scheduler
+    from pixelspointspolygons_torch.utils.checkpoint import CheckpointManager
+    from test_torch_train_ffl import overrides as ffl_overrides
+
+    full = ffl_model.encoder_config
+    monkeypatch.setattr(ffl_model, "encoder_config", lambda cfg: {**full(cfg), "depth": 1, "num_heads": 2})
+    monkeypatch.chdir(tmp_path)
+    args = ffl_overrides(tmp_path, ["host.compute_dtype=bfloat16", "evaluation=test", "evaluation.modes=[iou]",
+                                    "checkpoint=latest"])
+    cfg = compose(args)
+    assert cfg.experiment.name == experiment
+    model = build_ffl(cfg, generator=torch.Generator().manual_seed(0))
+    opt = make_optimizer("adam", model.parameters(), 1e-4)
+    CheckpointManager(cfg.output_dir).save("latest", TrainState(model, opt, make_scheduler(opt, lambda n: 1e-4, 1e-4)),
+                                           0, cfg)
+    if entry is cli_predict:
+        results = entry.main(args + ["device=cpu"])
+        assert 0.0 <= results["IoU"] <= 1.0
+        return
+    from pixelspointspolygons_torch.data import ensure_synthetic_dataset
+
+    ensure_synthetic_dataset(cfg)
+    test_dir = os.path.join(cfg.experiment.dataset.in_path, "images", "test")
+    image = os.path.join(test_dir, sorted(os.listdir(test_dir))[0])
+    polys, out_file = entry.main(args + ["device=cpu", f"+image_file={image}"])
+    assert out_file == f"prediction_{item.lower()}_image.png" and os.path.isfile(tmp_path / out_file)
 
 
 @pytest.mark.parametrize("entry", [cli_predict, cli_evaluate, cli_predict_demo])

@@ -328,15 +328,17 @@ def test_cli_needs_a_card_unless_asked_for_the_cpu(entry, tmp_path):
 
 
 def test_bfloat16_not_ported(tiny_vit, tmp_path):
-    """FFL's predictor refuses to start, naming its ROADMAP item (HiSup's
-    builds at bfloat16 since, tests/test_torch_hisup_bf16.py); the Pix2Poly
-    predictor builds its model at bfloat16 (float32 parameters) and
-    predicts a batch from a float32 checkpoint, its scores reaching the
-    host as float32."""
+    """FFL's predictor, which once refused bfloat16 naming ROADMAP item
+    'FFL', builds its model at bfloat16 with float32 parameters and ships
+    float16 maps (against flax: tests/test_torch_ffl_bf16.py; HiSup's:
+    tests/test_torch_hisup_bf16.py); the Pix2Poly predictor builds its model
+    at bfloat16 (float32 parameters) and predicts a batch from a float32
+    checkpoint, its scores reaching the host as float32."""
     ffl = compose(["experiment=ffl_image", "dataset=synthetic", f"host.model_root={tmp_path}",
-                   "host.compute_dtype=bfloat16"])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP 'Port queue' item 'FFL'"):
-        cli_predict.get_predictor(ffl, "cpu")
+                   "host.compute_dtype=bfloat16", "experiment.encoder.in_size=16"])
+    ffl_predictor = cli_predict.get_predictor(ffl, "cpu")
+    assert ffl_predictor.model.compute_dtype == torch.bfloat16 and ffl_predictor.map_dtype == torch.float16
+    assert all(p.dtype == torch.float32 for p in ffl_predictor.model.parameters())
     cfg = compose(_overrides(tmp_path, ["host.compute_dtype=bfloat16", "checkpoint=latest"]))
     _write_latest(cfg)
     predictor = cli_predict.get_predictor(cfg, "cpu")

@@ -149,12 +149,18 @@ def test_cli_trains_hisup_on_cpu(tiny_hrnet, tmp_path):
 
 @pytest.mark.parametrize("experiment", ["p2p_image", "ffl_image"])
 def test_cli_other_models_not_ported(experiment, tmp_path, monkeypatch):
-    """FFL raises naming its ROADMAP item. Pix2Poly, ported since, trains
-    through the same entry (a tiny ViT and decoder; its parity with the JAX
-    trainer is in tests/test_torch_train_pix2poly.py)."""
+    """Pix2Poly and FFL, each of which once raised here naming its ROADMAP
+    item, train through the same entry (a tiny ViT; their parity with the
+    JAX trainers is in tests/test_torch_train_pix2poly.py and
+    tests/test_torch_train_ffl.py)."""
     if experiment == "ffl_image":
-        with pytest.raises(NotImplementedError, match="ROADMAP 'Port queue' item 'FFL'"):
-            cli_train.main([f"experiment={experiment}", "dataset=synthetic", f"host.model_root={tmp_path}", "device=cpu"])
+        from pixelspointspolygons_torch.models.ffl import model as ffl_model
+        from test_torch_train_ffl import overrides as ffl_overrides
+
+        full = ffl_model.encoder_config
+        monkeypatch.setattr(ffl_model, "encoder_config", lambda cfg: {**full(cfg), "depth": 1, "num_heads": 2})
+        history = cli_train.main(ffl_overrides(tmp_path, ["experiment.model.num_epochs=1", "device=cpu"]))
+        assert history["epoch"] == 0 and np.isfinite(history["loss"]) and 0.0 <= history["val_iou"] <= 1.0
         return
     from pixelspointspolygons_torch.models.pix2poly import factory as p2p_factory
     from test_torch_train_pix2poly import overrides as p2p_overrides
@@ -171,15 +177,19 @@ def test_cli_other_models_not_ported(experiment, tmp_path, monkeypatch):
         ("training.device_cache=true", "Device cache"),
         ("training.device_cache=auto", "Device cache"),
         ("training.remat=true", "Activation recomputation"),
-        # FFL at bfloat16 (HiSup and Pix2Poly run at it: tests/test_torch_hisup_bf16.py,
-        # tests/test_torch_bf16.py)
-        pytest.param("experiment.model.name=ffl host.compute_dtype=bfloat16", "FFL",
+        # FFL at bfloat16 once named item 'FFL'; every family now runs at it
+        # (tests/test_torch_ffl_bf16.py, test_torch_hisup_bf16.py, test_torch_bf16.py)
+        pytest.param("experiment.model.name=ffl host.compute_dtype=bfloat16", None,
                      id="host.compute_dtype=bfloat16-bfloat16"),
     ],
 )
 def test_options_not_ported_raise(override, item, tmp_path):
+    cfg = compose(_overrides(tmp_path, override.split()))
+    if item is None:
+        check_supported(cfg)
+        return
     with pytest.raises(NotImplementedError, match=re.escape(f"ROADMAP 'Port queue' item '{item}'")):
-        check_supported(compose(_overrides(tmp_path, override.split())))
+        check_supported(cfg)
 
 
 def test_trainer_needs_a_card_unless_asked_for_the_cpu(tmp_path):
