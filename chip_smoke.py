@@ -116,8 +116,35 @@ fails:
      `latest` (0 AFM launches, 0 failed batches); ASM on the ground truth's
      maps of one test batch (IoU bound; skeleton, optimization and
      post-processing ms), its optimization on 2 tiles on the card against
-     the CPU, and one ASM step profiled.
-They run in the order 1-5, 10-15, 6-9. The line before the last is the
+     the CPU, and one ASM step profiled;
+ 16. the LiDAR voxelizer and PillarFeatureNet on the synthetic train split's
+     first batch of 16 clouds at 200,000 points, at the per-pillar caps 4,
+     64 and 512: the assignment on the card against the CPU (points, pillar
+     ids, kept masks and counts exact, features within a bound), a seeded
+     PillarCanvas in train mode on 4 clouds against the CPU, the assignment,
+     the canvas forward and its backward timed with their peak memory, and
+     one call profiled (K6's baseline, ROADMAP §2);
+ 17. HiSup-LiDAR training at full width (`experiment=hisup_lidar`,
+     pointpillars_vit_cnn) through the trainer, 4 train + 1 val steps and
+     the val-IoU pass with the counters set to 0 just before and read just
+     after (5 AFM launches): step time, the step cut into targets,
+     voxelization with the PFN, the ViT, the heads, losses, backward and
+     AdamW, peak memory, the host loader's ms per batch, the val IoU; one
+     float32 step on 2 tiles on the card against the CPU (losses and
+     gradients); one bfloat16 step from the same weights on the same batch,
+     its losses against the float32 run's first;
+ 18. Pix2Poly early-fusion prediction (`experiment=p2p_fusion`) of the
+     64-tile test split from a seeded random model, through
+     `cli/predict.py`'s functions (0 AFM launches): tiles/s, the encoder's
+     ms per batch, the encoder tokens on 2 tiles on the card against the
+     CPU;
+ 19. one train step at batch 16 each of p2p_lidar, hisup_fusion (1 AFM
+     launch), ffl_lidar and ffl_fusion through their trainers' set-up: step
+     time, peak memory, finite losses, a forward on 2 tiles on the card
+     against the CPU;
+ 20. `cli.predict_demo` for ffl_lidar on one tile from a `.laz` file that
+     the port's `write_laz` wrote from the tile's points.
+They run in the order 1-5, 10-15, 6-9, 16-20. The line before the last is the
 card's name and power limit, the one before it a JSON object with every
 kernel's numbers; the last line is {"ok": true, "device": {...}}.
 """
@@ -306,6 +333,43 @@ ASM_ORACLE_MIN_IOU = 0.80
 ASM_CPU_TILES = 2
 ASM_ONE_STEP_MEDIAN_PX, ASM_ONE_STEP_SHARE = 1e-4, 0.02
 ASM_MEDIAN_PX = 0.1
+# LiDAR and early fusion (phases 16-20):
+# - the pillar assignment on the card against the CPU: points, pillar ids,
+#   kept masks and per-pillar counts exact (the same stable sort); the
+#   decorated features within cap x LIDAR_FEAT_TOL px: the card sums each
+#   pillar's centroid with atomics in no fixed order, and a sum of up to
+#   `cap` coordinates below 224 px is rounded up to cap - 1 times by 2^-24
+#   of a value below cap x 224 px (read at cap 4: 3.05e-5 px; at 64:
+#   1.37e-4 px, NVIDIA H100 80GB HBM3, 700.00 W);
+# - the train-mode PillarCanvas of LIDAR_CANVAS_TILES clouds and its
+#   running statistics within LIDAR_CANVAS_TOL of the CPU's, relative to the
+#   largest value (float32, TF32 off; the Dense and max are exact
+#   operations on the same rows, the BatchNorm statistics sum 800,000 rows
+#   in other orders: the CPU tests read 3e-7 against float64);
+# - HiSup-LiDAR training, one float32 step on HISUP_BF16_CPU_TILES tiles on
+#   the card and on the CPU: losses within LIDAR_LOSS_TOL relative, the two
+#   gradients within LIDAR_GRAD_TOL in relative L2 over all parameters (a
+#   float32 HiSup gradient through train-mode BatchNorms on a 2-tile batch
+#   lies up to 1e-2 from the exact one, tests/test_torch_slice.py);
+# - its first step at bfloat16 against float32's from the same weights on
+#   the same batch: LIDAR_BF16_LOSS_TOL relative (Pix2Poly's bound; the
+#   PFN's inputs, pixel coordinates up to 224, round to 8 bits: steps of 1
+#   px above 128, as flax's `dtype=bfloat16` rounds them);
+# - one step of each other LiDAR and fusion experiment, then a forward on 2
+#   tiles on the card against the CPU: LIDAR_FWD_TOL relative to each
+#   output's largest value at float32 (check_against_cpu's bound), and
+#   HISUP_BF16_REL_L2 in relative L2 at bfloat16. hisup_fusion (HRNetV2-W48
+#   and the pillar ViT) runs at LIDAR_STEP_DTYPE's dtype.
+LIDAR_CAPS = (4, 64, 512)
+LIDAR_SEED = 0
+LIDAR_CANVAS_TILES = 4
+LIDAR_FEAT_TOL = 224 * 2 ** -23
+LIDAR_CANVAS_TOL = 1e-4
+LIDAR_LOSS_TOL, LIDAR_GRAD_TOL = 1e-4, 1e-2
+LIDAR_BF16_LOSS_TOL = 5e-2
+LIDAR_FWD_TOL = 1e-3
+LIDAR_STEP_DTYPE = {"p2p_lidar": "float32", "hisup_fusion": "float32", "ffl_lidar": "float32",
+                    "ffl_fusion": "float32"}
 
 
 def fail(msg: str) -> None:
@@ -735,26 +799,21 @@ def hisup_bf16_card_against_cpu(cfg, first: dict) -> None:
         fail(f"bfloat16 HiSup on the card differs from the CPU at {bad}: {apart}")
 
 
-def profile_forward(trainer, images: torch.Tensor, what: str, top: int = 10) -> None:
-    """One train-mode forward (no grad) traced by torch.profiler: its wall
+def profile_call(fn, what: str, top: int = 10) -> dict:
+    """`fn()` traced once by torch.profiler after a warm-up call: its wall
     time, the host's top-level aten calls, the kernels launched and their
-    device time, and the kernels that take the most, summed over their
-    launches. On a copy of the model, whose BatchNorm statistics the
-    train-mode forwards update in place of the trainer's."""
-    import copy
-
+    device time, the card's busy share, and the kernels that take the
+    most, summed over their launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    model = copy.deepcopy(trainer.state.model).train()
-    with torch.no_grad():
-        model({"images": images})
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            model({"images": images})
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t) * 1e3
+        wall_ms = (time.perf_counter() - t) * 1e3
     events = prof.events()
     aten = [e for e in events if e.name.startswith("aten::")
             and (e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::"))]
@@ -764,9 +823,22 @@ def profile_forward(trainer, images: torch.Tensor, what: str, top: int = 10) -> 
         by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
     rows = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
     busy_ms = sum(sum(v) for v in by_name.values()) / 1e3
-    print(f"forward ({what}) traced (torch.profiler, one train-mode forward, no grad): {wall_ms:.1f} ms wall, "
-          f"{len(aten)} top-level aten calls, {len(kernels)} kernels, {busy_ms:.1f} ms of kernel time; most: "
-          + "; ".join(f"{k[:80]} x{len(v)} {sum(v) / 1e3:.1f} ms" for k, v in rows[:top]), flush=True)
+    print(f"{what} traced (torch.profiler): {wall_ms:.1f} ms wall, {len(aten)} top-level aten calls, {len(kernels)} "
+          f"kernels, {busy_ms:.2f} ms of kernel time (the card busy {100 * busy_ms / wall_ms:.1f} %); most: "
+          + "; ".join(f"{k[:80]} x{len(v)} {sum(v) / 1e3:.2f} ms" for k, v in rows[:top]), flush=True)
+    return {"wall_ms": wall_ms, "aten": len(aten), "kernels": len(kernels), "kernel_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms}
+
+
+def profile_forward(trainer, images: torch.Tensor, what: str, top: int = 10) -> None:
+    """One train-mode forward (no grad) traced by `profile_call`, on a copy
+    of the model, whose BatchNorm statistics the train-mode forwards update
+    in place of the trainer's."""
+    import copy
+
+    model = copy.deepcopy(trainer.state.model).train()
+    with torch.no_grad():
+        profile_call(lambda: model({"images": images}), f"forward ({what}; one train-mode forward, no grad)", top)
 
 
 def step_parts(trainer, batch: dict) -> dict:
@@ -2542,6 +2614,479 @@ def phase_ffl_training(overrides: list[str], smi: str) -> dict:
     return {"trained": trained, "predict_bf16": pred, "asm": asm}
 
 
+# --- LiDAR and early fusion (phases 16-20) -------------------------------------
+
+
+def lidar_overrides(experiment: str) -> list[str]:
+    """The smoke split for a LiDAR or fusion experiment: the same synthetic
+    tiles as the image phases (country CH, which the fusion experiments'
+    `country: all` would otherwise regenerate), each cloud padded to the
+    encoder's max_num_points (200,000)."""
+    return smoke_overrides(num_train=TRAIN_STEPS * B, experiment=experiment) + ["experiment.dataset.country=CH"]
+
+
+def phase_voxelizer(overrides: list[str]) -> dict:
+    """Phase 16: the voxelizer and the PillarFeatureNet on the synthetic
+    train split's first batch of 16 clouds at 200,000 points, at the
+    per-pillar caps 4, 64 and 512: the pillar assignment on the card
+    against the CPU (points, pillar ids, kept masks and counts exact,
+    decorated features within cap x LIDAR_FEAT_TOL), the train-mode canvas of a
+    seeded PillarCanvas on LIDAR_CANVAS_TILES clouds within
+    LIDAR_CANVAS_TOL, the assignment, the canvas forward and its forward
+    with backward timed by CUDA events on all 16 with their peak memory,
+    and one call of assignment and canvas forward profiled (the baseline of
+    K6, ROADMAP §2)."""
+    import copy
+
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.data.loader import build_loader, to_device
+    from pixelspointspolygons_torch.models.layers import init_flax_defaults
+    from pixelspointspolygons_torch.models.pointpillars import PillarCanvas
+    from pixelspointspolygons_torch.ops.voxelize import assign_pillars
+
+    cfg = compose(overrides)
+    enc = cfg.experiment.encoder
+    host = next(iter(build_loader(cfg, "train")))
+    card = to_device(host, CARD, ("lidar", "lidar_mask"))
+    cpu = to_device(host, torch.device("cpu"), ("lidar", "lidar_mask"))
+    pts, valid = card["lidar"], card["lidar_mask"]
+    grid = dict(width=float(enc.in_width), height=float(enc.in_height), voxel_x=float(enc.in_voxel_size.x),
+                voxel_y=float(enc.in_voxel_size.y))
+    dim = int(enc.patch_feature_dim)
+    print(f"voxelizer input: {tuple(pts.shape)} points ({pts.dtype}), {int(valid.sum())} valid "
+          f"({float(valid.float().mean()) * 100:.1f} %), grid {grid}, PFN channels (64, {dim})", flush=True)
+    out = {}
+    for cap in LIDAR_CAPS:
+        a = assign_pillars(pts, valid, max_points_per_voxel=cap, **grid)
+        c = assign_pillars(cpu["lidar"], cpu["lidar_mask"], max_points_per_voxel=cap, **grid)
+        torch.cuda.synchronize()
+        for name in ("points", "pillar_id", "keep"):
+            if not torch.equal(getattr(a, name).cpu(), getattr(c, name)):
+                fail(f"voxelizer (cap {cap}): {name} differs between the card and the CPU")
+        flat = (a.pillar_id + torch.arange(B, device=CARD)[:, None] * (a.n_cells + 1)).reshape(-1)
+        counts = torch.bincount(flat[a.keep.reshape(-1)], minlength=B * (a.n_cells + 1)).cpu()
+        cflat = (c.pillar_id + torch.arange(B)[:, None] * (c.n_cells + 1)).reshape(-1)
+        if not torch.equal(counts, torch.bincount(cflat[c.keep.reshape(-1)], minlength=B * (c.n_cells + 1))):
+            fail(f"voxelizer (cap {cap}): the per-pillar counts differ between the card and the CPU")
+        feat_err = float((a.features.cpu() - c.features).abs().max())
+        if not feat_err <= cap * LIDAR_FEAT_TOL:
+            fail(f"voxelizer (cap {cap}): decorated features differ by {feat_err} px")
+
+        canvas_cpu = PillarCanvas(max_points_per_voxel=cap, feat_channels=(64, dim), **grid)
+        init_flax_defaults(canvas_cpu, torch.Generator().manual_seed(LIDAR_SEED))
+        canvas = copy.deepcopy(canvas_cpu).to(CARD).train()
+        n = LIDAR_CANVAS_TILES
+        with torch.no_grad():
+            got = canvas(pts[:n], valid[:n]).cpu()
+            t = time.perf_counter()
+            want = canvas_cpu.train()(cpu["lidar"][:n], cpu["lidar_mask"][:n])
+            cpu_s = time.perf_counter() - t
+        canvas_err = float((got - want).abs().max() / want.abs().max())
+        stats_err = max(float((canvas.state_dict()[k].cpu() - v).abs().max() / v.abs().max().clamp(min=1e-12))
+                        for k, v in canvas_cpu.state_dict().items() if "running" in k)
+        if not (canvas_err <= LIDAR_CANVAS_TOL and stats_err <= LIDAR_CANVAS_TOL):
+            fail(f"PillarCanvas (cap {cap}): the card differs from the CPU by {canvas_err} (canvas), "
+                 f"{stats_err} (running statistics), relative")
+
+        canvas.load_state_dict(canvas_cpu.state_dict())
+        assign_ms = cuda_ms(lambda: assign_pillars(pts, valid, max_points_per_voxel=cap, **grid), 5, 3)
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: canvas(pts, valid), 3, 3)
+
+        def fwd_bwd():
+            canvas(pts, valid).sum().backward()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fwd_bwd_ms = cuda_ms(fwd_bwd, 2, 3)
+        peak = torch.cuda.max_memory_allocated() - base
+        kept = int(a.keep.sum())
+        pillars = int((counts > 0).sum())
+        out[cap] = {"assign_ms": assign_ms, "canvas_fwd_ms": fwd_ms, "canvas_fwd_bwd_ms": fwd_bwd_ms,
+                    "fwd_bwd_peak_bytes": peak, "kept": kept, "pillars": pillars, "feat_err": feat_err,
+                    "canvas_err": canvas_err}
+        print(f"voxelizer cap {cap}: {kept} points kept in {pillars} pillars (card = CPU: points, ids, masks, "
+              f"counts); features max abs err {feat_err:.3g} px (tol {cap * LIDAR_FEAT_TOL:.3g}); train-mode canvas "
+              f"on {n} "
+              f"clouds rel err {canvas_err:.3g}, running statistics {stats_err:.3g} (tol {LIDAR_CANVAS_TOL}; CPU "
+              f"{cpu_s:.1f} s); on {B} clouds (CUDA events): assignment {assign_ms:.2f} ms, canvas forward "
+              f"{fwd_ms:.2f} ms, forward and backward {fwd_bwd_ms:.2f} ms, its peak {peak / 2**30:.2f} GiB above "
+              f"the inputs", flush=True)
+        if cap == 64:
+            with torch.no_grad():
+                out["profile"] = profile_call(lambda: canvas(pts, valid), f"assignment and canvas forward (K6 "
+                                              f"baseline; cap {cap}, {B} clouds, train mode, no grad)")
+        del canvas, canvas_cpu, a, c
+    return out
+
+
+def lidar_step_parts(trainer, batch: dict) -> dict:
+    """One HiSup-LiDAR train step cut by CUDA events on the stream into the
+    targets (with the AFM kernel), voxelization with the PillarFeatureNet,
+    the ViT, the map head with HiSup's heads, the losses, the backward and
+    AdamW; the calls of train/hisup_step.py::make_train_step."""
+    from pixelspointspolygons_torch.models.hisup.model import encode_targets, hisup_losses
+    from pixelspointspolygons_torch.models.vit import token_map_head
+
+    state = trainer.state
+    model, enc = state.model, state.model.encoder
+    weights = {k: float(v) for k, v in trainer.cfg.experiment.model.loss_weights.items()}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+    model.train()
+    ev[0].record()
+    targets = encode_targets(batch, S)
+    ev[1].record()
+    canvas = enc.pp_vit.pillar_canvas(batch["lidar"], batch["lidar_mask"])
+    ev[2].record()
+    b, ny, nx, c = canvas.shape
+    tokens = enc.pp_vit.vit(tokens=canvas.reshape(b, ny * nx, c))[:, 1:]
+    ev[3].record()
+    outputs = model.heads(token_map_head(tokens, enc.conv0, enc.bn0, enc.out_size))
+    ev[4].record()
+    total = sum(weights[k] * v for k, v in hisup_losses(outputs, targets).items())
+    ev[5].record()
+    state.optimizer.zero_grad(set_to_none=True)
+    total.backward()
+    ev[6].record()
+    state.optimizer.step()
+    ev[7].record()
+    torch.cuda.synchronize()
+    names = ("targets", "voxelize_pfn", "vit", "head", "losses", "backward", "optimizer")
+    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+
+
+def lidar_train_card_against_cpu(cfg, first: dict) -> dict:
+    """One float32 train step on HISUP_BF16_CPU_TILES tiles of the first
+    batch, from the first step's weights, on the card and on the CPU with
+    fresh AdamW states: losses within LIDAR_LOSS_TOL relative, the two
+    gradients within LIDAR_GRAD_TOL of each other in relative L2 over all
+    parameters (the CPU path is held to the JAX package by
+    tests/test_torch_slice_lidar.py)."""
+    from pixelspointspolygons_torch.models.hisup.factory import build_hisup
+    from pixelspointspolygons_torch.train.hisup_step import make_train_step
+    from pixelspointspolygons_torch.train.state import TrainState, make_optimizer, make_scheduler
+
+    m = cfg.experiment.model
+    lr = float(m.learning_rate)
+    step = make_train_step({k: float(v) for k, v in m.loss_weights.items()}, S)
+    res = {}
+    for name, dev in (("card", CARD), ("cpu", torch.device("cpu"))):
+        model = build_hisup(cfg, device=dev)
+        model.load_state_dict(first["state"])
+        opt = make_optimizer("adamw", model.parameters(), lr, weight_decay=float(m.weight_decay))
+        state = TrainState(model, opt, make_scheduler(opt, lambda n: lr, lr))
+        t = time.perf_counter()
+        metrics = step(state, {k: v.to(dev) for k, v in first["batch"].items()})
+        res[name] = ({k: float(v) for k, v in metrics.items()},
+                     {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()},
+                     time.perf_counter() - t)
+    (got, g_card, _), (want, g_cpu, cpu_s) = res["card"], res["cpu"]
+    loss_err = {k: abs(got[k] / want[k] - 1.0) for k in want}
+    grad_err = (sum(float(((g_card[k] - g_cpu[k]) ** 2).sum()) for k in g_cpu)
+                / sum(float((g_cpu[k] ** 2).sum()) for k in g_cpu)) ** 0.5
+    print(f"hisup_lidar train step card vs CPU on {len(first['batch']['lidar'])} tiles from the first step's weights "
+          f"(float32; CPU {cpu_s:.1f} s): losses {want}, rel err {loss_err} (tol {LIDAR_LOSS_TOL}); gradients rel L2 "
+          f"{grad_err:.3g} (tol {LIDAR_GRAD_TOL})", flush=True)
+    if not all(e <= LIDAR_LOSS_TOL for e in loss_err.values()):
+        fail(f"the HiSup-LiDAR step's losses differ between card and CPU: {loss_err}")
+    if not grad_err <= LIDAR_GRAD_TOL:
+        fail(f"the HiSup-LiDAR step's gradients differ between card and CPU by {grad_err}")
+    return {"loss_err": loss_err, "grad_err": grad_err}
+
+
+def phase_hisup_lidar_train(overrides: list[str]) -> dict:
+    """Phase 17: HiSup-LiDAR training at full width (pointpillars_vit_cnn:
+    ViT-S/8 on a 28 x 28 pillar canvas, cap 64, heads of width 256, batch
+    16, 200,000 points a cloud) through the trainer that `cli/train.py`
+    builds: 4 train + 1 val steps and the val-IoU pass with the kernel
+    counters set to 0 just before and read just after (5 AFM launches);
+    then the steady-state step, its parts, the host loader, one step on 2
+    tiles on the card against the CPU, and one bfloat16 step on the first
+    batch from the same weights against the float32 run's first step."""
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.data.loader import device_prefetch
+    from pixelspointspolygons_torch.models.hisup.factory import build_hisup
+    from pixelspointspolygons_torch.ops.afm import afm_cuda
+    from pixelspointspolygons_torch.train.hisup_step import make_train_step
+    from pixelspointspolygons_torch.train.state import TrainState, make_optimizer, make_scheduler
+    from pixelspointspolygons_torch.train.trainer_hisup import _DEV_KEYS, HiSupTrainer
+
+    cfg = compose(overrides + ["host.compute_dtype=float32"])
+    trainer = HiSupTrainer(cfg, device=CARD)
+    iou_pass_s, step_losses, first, loader_ms = [], [], {}, []
+    record_steps(trainer, step_losses, iou_pass_s, first, loader_ms)
+    torch.cuda.reset_peak_memory_stats()
+    afm_cuda.launches = 0
+    t0 = time.perf_counter()
+    history = trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = afm_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    run_loader_ms = list(loader_ms)
+    n_train, n_val = len(trainer.train_loader), len(trainer.val_loader)
+    model = trainer.state.model
+    losses = [{k: float(v) for k, v in m.items()} for m in step_losses]
+    print(f"hisup_lidar train path (float32): {n_train} train + {n_val} val steps and the val-IoU pass in {wall:.1f} s "
+          f"(set-up included), peak memory {peak / 2**30:.2f} GiB; afm launches {launches}; encoder "
+          f"{type(model.encoder).__name__}", flush=True)
+    print("hisup_lidar history: " + json.dumps(history), flush=True)
+    print("hisup_lidar step losses: " + json.dumps(losses), flush=True)
+    if (n_train, n_val) != (TRAIN_STEPS, VAL_STEPS) or len(losses) != n_train:
+        fail(f"hisup_lidar: expected {TRAIN_STEPS} train and {VAL_STEPS} val steps, got {n_train}, {n_val}, "
+             f"{len(losses)}")
+    if not all(np.isfinite(v) for k, v in history.items() if k != "epoch"):
+        fail(f"hisup_lidar: non-finite losses: {history}")
+    if launches != n_train + n_val:
+        fail(f"afm launched {launches} times in HiSup-LiDAR training, expected {n_train + n_val}")
+    if type(model.encoder).__name__ != "PointPillarsViTCNNEncoder" or first["batch"].get("images") is not None:
+        fail("hisup_lidar: not the LiDAR encoder on a LiDAR-only batch")
+    if not trainer.manager.exists("latest") or not trainer.manager.exists("best_val_loss"):
+        fail("the HiSup-LiDAR trainer wrote no latest/best_val_loss checkpoint")
+    val_iou = history.get("val_iou")
+    if val_iou is None or not 0.0 <= val_iou <= 1.0 or len(iou_pass_s) != 1:
+        fail(f"the HiSup-LiDAR val-IoU pass gave no IoU in [0, 1]: {val_iou}")
+    print(f"hisup_lidar val-IoU pass: {n_val * B} val tiles polygonized in {iou_pass_s[0] * 1e3:.1f} ms (wall), "
+          f"val IoU {val_iou:.4f}", flush=True)
+
+    trainer.train_loader.set_epoch(0)
+    host = list(trainer.train_loader)
+    batches = list(device_prefetch(host, trainer.device, _DEV_KEYS))
+    trainer._train_step(trainer.state, batches[0])
+    torch.cuda.synchronize()
+    times = []
+    for batch in batches:
+        t = time.perf_counter()
+        trainer._train_step(trainer.state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    step_ms = statistics.median(times)
+    t = time.perf_counter()
+    trainer._val_step(trainer.state, batches[0])
+    torch.cuda.synchronize()
+    val_ms = (time.perf_counter() - t) * 1e3
+    parts = [lidar_step_parts(trainer, batch) for batch in batches]
+    breakdown = {k: statistics.median(p[k] for p in parts) for k in parts[0]}
+    loader = statistics.median(run_loader_ms)
+    print(f"hisup_lidar train step (float32) {step_ms:.1f} ms (median of {len(times)}: "
+          f"{[round(x, 1) for x in times]}), val step {val_ms:.1f} ms; host loader {loader:.1f} ms per batch of {B} "
+          f"(median of the run's {len(run_loader_ms)}: {[round(x, 1) for x in run_loader_ms]})", flush=True)
+    print(f"hisup_lidar train step by layer (ms, CUDA events, median of {len(parts)}): {json.dumps(breakdown)}",
+          flush=True)
+    card_cpu = lidar_train_card_against_cpu(cfg, first)
+
+    # one bfloat16 step from the same initial weights on the same first batch
+    bcfg = compose(overrides + ["host.compute_dtype=bfloat16"])
+    bmodel = build_hisup(bcfg, device=CARD, dtype=torch.bfloat16)
+    bmodel.load_state_dict(first["state"])
+    lr = float(bcfg.experiment.model.learning_rate)
+    opt = make_optimizer("adamw", bmodel.parameters(), lr, weight_decay=float(bcfg.experiment.model.weight_decay))
+    bstep = make_train_step({k: float(v) for k, v in bcfg.experiment.model.loss_weights.items()}, S)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    got = {k: float(v) for k, v in bstep(TrainState(bmodel, opt, make_scheduler(opt, lambda n: lr, lr)),
+                                         batches[0]).items()}
+    torch.cuda.synchronize()
+    bf16_ms, bf16_peak = (time.perf_counter() - t) * 1e3, torch.cuda.max_memory_allocated()
+    loss_err = {k: abs(got[k] / losses[0][k] - 1.0) for k in losses[0]}
+    print(f"hisup_lidar first train step at bfloat16 from the same weights on the same batch: {got}; float32 "
+          f"{losses[0]}; rel diff {loss_err} (tol {LIDAR_BF16_LOSS_TOL}); {bf16_ms:.1f} ms (its first call), peak "
+          f"{bf16_peak / 2**30:.2f} GiB", flush=True)
+    if not all(e <= LIDAR_BF16_LOSS_TOL for e in loss_err.values()):
+        fail(f"the bfloat16 HiSup-LiDAR step's losses differ from float32's by {loss_err}")
+    return {"step_ms": step_ms, "val_ms": val_ms, "peak_bytes": peak, "iou_pass_ms": iou_pass_s[0] * 1e3,
+            "val_iou": val_iou, "losses": losses, "breakdown": breakdown, "launches": launches,
+            "loader_ms": loader, "card_cpu": card_cpu, "bf16_loss_err": loss_err}
+
+
+def phase_p2p_fusion_predict(overrides: list[str]) -> dict:
+    """Phase 18: Pix2Poly early-fusion prediction (early_fusion_vit at full
+    width) of the 64-tile test split from a seeded random model written as
+    `latest`, through the functions `cli/predict.py::main` calls, with the
+    counters set to 0 just before and read just after (0 AFM launches);
+    tiles per second and the encoder's ms per batch; on P2P_CPU_TILES tiles
+    the encoder tokens on the card against the CPU (P2P_REL_TOL)."""
+    from pixelspointspolygons_torch.cli.predict import predict_and_evaluate
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.data.loader import INPUT_KEYS, build_loader, to_device
+    from pixelspointspolygons_torch.models.pix2poly import Tokenizer, build_pix2poly
+    from pixelspointspolygons_torch.ops.afm import afm_cuda
+    from pixelspointspolygons_torch.train.state import TrainState, linear_warmup_decay, make_optimizer, make_scheduler
+    from pixelspointspolygons_torch.utils.checkpoint import CheckpointManager
+
+    cfg = compose(overrides + ["evaluation=test", "checkpoint=latest"])
+    tokenizer = Tokenizer(cfg)
+    model = build_pix2poly(cfg, tokenizer, device=CARD, generator=torch.Generator(device=CARD).manual_seed(P2P_SEED))
+    lr = float(cfg.experiment.model.learning_rate)
+    opt = make_optimizer("adamw", model.parameters(), lr)
+    CheckpointManager(cfg.output_dir).save(
+        "latest", TrainState(model, opt, make_scheduler(opt, linear_warmup_decay(lr, 1000), lr)), 0, cfg)
+    del model, opt
+    afm_cuda.launches = 0
+    t0 = time.perf_counter()
+    predictor, results = predict_and_evaluate(cfg, CARD)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = afm_cuda.launches
+    with open(cfg.evaluation.pred_file.replace(".json", "_time.json")) as f:
+        timing = json.load(f)
+    encoder = type(predictor.model.encoder).__name__
+    if launches or timing["num_images"] != TEST_TILES or encoder != "EarlyFusionViTEncoder":
+        fail(f"p2p_fusion prediction: {launches} afm launches, {timing['num_images']} tiles, encoder {encoder}")
+    if not all(np.isfinite(results.get(k, np.nan)) for k in ("IoU", "C-IoU")):
+        fail(f"p2p_fusion: non-finite metrics {results}")
+    times = predictor.batch_times
+    tiles_s = 1.0 / timing["prediction_time"]
+    enc_ms = [t["encoder_ms"] for t in times]
+    print(f"p2p_fusion predict path: {timing['num_images']} tiles in {len(times)} batches of {B}, {tiles_s:.2f} "
+          f"tiles/s (the predictor's own s/tile over its loop), set-up, loop, files and evaluation {wall:.1f} s; "
+          f"encoder {[round(x, 2) for x in enc_ms]} ms per batch (CUDA events), decode loop "
+          f"{[round(t['decode_ms'], 1) for t in times]} ms ({[t['steps'] for t in times]} steps), ScoreNets "
+          f"{[round(t['scorenet_ms'], 2) for t in times]} ms; afm launches {launches}; IoU {results['IoU']:.4f}",
+          flush=True)
+
+    batch = next(iter(build_loader(cfg, "test", tokenizer=tokenizer, eval_mode=True)))
+    small = {k: v[:P2P_CPU_TILES] for k, v in batch.items()}
+    cpu_model = build_pix2poly(cfg, tokenizer)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in predictor.model.state_dict().items()})
+    with torch.no_grad():
+        got = predictor.model.eval().encode(to_device(small, CARD, INPUT_KEYS)).cpu()
+        want = cpu_model.eval().encode(to_device(small, torch.device("cpu"), INPUT_KEYS))
+    err = float((got - want).abs().max() / want.abs().max())
+    print(f"p2p_fusion encoder tokens card vs CPU on {P2P_CPU_TILES} tiles: {tuple(got.shape)}, max rel err {err:.3g} "
+          f"(tol {P2P_REL_TOL})", flush=True)
+    if not err <= P2P_REL_TOL:
+        fail(f"p2p_fusion encoder tokens differ between card and CPU by {err}")
+    return {"tiles_s": tiles_s, "encoder_ms": enc_ms, "batch_times": times, "launches": launches,
+            "results": results, "token_err": err}
+
+
+def model_outputs(model, name: str, batch: dict, y_input=None) -> dict:
+    """The eval-mode outputs of a model of family `name` on `batch`."""
+    from pixelspointspolygons_torch.data.loader import INPUT_KEYS
+
+    inputs = {k: batch[k] for k in INPUT_KEYS if k in batch}
+    with torch.no_grad():
+        if name == "pix2poly":
+            logits, perm = model.eval()(inputs, y_input)
+            return {"logits": logits, "perm": perm}
+        return dict(model.eval()(inputs))
+
+
+def phase_lidar_steps() -> dict:
+    """Phase 19: one train step at batch 16 through the trainers' set-up
+    for p2p_lidar, hisup_fusion (at LIDAR_STEP_DTYPE's dtype), ffl_lidar
+    and ffl_fusion, with the counters set to 0 just before and read just
+    after (hisup_fusion's targets launch the AFM once), a second step
+    timed, the peak memory of both, and a forward on 2 tiles from the
+    stepped weights on the card against the CPU (LIDAR_FWD_TOL relative
+    to each output's largest value)."""
+    import copy
+
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.data.loader import device_prefetch
+    from pixelspointspolygons_torch.ops.afm import afm_cuda
+    from pixelspointspolygons_torch.train import trainer_ffl, trainer_hisup, trainer_pix2poly
+
+    trainers = {"pix2poly": (trainer_pix2poly.Pix2PolyTrainer, trainer_pix2poly._DEV_KEYS),
+                "hisup": (trainer_hisup.HiSupTrainer, trainer_hisup._DEV_KEYS),
+                "ffl": (trainer_ffl.FFLTrainer, trainer_ffl.FFL_BATCH_KEYS)}
+    out = {}
+    for experiment, dtype in LIDAR_STEP_DTYPE.items():
+        cfg = compose(lidar_overrides(experiment) + [f"host.compute_dtype={dtype}"])
+        name = cfg.experiment.model.name
+        cls, keys = trainers[name]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = cls(cfg, device=CARD)
+        trainer.generator = torch.Generator(device=CARD).manual_seed(int(cfg.get("seed", 42)))
+        trainer.setup()
+        batch = next(iter(device_prefetch(trainer.train_loader, CARD, keys)))
+        if name == "ffl":
+            args = (trainer._weights_for_epoch(0),)
+        else:
+            args = (trainer.generator,) if name == "pix2poly" else ()
+        afm_cuda.launches = 0
+        metrics = {k: float(v) for k, v in trainer._train_step(trainer.state, batch, *args).items()}
+        torch.cuda.synchronize()
+        launches = afm_cuda.launches
+        t = time.perf_counter()
+        trainer._train_step(trainer.state, batch, *args)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        want_launches = 1 if name == "hisup" else 0
+        if not all(np.isfinite(v) for v in metrics.values()) or launches != want_launches:
+            fail(f"{experiment}: the step gave {metrics} with {launches} afm launches (expected {want_launches})")
+
+        small = {k: v[:2] for k, v in batch.items()}
+        y_input = small["y"][:, :-1] if name == "pix2poly" else None
+        model = trainer.state.model
+        cpu_model = copy.deepcopy(model).cpu()
+        got = model_outputs(model, name, small, y_input)
+        want = model_outputs(cpu_model, name, {k: v.cpu() for k, v in small.items()},
+                             None if y_input is None else y_input.cpu())
+        errs = {k: float((got[k].cpu().float() - v.float()).abs().max() / v.float().abs().max().clamp(min=1e-12))
+                for k, v in want.items()}
+        tol = LIDAR_FWD_TOL if dtype == "float32" else HISUP_BF16_REL_L2
+        if dtype != "float32":
+            errs = {k: rel_l2(got[k].cpu(), v) for k, v in want.items()}
+        print(f"{experiment} ({dtype}, encoder {type(model.encoder).__name__}): one train step at batch {B}: losses "
+              f"{ {k: round(v, 6) for k, v in metrics.items()} }, afm launches {launches}; the next step {step_ms:.1f} "
+              f"ms; peak {peak / 2**30:.2f} GiB; forward on 2 tiles card vs CPU {errs} (tol {tol}, "
+              + ("max relative" if dtype == "float32" else "relative L2") + ")", flush=True)
+        if not all(e <= tol for e in errs.values()):
+            fail(f"{experiment}: the forward differs between the card and the CPU: {errs}")
+        out[experiment] = {"step_ms": step_ms, "peak_bytes": peak, "launches": launches, "losses": metrics,
+                           "errs": errs, "dtype": dtype}
+        del trainer, model, cpu_model, batch, small
+    return out
+
+
+def phase_ffl_lidar_demo() -> float:
+    """Phase 20: `cli.predict_demo` on one test tile of ffl_lidar from a
+    seeded random model written as `latest`, its LiDAR from a .laz file
+    that the port's `write_laz` wrote from the tile's points."""
+    from pixelspointspolygons_torch.cli import predict_demo
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.data.dataset import P3Dataset, load_lidar_file
+    from pixelspointspolygons_torch.laz import read_laz, write_laz
+    from pixelspointspolygons_torch.models.ffl import build_ffl
+    from pixelspointspolygons_torch.train.state import TrainState, linear_warmup_decay, make_optimizer, make_scheduler
+    from pixelspointspolygons_torch.utils.checkpoint import CheckpointManager
+
+    overrides = lidar_overrides("ffl_lidar")
+    cfg = compose(overrides)
+    model = build_ffl(cfg, device=CARD, generator=torch.Generator(device=CARD).manual_seed(FFL_SEED))
+    lr = float(cfg.experiment.model.learning_rate)
+    opt = make_optimizer("adam", model.parameters(), lr)
+    CheckpointManager(cfg.output_dir).save(
+        "latest", TrainState(model, opt, make_scheduler(opt, linear_warmup_decay(lr, 1000), lr)), 0, cfg)
+    del model, opt
+    info = next(iter(P3Dataset(cfg, "test").coco.imgs.values()))
+    pts = load_lidar_file(os.path.join(cfg.experiment.dataset.in_path, info["lidar_path"]))
+    laz_file = os.path.join(WORK, "ffl_lidar_tile.laz")
+    nbytes = write_laz(laz_file, pts)
+    back = read_laz(laz_file)
+    laz_err = float(np.abs(back - pts).max())
+    cwd = os.getcwd()
+    os.chdir(WORK)
+    try:
+        t = time.perf_counter()
+        polys, out_file = predict_demo.main(overrides + ["checkpoint=latest", f"+lidar_file={laz_file}"])
+        demo_s = time.perf_counter() - t
+        ok = os.path.isfile(out_file)
+    finally:
+        os.chdir(cwd)
+    print(f"ffl_lidar predict_demo from {os.path.basename(laz_file)} ({len(pts)} points, {nbytes} bytes, decoded "
+          f"within {laz_err:.3g} of the tile's points): {len(polys)} polygons, {out_file} written {ok}, {demo_s:.2f} s",
+          flush=True)
+    if not ok or not laz_err <= 0.0051:
+        fail("ffl_lidar predict_demo wrote no png, or the .laz round trip moved the points")
+    return demo_s
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
@@ -2626,6 +3171,22 @@ def main() -> None:
           f"{pbf['fixed']['ms_per_step']:.3f} ms per decode step, {pbf['fixed']['aten_per_step']:.1f} aten calls per "
           f"step (float32 {pbf['aten_per_step_f32']:.1f}); bench_torch {pbf['bench']['value']} tiles/s, "
           f"vs_baseline {pbf['bench']['vs_baseline']}, card {smi}", flush=True)
+    vox = phase_voxelizer(lidar_overrides("hisup_lidar"))
+    lidar = phase_hisup_lidar_train(lidar_overrides("hisup_lidar"))
+    print(f"hisup_lidar train path: train step {lidar['step_ms']:.1f} ms, val step {lidar['val_ms']:.1f} ms, val-IoU "
+          f"pass {lidar['iou_pass_ms']:.1f} ms (val IoU {lidar['val_iou']:.4f}), peak {lidar['peak_bytes']} bytes "
+          f"({lidar['peak_bytes'] / 2**30:.2f} GiB), host loader {lidar['loader_ms']:.1f} ms per batch, by layer "
+          f"{json.dumps({k: round(v, 2) for k, v in lidar['breakdown'].items()})}; voxelizer and PFN at cap 64 on "
+          f"{B} clouds: assignment {vox[64]['assign_ms']:.2f} ms, canvas forward {vox[64]['canvas_fwd_ms']:.2f} ms, "
+          f"forward and backward {vox[64]['canvas_fwd_bwd_ms']:.2f} ms; card {smi}", flush=True)
+    fusion = phase_p2p_fusion_predict(lidar_overrides("p2p_fusion"))
+    print(f"p2p_fusion predict path: {fusion['tiles_s']:.2f} tiles/s, encoder "
+          f"{statistics.median(fusion['encoder_ms']):.2f} ms per batch of {B} (median), card {smi}", flush=True)
+    steps = phase_lidar_steps()
+    for experiment, t in steps.items():
+        print(f"{experiment} ({t['dtype']}): train step {t['step_ms']:.1f} ms, peak {t['peak_bytes']} bytes "
+              f"({t['peak_bytes'] / 2**30:.2f} GiB), afm launches {t['launches']}, card {smi}", flush=True)
+    phase_ffl_lidar_demo()
     afm_row["launches_by_path"] = {
         "hisup_train": launches["afm"], "hisup_predict": 0, "pix2poly_predict": 0,
         "pix2poly_train_float32": trained["float32"]["launches"],
@@ -2635,6 +3196,8 @@ def main() -> None:
         "ffl_train_float32": ffl_train["trained"]["float32"]["launches"],
         "ffl_train_bfloat16": ffl_train["trained"]["bfloat16"]["launches"],
         "ffl_predict_bfloat16": ffl_train["predict_bf16"]["launches"],
+        "hisup_lidar_train": lidar["launches"], "p2p_fusion_predict": fusion["launches"],
+        **{f"{e}_step": t["launches"] for e, t in steps.items()},
     }
     print(f"smoke run: {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"kernels": [afm_row]}), flush=True)

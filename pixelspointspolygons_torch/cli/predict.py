@@ -5,7 +5,8 @@ Usage: python -m pixelspointspolygons_torch.cli.predict experiment=hisup_image \
     dataset=synthetic evaluation=test checkpoint=latest [key.path=value ...] [device=cpu]
 
 Runs on the card; `device=cpu` runs on the CPU instead. HiSup, Pix2Poly
-(`experiment=p2p_image`) and FFL (`experiment=ffl_image`) are ported.
+and FFL are ported, on images, LiDAR and both (`experiment=p2p_image`,
+`hisup_lidar`, `ffl_fusion`, ...).
 """
 
 from __future__ import annotations

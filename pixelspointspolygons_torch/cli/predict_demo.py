@@ -3,6 +3,9 @@
 Usage: python -m pixelspointspolygons_torch.cli.predict_demo experiment=hisup_image \
     checkpoint=latest +image_file=/path/tile.png [key.path=value ...] [device=cpu]
 
+A LiDAR or fusion experiment takes `+lidar_file=/path/tile.laz` (`.las`,
+`.npz`, `.npy`) instead of or beside the image, as its encoder reads.
+
 Writes prediction_<model>_<modality>.png in the working directory. Runs on
 the card; `device=cpu` runs on the CPU instead.
 """

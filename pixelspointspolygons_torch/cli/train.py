@@ -5,7 +5,8 @@ Usage: python -m pixelspointspolygons_torch.cli.train experiment=hisup_image \
     dataset=synthetic run_type=debug [key.path=value ...] [device=cpu]
 
 Runs on the card; `device=cpu` runs on the CPU instead. HiSup, Pix2Poly
-and FFL (`experiment=ffl_image`) train, each also at
+and FFL train on images, LiDAR and both (`experiment=hisup_lidar`,
+`p2p_fusion`, `ffl_lidar`, `lidar_density_ablation64`, ...), each also at
 `host.compute_dtype=bfloat16`, with pretrained encoder files
 (`experiment.encoder.hrnet.pretrained=true
 experiment.encoder.hrnet.checkpoint_file=...`, or the ViT's

@@ -10,9 +10,8 @@ targets, so replay consistency is structural instead of bolted on:
     params = sample_params(rng, aug_list)
     image  = apply_image(image, params, mean, std, max_pix)
     kps    = apply_d4_keypoints(kps, params["d4"], H, W)
-
-The LiDAR replay of the JAX module comes with ROADMAP 'Port queue' item
-'LiDAR and fusion'.
+    lidar  = apply_d4_lidar(lidar, params["d4"], H, W)
+    angle  = apply_d4_crossfield_angle(angle, params["d4"])
 
 D4 group elements use the albumentations naming: e, r90, r180, r270, v, hvt,
 h, t (the lidar/angle transform tables mirror p3_coco.py:138-207 semantics).
@@ -101,6 +100,15 @@ def apply_d4_keypoints(pts: np.ndarray, g: str, height: int, width: int) -> np.n
     else:
         raise ValueError(g)
     return np.stack([x, y], axis=1)
+
+
+def apply_d4_lidar(points: np.ndarray, g: str, height: int, width: int) -> np.ndarray:
+    """points: (N, 3) as (x, y, z); the planar mapping of the keypoints, z
+    unchanged (JAX :104-113; the reference's centre-relative swap table,
+    p3_coco.py:138-160, is the same dihedral action)."""
+    out = points.copy()
+    out[:, :2] = apply_d4_keypoints(points[:, :2], g, height, width)
+    return out
 
 
 def apply_d4_crossfield_angle(angle: np.ndarray, g: str) -> np.ndarray:

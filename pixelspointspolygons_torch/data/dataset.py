@@ -1,8 +1,17 @@
-"""P3 dataset, Pix2Poly and HiSup image items — the port's copy of
-pixelspointspolygons_tpu/data/dataset.py (:40-63, :120-374).
+"""P3 dataset, the Pix2Poly, HiSup and FFL items — the port's copy of
+pixelspointspolygons_tpu/data/dataset.py (:40-374).
 
-Every item has static shapes (padded token, permutation, junction and edge
-arrays) so a batch is a dict of fixed-shape numpy arrays.
+Every item has static shapes (padded LiDAR with its mask, padded token,
+permutation, junction and edge arrays) so a batch is a dict of fixed-shape
+numpy arrays.
+- LiDAR (JAX :78-117, :175-202, :239-245): `.npz` (as `data/synthetic.py`
+  writes it), `.npy`, uncompressed `.las` and LASzip `.laz` (the port's
+  `laz.py`); world → pixel coordinates, z normalised per tile to
+  `in_voxel_size.z`, x and y clipped to the tile; the tile's D4 element;
+  shuffled on the train split (the reference's PointShuffle) with the
+  item's rng after the image's draws, as JAX draws; padded with zeros to
+  `max_num_points` (`lidar_mask` False there). The padding is kept whole:
+  the PillarFeatureNet's train-mode BatchNorm counts its rows.
 - Pix2Poly: the corners as a padded token sequence and the ground-truth
   permutation (cyclic successor per polygon, identity padding, the
   open-contour fix), `build_perm_targets`.
@@ -70,6 +79,46 @@ def load_image_file(path: str) -> np.ndarray:
     return img[..., :3][..., ::-1].copy()  # BGR → RGB
 
 
+def load_las_points(path: str) -> np.ndarray:
+    """(N, 3) float64 x, y, z of an uncompressed .las file (a LASzip payload
+    under a .las name goes to `read_laz`)."""
+    with open(path, "rb") as f:
+        header = f.read(375)
+        if header[:4] != b"LASF":
+            raise ValueError(f"not a LAS file: {path}")
+        point_offset = int.from_bytes(header[96:100], "little")
+        fmt = header[104]
+        if fmt > 10:  # a LAZ-compressed payload
+            from ..laz import read_laz
+
+            return read_laz(path)
+        rec_len = int.from_bytes(header[105:107], "little")
+        n = int.from_bytes(header[107:111], "little")
+        sx, sy, sz = np.frombuffer(header[131:155], "<f8")
+        ox, oy, oz = np.frombuffer(header[155:179], "<f8")
+        if n == 0 and len(header) >= 255:
+            n = int.from_bytes(header[247:255], "little")
+        f.seek(point_offset)
+        raw = np.frombuffer(f.read(n * rec_len), np.uint8).reshape(n, rec_len)
+        xyz_i = raw[:, :12].copy().view("<i4").reshape(n, 3).astype(np.float64)
+        return xyz_i * [sx, sy, sz] + [ox, oy, oz]
+
+
+def load_lidar_file(path: str) -> np.ndarray:
+    """(N, 3) float64 points of a .npz, .npy, .las or .laz file."""
+    if path.endswith(".npz"):
+        return np.load(path)["points"].astype(np.float64)
+    if path.endswith(".npy"):
+        return np.load(path).astype(np.float64)
+    if path.endswith(".las"):
+        return load_las_points(path)
+    if path.endswith(".laz"):
+        from ..laz import read_laz
+
+        return read_laz(path)
+    raise ValueError(f"unsupported lidar format: {path}")
+
+
 class P3Dataset:
     def __init__(self, cfg, split: str, tokenizer=None, eval_mode: bool = False):
         """eval_mode forces inference transforms (Normalize only) whatever
@@ -94,11 +143,9 @@ class P3Dataset:
         enc = cfg.experiment.encoder
         self.use_images = bool(enc.use_images)
         self.use_lidar = bool(enc.use_lidar)
-        if self.use_lidar:
-            raise NotImplementedError(
-                "LiDAR inputs: ROADMAP 'Port queue' item 'LiDAR and fusion'"
-            )
         self.model_type = cfg.experiment.model.name
+        self.max_points = int(enc.get("max_num_points", 200000)) if self.use_lidar else 0
+        self.z_range = float(enc.in_voxel_size.z) if self.use_lidar else 100.0
         is_train = split == "train" and not eval_mode
         self.augmentations = list(enc.augmentations or []) if is_train else (
             ["Normalize"] if "Normalize" in (enc.augmentations or []) else []
@@ -120,6 +167,35 @@ class P3Dataset:
     def _image(self, info) -> np.ndarray:
         rel = info.get("image_path") or os.path.join("images", self.split, info["file_name"])
         return load_image_file(os.path.join(self.dataset_dir, rel))
+
+    def _lidar(self, info) -> np.ndarray:
+        """The tile's points in pixel coordinates, float32 (JAX :175-191;
+        reference p3_coco.py:84-99)."""
+        pts = load_lidar_file(os.path.join(self.dataset_dir, info["lidar_path"]))
+        top_left = info.get("top_left")
+        res = info.get("res_x", 0.25)
+        if top_left is not None:
+            pts = pts.copy()
+            pts[:, 0] = (pts[:, 0] - top_left[0]) / res
+            pts[:, 1] = (pts[:, 1] - top_left[1]) / res
+            pts[:, 1] = info["height"] - pts[:, 1]
+        zmin, zmax = pts[:, 2].min(), pts[:, 2].max()
+        pts[:, 2] = (pts[:, 2] - zmin) / max(zmax - zmin, 1e-6) * self.z_range
+        pts[:, 0] = np.clip(pts[:, 0], 0, info["width"])
+        pts[:, 1] = np.clip(pts[:, 1], 0, info["height"])
+        return pts.astype(np.float32)
+
+    def _pad_lidar(self, pts: np.ndarray, rng) -> tuple[np.ndarray, np.ndarray]:
+        """(max_points, 3) points and their (max_points,) mask; shuffled
+        first on the train split (JAX :193-202)."""
+        out = np.zeros((self.max_points, 3), np.float32)
+        mask = np.zeros((self.max_points,), bool)
+        if self.split == "train" and not self.eval_mode:  # PointShuffle (o3d parity)
+            rng.shuffle(pts)
+        n = min(len(pts), self.max_points)
+        out[:n] = pts[:n]
+        mask[:n] = True
+        return out, mask
 
     def _polygons(self, info) -> list[np.ndarray]:
         """Open-ring (V, 2) (x, y) polygons, clipped to the tile."""
@@ -151,6 +227,11 @@ class P3Dataset:
             item["images"] = augment.apply_image(
                 img, params, self.image_mean, self.image_std, self.max_pixel_value, rng
             ).astype(np.float32)
+        if self.use_lidar:
+            pts = self._lidar(info)
+            if params["d4"] != "e":
+                pts = augment.apply_d4_lidar(pts, params["d4"], info["height"], info["width"])
+            item["lidar"], item["lidar_mask"] = self._pad_lidar(pts, rng)
         return item
 
     def _item_pix2poly(self, idx: int, rng) -> dict:
@@ -173,8 +254,9 @@ class P3Dataset:
         return item
 
     def _item_ffl_eval(self, idx: int, rng) -> dict:
-        """What FFL prediction reads of an item: the image and its id. The
-        training item (`_item_ffl`) also carries the FFL ground truth."""
+        """What FFL prediction reads of an item: the image, the LiDAR and its
+        mask, and the id. The training item (`_item_ffl`) also carries the
+        FFL ground truth."""
         info = self.coco.imgs[self.tile_ids[idx]]
         return self._common(info, rng, augment.sample_params(rng, self.augmentations))
 

@@ -23,6 +23,9 @@ from .dataset import P3Dataset
 # rasters, distance and size maps and angle field); the port rounds them the
 # same way so both train on the same numbers, and promotes back to float32
 # on the device
+# the leaves a model reads: images, LiDAR points and their mask (float32 and
+# bool on the way to the device: JAX ships `lidar` as float32, mesh.py:53)
+INPUT_KEYS = ("images", "lidar", "lidar_mask")
 F16_KEYS = frozenset({"images", "mask", "mask_ori", "gt_polygons_image", "distances", "sizes", "gt_crossfield_angle"})
 
 

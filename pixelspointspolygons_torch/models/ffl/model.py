@@ -6,10 +6,12 @@ over a dense encoder map — port of pixelspointspolygons_tpu/models/ffl/model.p
   [interior (+edge) (+vertex)] channels;
 - crossfield head: the features ⊕ the detached seg → Conv3×3 + BatchNorm +
   ReLU + Conv1×1 → 2·tanh, the 4 real channels of (c0, c2) in [-2, 2];
-- encoders: `vit_cnn` (`models/vit.py::ViTCNNEncoder`) and `hrnet`
-  (`models/hrnet.py::HRNetEncoder`, whose 1/4-resolution map is resized
-  bilinearly up to out_size as in JAX :84-89). The LiDAR and fusion
-  encoders and `unetresnet101`/`convnext` raise naming their ROADMAP items.
+- encoders (JAX :33-67, :108-164): `vit_cnn` (`models/vit.py::ViTCNNEncoder`),
+  `hrnet` (`models/hrnet.py::HRNetEncoder`, whose 1/4-resolution map is
+  resized bilinearly up to out_size as in JAX :84-89), and the LiDAR and
+  fusion encoders `pointpillars_vit_cnn`, `early_fusion_vit_cnn` and
+  `pointpillars` (HiSup's, `models/hisup/factory.py::ENCODERS`);
+  `unetresnet101`/`convnext` raise naming their ROADMAP item.
 
 Outputs are NCHW: "seg" (B, Cs, H, W), "crossfield" (B, 4, H, W). Module
 names are the flax names (seg_conv, seg_bn, seg_out, cf_conv, cf_bn, cf_out;
@@ -23,16 +25,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..hisup.factory import vit_kwargs
-from ..hrnet import HRNetEncoder
-from ..layers import BatchNorm, Conv2d, init_flax_defaults, resize_bilinear
-from ..vit import ViTCNNEncoder
+from ..hisup.factory import ENCODERS, lidar_kwargs, vit_kwargs
+from ..layers import BatchNorm, Conv2d, encode_modalities, init_flax_defaults, resize_bilinear
 
 # encoder name -> ROADMAP item that ports it
 _DEFERRED = {
-    "early_fusion_vit_cnn": "'LiDAR and fusion'",
-    "pointpillars_vit_cnn": "'LiDAR and fusion'",
-    "pointpillars": "'LiDAR and fusion'",
     "unetresnet101": "'Remaining encoders and CLI'",
     "convnext": "'Remaining encoders and CLI'",
 }
@@ -57,7 +54,7 @@ class FFL(nn.Module):
         self.cf_out = Conv2d(dim, 4, 1, **kw)
 
     def forward(self, batch: dict) -> dict:
-        feats = self.encoder(batch["images"]).permute(0, 3, 1, 2)  # (B, C, s, s)
+        feats = encode_modalities(self.encoder, batch).permute(0, 3, 1, 2)  # (B, C, s, s)
         feats = resize_bilinear(feats, self.out_size)
         outputs = {}
         if self.compute_seg:
@@ -74,8 +71,14 @@ class FFL(nn.Module):
 def encoder_config(cfg) -> dict:
     enc = cfg.experiment.encoder
     name = enc.name
+    out_size = int(cfg.experiment.model.decoder.in_feature_size)
     if name == "vit_cnn":
-        return {"name": name, **vit_kwargs(enc), "out_size": int(cfg.experiment.model.decoder.in_feature_size)}
+        return {"name": name, **vit_kwargs(enc), "out_size": out_size}
+    if name in ("early_fusion_vit_cnn", "pointpillars_vit_cnn"):
+        return {"name": name, **vit_kwargs(enc), **lidar_kwargs(enc), "out_size": out_size}
+    if name == "pointpillars":
+        return {"name": name, **lidar_kwargs(enc), "out_size": out_size,
+                "out_channels": tuple(int(c) for c in cfg.experiment.model.point_pillars.out_channels)}
     if name == "hrnet":
         return {"name": name, "in_size": int(enc.in_size)}
     if name in _DEFERRED:
@@ -90,7 +93,7 @@ def build_ffl(cfg, device=None, generator: torch.Generator | None = None,
     generator on that device; torch's global RNG if None)."""
     m = cfg.experiment.model
     enc_cfg = encoder_config(cfg)
-    encoder_cls = {"hrnet": HRNetEncoder, "vit_cnn": ViTCNNEncoder}[enc_cfg.pop("name")]
+    encoder_cls = ENCODERS[enc_cfg.pop("name")]
     dim = int(m.decoder.in_feature_dim)
     seg_channels = int(bool(m.seg.compute_interior)) + int(bool(m.seg.compute_edge)) + int(bool(m.seg.compute_vertex))
     model = FFL(

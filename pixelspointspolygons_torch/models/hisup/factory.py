@@ -1,6 +1,7 @@
-"""Config → HiSup model (port of pixelspointspolygons_tpu/models/hisup/factory.py,
-the `hrnet` and `vit_cnn` branches). The LiDAR and fusion encoders wait for
-their slice of the port.
+"""Config → HiSup model — port of pixelspointspolygons_tpu/models/hisup/factory.py
+(the encoder matrix of reference models/hisup/model_hisup.py:318-344):
+`hrnet`, `vit_cnn`, `pointpillars_vit_cnn`, `early_fusion_vit_cnn`,
+`pointpillars` and `fusion_hrnet`.
 
 `encoder.hrnet.pretrained` does not change the build: as in the JAX
 package, the trainer grafts a named checkpoint file in after the model is
@@ -10,17 +11,21 @@ from __future__ import annotations
 
 import torch
 
-from ..hrnet import HRNetEncoder
+from ..fusion import EarlyFusionViTCNNEncoder
+from ..hrnet import FusionHRNetEncoder, HRNetEncoder
 from ..layers import init_flax_defaults
+from ..pointpillars import PointPillarsDenseEncoder
 from ..vit import ViTCNNEncoder
+from .encoders import PointPillarsViTCNNEncoder
 from .model import HiSup
 
-# encoder name -> ROADMAP item that ports it
-_DEFERRED = {
-    "pointpillars_vit_cnn": "'LiDAR and fusion'",
-    "early_fusion_vit_cnn": "'LiDAR and fusion'",
-    "pointpillars": "'LiDAR and fusion'",
-    "fusion_hrnet": "'LiDAR and fusion'",
+ENCODERS = {
+    "hrnet": HRNetEncoder,
+    "vit_cnn": ViTCNNEncoder,
+    "pointpillars_vit_cnn": PointPillarsViTCNNEncoder,
+    "early_fusion_vit_cnn": EarlyFusionViTCNNEncoder,
+    "pointpillars": PointPillarsDenseEncoder,
+    "fusion_hrnet": FusionHRNetEncoder,
 }
 
 
@@ -35,15 +40,37 @@ def vit_kwargs(enc) -> dict:
     )
 
 
+def lidar_kwargs(enc) -> dict:
+    """The pillar grid of a LiDAR encoder config, {} without LiDAR (JAX :20-30)."""
+    if not enc.use_lidar:
+        return {}
+    return dict(
+        width=float(enc.in_width),
+        height=float(enc.in_height),
+        voxel_x=float(enc.in_voxel_size.x),
+        voxel_y=float(enc.in_voxel_size.y),
+        max_points_per_voxel=int(enc.max_num_points_per_voxel),
+    )
+
+
 def encoder_config(cfg) -> dict:
     enc = cfg.experiment.encoder
     name = enc.name
+    out_size = int(cfg.experiment.model.decoder.in_feature_size)
+    if name == "vit_cnn":
+        return {"name": name, **vit_kwargs(enc), "out_size": out_size}
+    if name in ("pointpillars_vit_cnn", "early_fusion_vit_cnn"):
+        return {"name": name, **vit_kwargs(enc), **lidar_kwargs(enc), "out_size": out_size}
+    if name == "pointpillars":
+        return {"name": name, **lidar_kwargs(enc), "out_size": out_size,
+                "out_channels": tuple(int(c) for c in cfg.experiment.model.point_pillars.out_channels)}
     if name == "hrnet":
         return {"name": "hrnet", "in_size": int(enc.in_size)}
-    if name == "vit_cnn":
-        return {"name": name, **vit_kwargs(enc), "out_size": int(cfg.experiment.model.decoder.in_feature_size)}
-    if name in _DEFERRED:
-        raise NotImplementedError(f"HiSup encoder {name!r}: ROADMAP 'Port queue' item {_DEFERRED[name]}")
+    if name == "fusion_hrnet":
+        # the pillar extent comes from in_size and `width` is HRNet's channel
+        # width: only the voxel sizes and the cap pass (JAX :50-54)
+        pillar_kw = {k: v for k, v in lidar_kwargs(enc).items() if k not in ("width", "height")}
+        return {"name": "fusion_hrnet", "in_size": int(enc.in_size), **pillar_kw}
     raise ValueError(f"unknown encoder {name!r} for hisup")
 
 
@@ -54,7 +81,7 @@ def build_hisup(cfg, device=None, generator: torch.Generator | None = None,
     config's), with flax's default init drawn from `generator` (a generator
     on that device; torch's global RNG if None)."""
     enc_cfg = encoder_config(cfg)
-    encoder_cls = {"hrnet": HRNetEncoder, "vit_cnn": ViTCNNEncoder}[enc_cfg.pop("name")]
+    encoder_cls = ENCODERS[enc_cfg.pop("name")]
     dim = int(cfg.experiment.model.decoder.in_feature_dim)
     model = HiSup(
         encoder_cls(out_dim=dim, dtype=dtype, device=device, **enc_cfg),

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.afm import afm_auto
-from ..layers import BatchNorm, Conv1d, Conv2d, resize_bilinear
+from ..layers import BatchNorm, Conv1d, Conv2d, encode_modalities, resize_bilinear
 
 
 def _conv3(cin: int, cout: int, dtype=None, device=None) -> Conv2d:
@@ -126,9 +126,10 @@ def encode_targets(batch: dict, size: int) -> dict:
 
 
 class HiSup(nn.Module):
-    """Encoder + multi-head decoder. `forward(batch)` takes NHWC images and
-    returns NCHW head outputs: joff (B,2,S,S), jloc (B,3,S,S), mask
-    (B,2,S,S), afm (B,2,S,S), remask (B,2,S,S)."""
+    """Encoder + multi-head decoder. `forward(batch)` takes NHWC images,
+    LiDAR points with their mask, or both, and returns NCHW head outputs:
+    joff (B,2,S,S), jloc (B,3,S,S), mask (B,2,S,S), afm (B,2,S,S), remask
+    (B,2,S,S)."""
 
     def __init__(self, encoder: nn.Module, dim: int = 256, pred_size: int = 224, dtype=None, device=None):
         super().__init__()
@@ -149,8 +150,11 @@ class HiSup(nn.Module):
         self.final_conv = ConvStack3(2 * dim, dim, 2, **kw)
 
     def forward(self, batch: dict) -> dict:
-        feats = self.encoder(batch["images"]).permute(0, 3, 1, 2)  # (B, C, s, s)
-        feats = resize_bilinear(feats, self.pred_size)
+        return self.heads(encode_modalities(self.encoder, batch))
+
+    def heads(self, feats: torch.Tensor) -> dict:
+        """The head outputs of the encoder's (B, s, s, C) map."""
+        feats = resize_bilinear(feats.permute(0, 3, 1, 2), self.pred_size)  # (B, C, S, S)
 
         joff = self.joff_head(feats)
         mask_f = self.mask_head(feats)

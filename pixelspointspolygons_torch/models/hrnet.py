@@ -1,5 +1,6 @@
 """HRNetV2-W48 encoder — port of pixelspointspolygons_tpu/models/hrnet.py
-(`HRNetEncoder`, :165-229, and the blocks it is built from).
+(`HRNetEncoder`, :165-229, and the blocks it is built from), and the
+early-fusion `FusionHRNetEncoder` (:232-285).
 
 Module names are the JAX package's (`stage3_m2.branch1_b0.conv1`,
 `fuse2_0_1_conv`, `last_conv2`, ...), so `utils/bridge.py` maps a flax tree
@@ -28,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .layers import BatchNorm, Conv2d, layout_of
+from .pointpillars import PointPillarsViTEncoder
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1, bias: bool = False, dtype=None, device=None) -> Conv2d:
@@ -267,3 +269,35 @@ class HRNetEncoder(nn.Module):
         x = torch.cat([xs[0]] + [resize_align_corners(h, tgt) for h in xs[1:]], dim=1)
         x = F.relu(self.last_bn(self.last_conv1(x)))
         return self.last_conv2(x).permute(0, 2, 3, 1)
+
+
+class FusionHRNetEncoder(nn.Module):
+    """HRNet image features ⊕ pillar-ViT LiDAR features → conv fusion (JAX
+    hrnet.py:232-285; reference models/fusion_layers/fusion_hrnet.py:13-77):
+    the HRNet map (B, D, S/4, S/4) (`hrnet`) and the pillar-ViT tokens
+    (`pp_vit`, no bottleneck, the pillar grid over in_size x in_size) as a
+    map resized align-corners to S/4, concatenated, then Conv3×3,
+    BatchNorm and ReLU (`conv0`, `bn0`) → (B, S/4, S/4, out_dim) NHWC."""
+
+    def __init__(self, in_size: int = 224, out_dim: int = 256, width: int = 48, stage1_planes: int = 64,
+                 stage1_blocks: int = 4, num_blocks: int = 4, num_modules: Sequence[int] = (1, 4, 3),
+                 vit_dim: int = 384, vit_depth: int = 12, voxel_x: float = 8.0, voxel_y: float = 8.0,
+                 max_points_per_voxel: int = 64, dtype=None, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.hrnet = HRNetEncoder(in_size=in_size, out_dim=out_dim, width=width, stage1_planes=stage1_planes,
+                                  stage1_blocks=stage1_blocks, num_blocks=num_blocks, num_modules=num_modules, **kw)
+        self.pp_vit = PointPillarsViTEncoder(img_size=in_size, dim=vit_dim, depth=vit_depth, out_dim=None,
+                                             width=float(in_size), height=float(in_size), voxel_x=voxel_x,
+                                             voxel_y=voxel_y, max_points_per_voxel=max_points_per_voxel, **kw)
+        self.conv0 = Conv2d(out_dim + vit_dim, out_dim, 3, padding=1, bias=True, **kw)
+        self.bn0 = BatchNorm(out_dim, **kw)
+
+    def forward(self, images: torch.Tensor, points: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        img_f = self.hrnet(images).permute(0, 3, 1, 2)  # (B, D, S/4, S/4)
+        tokens = self.pp_vit(points, valid)
+        B, N, C = tokens.shape
+        g = int(round(N ** 0.5))
+        lid_f = resize_align_corners(tokens.transpose(1, 2).reshape(B, C, g, g), img_f.shape[2:])
+        x = torch.cat([img_f, lid_f], dim=1)
+        return F.relu(self.bn0(self.conv0(x))).permute(0, 2, 3, 1)

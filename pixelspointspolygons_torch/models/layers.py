@@ -121,6 +121,53 @@ class BatchNorm(nn.Module):
         return cast_to(out, dt)
 
 
+class _RowBatchNormFn(torch.autograd.Function):
+    """Train-mode batch normalization of a (N, C) matrix over its rows,
+    from statistics that `torch.var_mean` gives (see `RowBatchNorm`).
+    Returns (output, mean, var); the backward is BatchNorm's, with its two
+    per-channel sums taken by `Tensor.sum`."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        var, mean = torch.var_mean(x, dim=0, unbiased=False)
+        invstd = torch.rsqrt(var + eps)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.mark_non_differentiable(mean, var)
+        # flax's order: (x - mean) · (rsqrt(var + eps) · scale) + bias
+        return torch.addcmul(bias, x - mean, invstd * weight), mean, var
+
+    @staticmethod
+    def backward(ctx, g, _gm, _gv):
+        x, weight, mean, invstd = ctx.saved_tensors
+        n = x.shape[0]
+        xhat = (x - mean).mul_(invstd)
+        sum_g, sum_gx = g.sum(dim=0), (g * xhat).sum(dim=0)
+        grad = (g - sum_g / n).sub_(xhat.mul_(sum_gx / n)).mul_(invstd * weight)
+        return grad, sum_gx, sum_g, None
+
+
+class RowBatchNorm(BatchNorm):
+    """`BatchNorm` of (N, C) rows whose train-mode statistics come from
+    `torch.var_mean` (the PillarFeatureNet's, over B·N = 3.2M points at
+    full size). Torch's own batch-norm kernel on the CPU sums each channel
+    of a (N, C) input in one running float32 sum: at 4·10^5 rows its output
+    is off by 1e-3, where `var_mean` and `Tensor.sum` (cascade sums on the
+    CPU, tree reductions on the card) stay within 1e-6. The same memory as
+    `F.batch_norm`: the backward keeps only the input."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        dt = self.compute_dtype
+        if dt is not None:
+            x = cast_to(x, widen(dt))
+        out, mean, var = _RowBatchNormFn.apply(x, self.weight, self.bias, self.eps)
+        with torch.no_grad():
+            self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
+            self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+        return cast_to(out, dt)
+
+
 def lecun_normal_(weight: torch.Tensor, generator: torch.Generator | None = None) -> None:
     fan_in = weight.shape[1] * math.prod(weight.shape[2:])
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978  # std of N(0,1) cut at ±2
@@ -171,8 +218,8 @@ class Dense(nn.Linear):
     the output in it. (`dtype` is the compute dtype, not `nn.Linear`'s
     parameter dtype: the parameters stay as they are.)"""
 
-    def __init__(self, in_features: int, out_features: int, dtype=None, device=None):
-        super().__init__(in_features, out_features, device=device)
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, dtype=None, device=None):
+        super().__init__(in_features, out_features, bias=bias, device=device)
         self.compute_dtype = dtype
         self.cached = None  # set by cast_once
 
@@ -247,6 +294,18 @@ def adaptive_avg_pool1d(x: torch.Tensor, out_size: int) -> torch.Tensor:
     idx = torch.arange(in_size, device=x.device)[:, None]
     mask = (idx >= starts) & (idx < ends)
     return x @ (mask.to(x.dtype) / (ends - starts).to(x.dtype))
+
+
+def encode_modalities(encoder: nn.Module, batch: dict, **kw) -> torch.Tensor:
+    """The encoder's output for a batch by its modality, as the JAX models
+    dispatch (e.g. hisup/model.py:166-171): images and LiDAR (early
+    fusion), LiDAR points with their mask, or images. `kw` goes to a
+    fusion encoder (the LiDAR dropout's generator)."""
+    if "lidar" in batch and "images" in batch:
+        return encoder(batch["images"], batch["lidar"], batch["lidar_mask"], **kw)
+    if "lidar" in batch:
+        return encoder(batch["lidar"], batch["lidar_mask"])
+    return encoder(batch["images"])
 
 
 class MlpBlock(nn.Module):

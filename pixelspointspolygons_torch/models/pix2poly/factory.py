@@ -1,6 +1,7 @@
 """Config → Pix2Poly model (port of
-pixelspointspolygons_tpu/models/pix2poly/factory.py, the `vit` branch). The
-other encoders wait for their slice of the port."""
+pixelspointspolygons_tpu/models/pix2poly/factory.py: the `vit`,
+`pointpillars_vit` and `early_fusion_vit` branches; `vit_dinov2` waits for
+its item of the port)."""
 
 from __future__ import annotations
 
@@ -13,23 +14,31 @@ from .tokenizer import Tokenizer
 # encoder name -> ROADMAP item that ports it
 _DEFERRED = {
     "vit_dinov2": "'Remaining encoders and CLI'",
-    "pointpillars_vit": "'LiDAR and fusion'",
-    "early_fusion_vit": "'LiDAR and fusion'",
 }
 
 
 def encoder_config(cfg) -> dict:
     enc = cfg.experiment.encoder
     name = enc.name
+    vit_kw = dict(
+        img_size=int(enc.in_size),
+        patch_size=int(enc.patch_size),
+        dim=int(enc.patch_feature_dim),
+        depth=12,
+        num_heads=6,
+    )
     if name == "vit":
-        return dict(
-            name="vit",
-            img_size=int(enc.in_size),
-            patch_size=int(enc.patch_size),
-            dim=int(enc.patch_feature_dim),
-            depth=12,
-            num_heads=6,
-        )
+        return {"name": "vit", **vit_kw}
+    if name in ("pointpillars_vit", "early_fusion_vit"):
+        return {
+            "name": name,
+            **vit_kw,
+            "voxel_x": float(enc.in_voxel_size.x),
+            "voxel_y": float(enc.in_voxel_size.y),
+            "width": float(enc.in_width),
+            "height": float(enc.in_height),
+            "max_points_per_voxel": int(enc.max_num_points_per_voxel),
+        }
     if name in _DEFERRED:
         raise NotImplementedError(f"Pix2Poly encoder {name!r}: ROADMAP 'Port queue' item {_DEFERRED[name]}")
     raise ValueError(f"unknown encoder {name!r} for pix2poly")

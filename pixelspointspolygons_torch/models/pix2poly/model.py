@@ -11,6 +11,10 @@ port of pixelspointspolygons_tpu/models/pix2poly/model.py (:35-357).
   (B, V, V, 2D) tensor; its BatchNorm normalizes the channel-last axis.
 - `greedy_decode` / `greedy_generate`: greedy decoding with the KV cache,
   in the fixed-length mode of `bench.py` or with an early exit at EOS.
+- encoders (JAX :200-232): `vit` (`models/vit.py::ViTEncoder`), the LiDAR
+  `pointpillars_vit` (`models/pointpillars.py::PointPillarsViTEncoder`) and
+  the early-fusion `early_fusion_vit` (`models/fusion.py`), each giving
+  (B, N, dim) tokens.
 
 Plain PyTorch: in the JAX package these are XLA fusions, not Pallas
 kernels. Hopper kernels are planned for the decode step (K2), Sinkhorn (K3)
@@ -33,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.sinkhorn import log_optimal_transport
+from ..fusion import EarlyFusionViTEncoder
 from ..layers import (
     BatchNorm,
     Dense,
@@ -43,10 +48,14 @@ from ..layers import (
     cast_to,
     cast_once,
     causal_bias,
+    encode_modalities,
     padding_bias,
     widen,
 )
+from ..pointpillars import PointPillarsViTEncoder
 from ..vit import ViTEncoder
+
+ENCODERS = {"vit": ViTEncoder, "pointpillars_vit": PointPillarsViTEncoder, "early_fusion_vit": EarlyFusionViTEncoder}
 
 # the early-exit decode tests "every row emitted EOS" on the host once in
 # this many steps; the steps it runs past the last EOS change nothing
@@ -174,9 +183,7 @@ class ScoreNet(nn.Module):
 
 
 class Pix2Poly(nn.Module):
-    """Encoder-decoder with twin ScoreNets and a Sinkhorn head. Images only:
-    the LiDAR and fusion encoders are ROADMAP 'Port queue' item 'LiDAR and
-    fusion'."""
+    """Encoder-decoder with twin ScoreNets and a Sinkhorn head."""
 
     def __init__(self, vocab_size: int, encoder_len: int, dim: int, num_heads: int, num_layers: int,
                  max_len: int, pad_idx: int, max_num_vertices: int, sinkhorn_iterations: int = 100,
@@ -184,9 +191,7 @@ class Pix2Poly(nn.Module):
         super().__init__()
         enc_cfg = dict(encoder_cfg or {})
         enc_name = enc_cfg.pop("name", "vit")
-        if enc_name in ("pointpillars_vit", "early_fusion_vit"):
-            raise NotImplementedError(f"Pix2Poly encoder {enc_name!r}: ROADMAP 'Port queue' item 'LiDAR and fusion'")
-        if enc_name != "vit":
+        if enc_name not in ENCODERS:
             raise ValueError(f"unknown encoder {enc_name!r} for pix2poly")
         self.vocab_size = vocab_size
         self.dim = dim
@@ -196,18 +201,19 @@ class Pix2Poly(nn.Module):
         self.max_num_vertices = max_num_vertices
         self.sinkhorn_iterations = sinkhorn_iterations
         self.compute_dtype = dtype
-        self.encoder = ViTEncoder(out_dim=dim, dtype=dtype, device=device, **enc_cfg)
+        self.encoder = ENCODERS[enc_name](out_dim=dim, dtype=dtype, device=device, **enc_cfg)
         self.decoder = Decoder(vocab_size, encoder_len, dim, num_heads, num_layers, max_len, pad_idx, dtype=dtype,
                                device=device)
         self.scorenet1 = ScoreNet(max_num_vertices, dim, dtype=dtype, device=device)
         self.scorenet2 = ScoreNet(max_num_vertices, dim, dtype=dtype, device=device)
         self.bin_score = nn.Parameter(torch.tensor(1.0, device=device))
 
-    def encode(self, batch: dict) -> torch.Tensor:
-        """Image tokens (B, N, D) (reference model_pix2poly.py:245-254)."""
-        if "lidar" in batch:
-            raise NotImplementedError("LiDAR inputs: ROADMAP 'Port queue' item 'LiDAR and fusion'")
-        return self.encoder(batch["images"])
+    def encode(self, batch: dict, generator: torch.Generator | None = None) -> torch.Tensor:
+        """Tokens (B, N, D) of the batch's images, LiDAR or both (reference
+        model_pix2poly.py:245-254); `generator` draws the fusion encoder's
+        LiDAR dropout (JAX's "lidar_dropout" rng)."""
+        kw = {"generator": generator} if "lidar" in batch and "images" in batch else {}
+        return encode_modalities(self.encoder, batch, **kw)
 
     def raw_scores_from_feats(self, feats: torch.Tensor) -> torch.Tensor:
         """scorenet1 + scorenet2ᵀ: the raw matrix the predictor's Hungarian
@@ -220,9 +226,9 @@ class Pix2Poly(nn.Module):
         Z = log_optimal_transport(scores.to(widen(scores.dtype)), self.bin_score, self.sinkhorn_iterations)[:, :M, :N]
         return torch.softmax(Z, dim=-1)
 
-    def forward(self, batch: dict, y_input: torch.Tensor):
+    def forward(self, batch: dict, y_input: torch.Tensor, generator: torch.Generator | None = None):
         """Teacher-forced forward. Returns (seq_logits (B, L, V), perm (B, V, V))."""
-        logits, feats = self.decoder(self.encode(batch), y_input)
+        logits, feats = self.decoder(self.encode(batch, generator), y_input)
         return logits, self.perm_from_feats(feats)
 
 

@@ -66,15 +66,22 @@ class ViTBlock(nn.Module):
 
 
 class ViTBackbone(nn.Module):
-    """ViT trunk producing (B, 1 + N, dim) tokens (CLS first)."""
+    """ViT trunk producing (B, 1 + N, dim) tokens (CLS first).
+
+    With `num_tokens` the trunk takes precomputed (B, num_tokens, dim)
+    tokens from another patch embedding (the LiDAR pillar canvas, the
+    early-fusion conv; JAX vit.py:66-88) and holds no `patch_embed`, as a
+    flax trunk that is called with `tokens` never creates one."""
 
     def __init__(self, img_size: int = 224, patch_size: int = 8, dim: int = 384, depth: int = 12,
-                 num_heads: int = 6, layer_scale: bool = False, dtype=None, device=None):
+                 num_heads: int = 6, layer_scale: bool = False, num_tokens: int | None = None, dtype=None,
+                 device=None):
         super().__init__()
         self.depth = depth
         self.compute_dtype = dtype
-        n = (img_size // patch_size) ** 2
-        self.patch_embed = nn.Conv2d(3, dim, patch_size, stride=patch_size, device=device)
+        n = (img_size // patch_size) ** 2 if num_tokens is None else num_tokens
+        self.patch_embed = None if num_tokens is not None else nn.Conv2d(3, dim, patch_size, stride=patch_size,
+                                                                        device=device)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, dim, device=device))
         self.pos_embed = nn.Parameter(torch.zeros(1, n + 1, dim, device=device))
         for i in range(depth):
@@ -86,11 +93,16 @@ class ViTBackbone(nn.Module):
             nn.init.normal_(self.cls_token, 0.0, 0.02, generator=generator)
             nn.init.normal_(self.pos_embed, 0.0, 0.02, generator=generator)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        """images: (B, H, W, 3) NHWC."""
-        dt, pe = self.compute_dtype, self.patch_embed
-        x = F.conv2d(cast_to(images.permute(0, 3, 1, 2), dt), cast_to(pe.weight, dt), cast_to(pe.bias, dt), stride=pe.stride)
-        x = x.flatten(2).transpose(1, 2)  # (B, gh·gw, dim), row-major patches
+    def forward(self, images: torch.Tensor | None = None, tokens: torch.Tensor | None = None) -> torch.Tensor:
+        """images: (B, H, W, 3) NHWC, or `tokens` (B, N, dim) for a trunk
+        built with `num_tokens`."""
+        if tokens is None:
+            dt, pe = self.compute_dtype, self.patch_embed
+            x = F.conv2d(cast_to(images.permute(0, 3, 1, 2), dt), cast_to(pe.weight, dt), cast_to(pe.bias, dt),
+                         stride=pe.stride)
+            x = x.flatten(2).transpose(1, 2)  # (B, gh·gw, dim), row-major patches
+        else:
+            x = tokens
         x = torch.cat([cast_to(self.cls_token, x.dtype).expand(x.shape[0], -1, -1), x], dim=1)
         x = x + cast_to(self.pos_embed, x.dtype)
         for i in range(self.depth):
@@ -112,6 +124,15 @@ class ViTEncoder(nn.Module):
         return adaptive_avg_pool1d(self.vit(images)[:, 1:], self.out_dim)
 
 
+def token_map_head(tokens: torch.Tensor, conv: nn.Module, bn: nn.Module, out_size: int) -> torch.Tensor:
+    """(B, N, C) tokens of a √N x √N grid → bilinear resize to out_size →
+    conv, BatchNorm, ReLU → NHWC (the head of JAX's ViTCNN-style encoders)."""
+    B, N, C = tokens.shape
+    g = int(round(N ** 0.5))
+    x = resize_bilinear(tokens.transpose(1, 2).reshape(B, C, g, g), out_size)  # token i is cell (i // g, i % g)
+    return F.relu(bn(conv(x))).permute(0, 2, 3, 1)
+
+
 class ViTCNNEncoder(nn.Module):
     """Dense-map encoder of the HiSup and FFL heads. Output (B, S, S,
     out_dim) NHWC (a permuted view of the NCHW map). The flax auto-names
@@ -128,9 +149,4 @@ class ViTCNNEncoder(nn.Module):
         self.bn0 = BatchNorm(out_dim, dtype=dtype, device=device)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
-        x = self.vit(images)[:, 1:]
-        B, N, C = x.shape
-        g = int(round(N ** 0.5))
-        x = x.transpose(1, 2).reshape(B, C, g, g)  # token i is patch (i // g, i % g)
-        x = resize_bilinear(x, self.out_size)
-        return F.relu(self.bn0(self.conv0(x))).permute(0, 2, 3, 1)
+        return token_map_head(self.vit(images)[:, 1:], self.conv0, self.bn0, self.out_size)

@@ -33,30 +33,41 @@ CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 MAX_CONTOURS = 4096
 
 
-def library_path() -> str:
+def shared_library_path(source: str, stem: str) -> str:
+    """Where the library `stem` built from `source` lives: under BUILD_DIR,
+    named with a hash of the source and the flags."""
     h = hashlib.sha1()
-    with open(SOURCE, "rb") as f:
+    with open(source, "rb") as f:
         h.update(f.read())
     h.update(" ".join(CXX_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libp3geometry-{h.hexdigest()[:12]}.so")
+    return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:12]}.so")
 
 
-def build() -> str:
-    """Compile the library unless it is built; returns its path. Raises
-    RuntimeError when g++ is missing or fails."""
-    out = library_path()
+def build_shared(source: str, stem: str) -> str:
+    """Compile `source` into the library `stem` unless it is built; returns
+    its path. Raises RuntimeError when g++ is missing or fails."""
+    out = shared_library_path(source, stem)
     if os.path.isfile(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.tmp{os.getpid()}"
     try:
-        proc = subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, SOURCE], capture_output=True, text=True)
+        proc = subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, source], capture_output=True, text=True)
     except FileNotFoundError as e:
-        raise RuntimeError("the native geometry library needs g++, which is not installed") from e
+        raise RuntimeError(f"building {source} needs g++, which is not installed") from e
     if proc.returncode != 0:
-        raise RuntimeError(f"g++ exited {proc.returncode} building {SOURCE}:\n{proc.stderr}")
+        raise RuntimeError(f"g++ exited {proc.returncode} building {source}:\n{proc.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
     return out
+
+
+def library_path() -> str:
+    return shared_library_path(SOURCE, "libp3geometry")
+
+
+def build() -> str:
+    """Compile the geometry library unless it is built; returns its path."""
+    return build_shared(SOURCE, "libp3geometry")
 
 
 @functools.cache

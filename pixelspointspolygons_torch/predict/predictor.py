@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..config.engine import Config
-from ..data.dataset import load_image_file
+from ..data.dataset import load_image_file, load_lidar_file
 from ..data.loader import device_prefetch
 from ..device import resolve_device, set_tf32
 from ..utils.checkpoint import CheckpointManager
@@ -97,8 +97,44 @@ class Predictor:
         maxv = float(enc.get("image_max_pixel_value", 255.0))
         return ((img / maxv - mean) / std)[None]
 
-    def load_lidar_from_file(self, path: str):
-        raise NotImplementedError("LiDAR inputs: ROADMAP 'Port queue' item 'LiDAR and fusion'")
+    def load_lidar_from_file(self, path: str) -> tuple[np.ndarray, np.ndarray]:
+        """(1, N, 3) float32 points in pixel coordinates and their (1, N)
+        mask, padded to `max_num_points` (JAX :44-60; reference
+        predictor.py:116-137): x and y shifted to the cloud's minimum and
+        scaled by the P3 tiles' 0.25 m resolution, y flipped, z to [0,
+        in_voxel_size.z]."""
+        enc = self.cfg.experiment.encoder
+        img_dim, img_res = int(enc.in_size), 0.25
+        pts = load_lidar_file(path).copy()
+        pts[:, 0] = (pts[:, 0] - pts[:, 0].min()) / img_res
+        pts[:, 1] = (pts[:, 1] - pts[:, 1].min()) / img_res
+        pts[:, 1] = img_dim - np.clip(pts[:, 1], 0, img_dim)
+        pts[:, 0] = np.clip(pts[:, 0], 0, img_dim)
+        z = pts[:, 2]
+        zr = float(enc.in_voxel_size.z) if "in_voxel_size" in enc else 100.0
+        pts[:, 2] = (z - z.min()) / max(z.max() - z.min(), 1e-6) * zr
+        max_points = int(enc.get("max_num_points", 200000))
+        out = np.zeros((max_points, 3), np.float32)
+        mask = np.zeros((max_points,), bool)
+        n = min(len(pts), max_points)
+        out[:n] = pts[:n]
+        mask[:n] = True
+        return out[None], mask[None]
+
+    def file_inputs(self, image_file=None, lidar_file=None) -> tuple[dict, Optional[np.ndarray]]:
+        """The host batch of one tile's files, as the config's modality reads
+        them, and its normalised image (None without one); JAX's
+        `predict_file` (e.g. predictor_hisup.py:137-148)."""
+        enc = self.cfg.experiment.encoder
+        batch, image = {}, None
+        if image_file and enc.use_images:
+            image = batch["images"] = self.load_image_from_file(image_file)
+        if lidar_file and enc.use_lidar:
+            batch["lidar"], batch["lidar_mask"] = self.load_lidar_from_file(lidar_file)
+        if bool(enc.use_images) != ("images" in batch) or bool(enc.use_lidar) != ("lidar" in batch):
+            need = [name for name, used in (("image_file", enc.use_images), ("lidar_file", enc.use_lidar)) if used]
+            raise ValueError(f"experiment {self.cfg.experiment.name} predicts from {' and '.join(need)}")
+        return batch, image
 
     def plot_prediction(self, image: Optional[np.ndarray], polygons: list, out_file: str) -> None:
         """Save an overlay png of predicted polygons (predictor.py:140-182):

@@ -25,17 +25,13 @@ import time
 import numpy as np
 import torch
 
-from ..data.loader import build_loader, to_device
+from ..data.loader import INPUT_KEYS, build_loader, to_device
 from ..models.ffl import FFL, build_ffl
 from ..train.state import compute_dtype
 from ..utils.coco import generate_coco_ann, save_annotations
 from .ffl_inference import inference_with_patching
 from .ffl_polygonize import Polygonizer
 from .predictor import Predictor
-
-# batch leaves the forward consumes (LiDAR: ROADMAP 'Port queue' item 'LiDAR and fusion')
-_INPUT_KEYS = ("images",)
-
 
 class FFLPredictor(Predictor):
     def __init__(self, cfg, device: str | torch.device | None = None, model: FFL | None = None):
@@ -110,7 +106,7 @@ class FFLPredictor(Predictor):
 
     def predict_batch(self, batch: dict) -> dict:
         """Polygons of one host batch, synchronously."""
-        inputs = to_device(batch, self.device, _INPUT_KEYS)
+        inputs = to_device(batch, self.device, INPUT_KEYS)
         return self._host_stage(self._fetch(self._dispatch(inputs)), batch)
 
     def _maybe_save_raw(self, batch: dict, seg: np.ndarray, crossfield: np.ndarray) -> None:
@@ -149,7 +145,7 @@ class FFLPredictor(Predictor):
         n_images = 0
         t0 = time.time()
         t_done = time.perf_counter()
-        for handles, batch in self._in_flight(loader, _INPUT_KEYS):
+        for handles, batch in self._in_flight(loader, INPUT_KEYS):
             t = time.perf_counter()
             try:
                 results = self._host_stage(self._fetch(handles), batch)
@@ -189,20 +185,17 @@ class FFLPredictor(Predictor):
         return pred_file
 
     def predict_file(self, image_file=None, lidar_file=None, out_file="prediction.png"):
-        """Polygons of one image file (the first method and tolerance), drawn
-        over it into `out_file`; sliding-window inference when
-        `model.eval.patch_size` is set and the image is larger."""
+        """Polygons of one tile's image and/or LiDAR file (the first method
+        and tolerance), drawn over the image (a blank canvas without one)
+        into `out_file`; sliding-window inference when
+        `model.eval.patch_size` is set and the image, read alone, is larger."""
         self.load_checkpoint()
-        if lidar_file and self.cfg.experiment.encoder.use_lidar:
-            self.load_lidar_from_file(lidar_file)
-        if not (image_file and self.cfg.experiment.encoder.use_images):
-            raise ValueError("FFL-image prediction needs an image_file")
-        image = self.load_image_from_file(image_file)
+        batch, image = self.file_inputs(image_file, lidar_file)
         patch_size = self.cfg.experiment.model.eval.get("patch_size")
-        if patch_size and image.shape[1] > int(patch_size):
+        if patch_size and set(batch) == {"images"} and image.shape[1] > int(patch_size):
             # sliding-window inference for large rasters (reference inference.py:57-118)
             def forward_fn(patch):
-                outs = self.forward(to_device({"images": np.ascontiguousarray(patch)}, self.device, _INPUT_KEYS))
+                outs = self.forward(to_device({"images": np.ascontiguousarray(patch)}, self.device, INPUT_KEYS))
                 return {k: v.float().cpu().numpy() for k, v in outs.items()}
 
             out = inference_with_patching(
@@ -210,7 +203,7 @@ class FFLPredictor(Predictor):
             )
             results = self.polygonizer(out["seg"], out["crossfield"])
         else:
-            results = self.predict_batch({"images": image})
+            results = self.predict_batch(batch)
         method = next(iter(results))
         tol = next(iter(results[method]))
         polys = results[method][tol][0]

@@ -19,17 +19,13 @@ import cv2
 import numpy as np
 import torch
 
-from ..data.loader import build_loader, to_device
+from ..data.loader import INPUT_KEYS, build_loader, to_device
 from ..models.hisup.factory import build_hisup
 from ..models.hisup.model import HiSup, extract_junctions
 from ..train.state import compute_dtype
 from ..utils.coco import generate_coco_ann
 from .hisup_polygon import polygons_from_masks
 from .predictor import Predictor
-
-# batch leaves the forward consumes (LiDAR: ROADMAP 'Port queue' item 'LiDAR and fusion')
-_INPUT_KEYS = ("images",)
-
 
 def batch_annotations(batch: dict, polys: list, scores: list) -> list[dict]:
     """COCO prediction dicts of one batch's polygons, padding samples left out."""
@@ -109,7 +105,7 @@ class HiSupPredictor(Predictor):
 
     def predict_batch(self, batch: dict):
         """Polygons and scores of one host batch, synchronously."""
-        inputs = to_device(batch, self.device, _INPUT_KEYS)
+        inputs = to_device(batch, self.device, INPUT_KEYS)
         return self._host_stage(self._fetch(self._dispatch(inputs)))
 
     def _host_stage(self, arrays):
@@ -153,18 +149,15 @@ class HiSupPredictor(Predictor):
             predictions.extend(batch_annotations(batch, polys, scores))
             n_images += int(np.sum(batch["sample_valid"]))
 
-        for handles, batch in self._in_flight(loader, _INPUT_KEYS):
+        for handles, batch in self._in_flight(loader, INPUT_KEYS):
             consume(handles, batch)
         return self._write_predictions(predictions, time.time() - t0, n_images)
 
     def predict_file(self, image_file=None, lidar_file=None, out_file="prediction.png"):
-        """Polygons of one image file, drawn over it into `out_file`."""
+        """Polygons of one tile's image and/or LiDAR file, drawn over the
+        image (a blank canvas without one) into `out_file`."""
         self.load_checkpoint()
-        if lidar_file and self.cfg.experiment.encoder.use_lidar:
-            self.load_lidar_from_file(lidar_file)
-        if not (image_file and self.cfg.experiment.encoder.use_images):
-            raise ValueError("HiSup-image prediction needs an image_file")
-        image = self.load_image_from_file(image_file)
-        polys, _ = self.predict_batch({"images": image})
+        batch, image = self.file_inputs(image_file, lidar_file)
+        polys, _ = self.predict_batch(batch)
         self.plot_prediction(image, polys[0], out_file)
         return polys[0]

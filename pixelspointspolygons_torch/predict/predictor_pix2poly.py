@@ -20,15 +20,11 @@ import numpy as np
 import torch
 from scipy.optimize import linear_sum_assignment
 
-from ..data.loader import build_loader, to_device
+from ..data.loader import INPUT_KEYS, build_loader, to_device
 from ..models.pix2poly import Pix2Poly, Tokenizer, build_pix2poly, greedy_decode
 from ..train.state import compute_dtype
 from ..utils.coco import generate_coco_ann
 from .predictor import Predictor
-
-# batch leaves the forward consumes (LiDAR: ROADMAP 'Port queue' item 'LiDAR and fusion')
-_INPUT_KEYS = ("images",)
-
 
 def scores_to_permutations(scores: np.ndarray) -> np.ndarray:
     """Hungarian-optimal hard permutation per sample (raw score maximization)."""
@@ -168,7 +164,7 @@ class Pix2PolyPredictor(Predictor):
 
     def predict_batch(self, batch: dict) -> tuple[list, np.ndarray]:
         """(per-sample polygon lists, tokens) of one host batch, synchronously."""
-        inputs = to_device(batch, self.device, _INPUT_KEYS)
+        inputs = to_device(batch, self.device, INPUT_KEYS)
         return self.assemble(*self._fetch(self._dispatch(inputs)))
 
     def assemble(self, tokens: np.ndarray, scores: np.ndarray) -> tuple[list, np.ndarray]:
@@ -243,18 +239,15 @@ class Pix2PolyPredictor(Predictor):
 
         # one decode in flight: batch k's download and host assembly overlap
         # batch k+1's decode (JAX :203-211)
-        for handles, batch in self._in_flight(loader, _INPUT_KEYS):
+        for handles, batch in self._in_flight(loader, INPUT_KEYS):
             consume(handles, batch)
         return self._write_predictions(predictions, time.time() - t0, n_images)
 
     def predict_file(self, image_file=None, lidar_file=None, out_file="prediction.png"):
-        """Polygons of one image file, drawn over it into `out_file`."""
+        """Polygons of one tile's image and/or LiDAR file, drawn over the
+        image (a blank canvas without one) into `out_file`."""
         self.load_checkpoint()
-        if lidar_file and self.cfg.experiment.encoder.use_lidar:
-            self.load_lidar_from_file(lidar_file)
-        if not (image_file and self.cfg.experiment.encoder.use_images):
-            raise ValueError("Pix2Poly-image prediction needs an image_file")
-        image = self.load_image_from_file(image_file)
-        polys, _ = self.predict_batch({"images": image})
+        batch, image = self.file_inputs(image_file, lidar_file)
+        polys, _ = self.predict_batch(batch)
         self.plot_prediction(image, polys[0], out_file)
         return polys[0]

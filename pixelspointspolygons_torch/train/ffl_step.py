@@ -14,14 +14,12 @@ from __future__ import annotations
 
 import torch
 
+from ..data.loader import INPUT_KEYS
 from .state import TrainState
-
-# batch leaves the model reads (LiDAR: ROADMAP 'Port queue' item 'LiDAR and fusion')
-_INPUT_KEYS = ("images",)
 
 
 def model_inputs(batch: dict) -> dict:
-    return {k: batch[k] for k in _INPUT_KEYS if k in batch}
+    return {k: batch[k] for k in INPUT_KEYS if k in batch}
 
 
 def make_train_step(loss_fn, normalize: bool = False):

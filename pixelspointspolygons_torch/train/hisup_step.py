@@ -11,15 +11,20 @@ from __future__ import annotations
 
 import torch
 
+from ..data.loader import INPUT_KEYS
 from ..models.hisup.model import encode_targets, hisup_losses
 from .state import TrainState
+
+
+def model_inputs(batch: dict) -> dict:
+    return {k: batch[k] for k in INPUT_KEYS if k in batch}
 
 
 def make_train_step(weights: dict, size: int):
     def train_step(state: TrainState, batch: dict) -> dict:
         targets = encode_targets(batch, size)
         state.model.train()
-        outputs = state.model({"images": batch["images"]})
+        outputs = state.model(model_inputs(batch))
         losses = hisup_losses(outputs, targets)
         total = sum(weights[k] * v for k, v in losses.items())
         state.optimizer.zero_grad(set_to_none=True)
@@ -37,7 +42,7 @@ def make_val_step(weights: dict, size: int):
     def val_step(state: TrainState, batch: dict) -> dict:
         targets = encode_targets(batch, size)
         state.model.eval()
-        outputs = state.model({"images": batch["images"]})
+        outputs = state.model(model_inputs(batch))
         losses = hisup_losses(outputs, targets)
         total = sum(weights[k] * v for k, v in losses.items())
         return {"loss": total, **losses}

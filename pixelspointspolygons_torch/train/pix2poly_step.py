@@ -16,12 +16,13 @@ from __future__ import annotations
 
 import torch
 
+from ..data.loader import INPUT_KEYS
 from ..models.layers import widen
 from .state import TrainState
 
 
 def model_inputs(batch: dict) -> dict:
-    return {k: batch[k] for k in ("images", "lidar", "lidar_mask") if k in batch}
+    return {k: batch[k] for k in INPUT_KEYS if k in batch}
 
 
 def token_ce_loss(logits: torch.Tensor, targets: torch.Tensor, pad_idx: int) -> torch.Tensor:
@@ -45,18 +46,21 @@ def perm_bce_loss(perm: torch.Tensor, gt_perm: torch.Tensor) -> torch.Tensor:
     return -(g * torch.log(p) + (1.0 - g) * torch.log(1.0 - p)).mean()
 
 
-def _losses(model, batch: dict, vertex_w: float, perm_w: float, pad_idx: int) -> dict:
+def _losses(model, batch: dict, vertex_w: float, perm_w: float, pad_idx: int,
+            generator: torch.Generator | None = None) -> dict:
     y = batch["y"]
-    logits, perm = model(model_inputs(batch), y[:, :-1])
+    logits, perm = model(model_inputs(batch), y[:, :-1], generator)
     ce = token_ce_loss(logits, y[:, 1:], pad_idx)
     bce = perm_bce_loss(perm, batch["y_perm"])
     return {"loss": vertex_w * ce + perm_w * bce, "vertex_loss": ce, "perm_loss": bce}
 
 
 def make_train_step(vertex_w: float, perm_w: float, pad_idx: int):
-    def train_step(state: TrainState, batch: dict) -> dict:
+    def train_step(state: TrainState, batch: dict, generator: torch.Generator | None = None) -> dict:
+        """`generator` draws the fusion encoder's LiDAR dropout (JAX's
+        per-step "lidar_dropout" rng, pix2poly_step.py:60)."""
         state.model.train()
-        metrics = _losses(state.model, batch, vertex_w, perm_w, pad_idx)
+        metrics = _losses(state.model, batch, vertex_w, perm_w, pad_idx, generator)
         state.optimizer.zero_grad(set_to_none=True)
         metrics["loss"].backward()
         state.optimizer.step()

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from ..data.loader import build_loader, device_prefetch
+from ..data.loader import INPUT_KEYS, build_loader, device_prefetch
 from ..eval.metrics import compute_iou_ciou
 from ..models.ffl import build_ffl
 from ..models.ffl.losses import LossNormTracker, make_ffl_loss
@@ -31,9 +31,8 @@ from .ffl_step import make_train_step, make_val_step
 from .state import TrainState, compute_dtype, cosine_with_warmup, make_optimizer, make_scheduler, num_params
 from .trainer import Trainer
 
-# batch leaves the steps consume on the device (JAX's FFL_BATCH_KEYS without
-# the LiDAR ones: ROADMAP 'Port queue' item 'LiDAR and fusion')
-FFL_BATCH_KEYS = ("images", "gt_polygons_image", "distances", "sizes", "gt_crossfield_angle", "class_freq")
+# batch leaves the steps consume on the device (JAX's FFL_BATCH_KEYS)
+FFL_BATCH_KEYS = INPUT_KEYS + ("gt_polygons_image", "distances", "sizes", "gt_crossfield_angle", "class_freq")
 
 
 class FFLTrainer(Trainer):

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from ..data.loader import build_loader, device_prefetch
+from ..data.loader import INPUT_KEYS, build_loader, device_prefetch
 from ..eval.metrics import compute_iou_ciou
 from ..models.hisup.factory import build_hisup
 from ..parallel import all_gather_objects
@@ -27,7 +27,7 @@ from .state import TrainState, compute_dtype, cosine_with_warmup, make_optimizer
 from .trainer import Trainer
 
 # batch leaves the steps consume on the device
-_DEV_KEYS = ("images", "junctions", "junc_tags", "junc_valid", "edges", "edges_valid", "mask")
+_DEV_KEYS = INPUT_KEYS + ("junctions", "junc_tags", "junc_valid", "edges", "edges_valid", "mask")
 
 
 class HiSupTrainer(Trainer):

@@ -19,7 +19,7 @@ visualization'.
 
 from __future__ import annotations
 
-from ..data.loader import build_loader, device_prefetch
+from ..data.loader import INPUT_KEYS, build_loader, device_prefetch
 from ..eval.metrics import compute_iou_ciou
 from ..models.pix2poly import Tokenizer, build_pix2poly
 from ..parallel import all_gather_objects
@@ -30,9 +30,8 @@ from .pix2poly_step import make_train_step, make_val_step
 from .state import TrainState, compute_dtype, linear_warmup_decay, make_optimizer, make_scheduler, num_params
 from .trainer import Trainer
 
-# batch leaves the steps consume on the device (LiDAR: ROADMAP 'Port queue'
-# item 'LiDAR and fusion')
-_DEV_KEYS = ("images", "y", "y_perm")
+# batch leaves the steps consume on the device
+_DEV_KEYS = INPUT_KEYS + ("y", "y_perm")
 
 
 class Pix2PolyTrainer(Trainer):
@@ -63,7 +62,7 @@ class Pix2PolyTrainer(Trainer):
     def train_one_epoch(self, epoch: int) -> dict:
         self.train_loader.set_epoch(epoch)
         records = [
-            self._train_step(self.state, batch)
+            self._train_step(self.state, batch, self.generator)
             for batch in device_prefetch(self.train_loader, self.device, _DEV_KEYS)
         ]
         return self.summarize_deferred(records)

@@ -14,10 +14,12 @@ by the JAX package) and returns the tensors the port's modules hold:
   keep their names;
 - flax auto-names map to the port's module names: `Conv_i` → `conv{i}`,
   `BatchNorm_i` → `bn{i}`, `Dense_i` → `dense{i}`, `LayerNorm_i` → `ln{i}`,
-  `MultiHeadAttention_0` → `attn`, `MlpBlock_0` → `mlp`; in ECA
-  (`a2m_att`, `a2j_att`) `Conv_0` → `conv1d`, `Conv_1` → `proj`,
-  `BatchNorm_0` → `bn`. Explicit flax names (HRNet's, the decoder's) are
-  kept as they are.
+  `MultiHeadAttention_0` → `attn`, `MlpBlock_0` → `mlp`,
+  `PillarFeatureNet_0` → `pfn` (its bias-free `Dense_i` → `dense{i}`); in
+  ECA (`a2m_att`, `a2j_att`) `Conv_0` → `conv1d`, `Conv_1` → `proj`,
+  `BatchNorm_0` → `bn`. Explicit flax names (HRNet's, the decoder's, the
+  LiDAR and fusion encoders' `pillar_canvas`, `pp_vit`, `fusion_vit`, `vit`,
+  `hrnet`, `patch_embed`, `fusion_conv`, `fusion_bn`) are kept as they are.
 
 (`pixelspointspolygons_tpu/utils/torch_port.py` maps the other way, from
 the reference's torch HRNet into flax.)
@@ -32,7 +34,7 @@ import torch
 
 _ECA_NAMES = {"Conv_0": "conv1d", "Conv_1": "proj", "BatchNorm_0": "bn"}
 _AUTO_PREFIXES = {"Conv_": "conv", "BatchNorm_": "bn", "Dense_": "dense", "LayerNorm_": "ln"}
-_AUTO_NAMES = {"MultiHeadAttention_0": "attn", "MlpBlock_0": "mlp"}
+_AUTO_NAMES = {"MultiHeadAttention_0": "attn", "MlpBlock_0": "mlp", "PillarFeatureNet_0": "pfn"}
 _RAW_PARAMS = frozenset({"cls_token", "pos_embed", "ls1", "ls2", "decoder_pos_embed", "encoder_pos_embed", "bin_score"})
 
 

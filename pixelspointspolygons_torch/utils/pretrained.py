@@ -10,12 +10,15 @@ after it builds the model; a resume from a run's checkpoint then overrides
 everything. Nothing is downloaded: the config names a file.
 
 - `encoder.hrnet.pretrained` with `checkpoint_file`: the HRNet trunk of an
-  `hrnet` encoder (`utils/torch_port.py::port_hrnet`).
+  `hrnet` encoder, or of a `fusion_hrnet` encoder at `encoder.hrnet` (JAX
+  :111-130; `utils/torch_port.py::port_hrnet`).
 - `encoder.vit.pretrained` with `checkpoint_file`: every ViT trunk
-  (`models/vit.py::ViTBackbone`) the model holds, timm's layout or DINOv2's
-  (recognised by `blocks.0.ls1.gamma`), `pos_embed` resampled when its token
-  count differs; a tensor whose shape differs from the trunk's keeps its
-  init and is counted.
+  (`models/vit.py::ViTBackbone`) the model holds, the LiDAR and fusion
+  encoders' included, timm's layout or DINOv2's (recognised by
+  `blocks.0.ls1.gamma`), `pos_embed` resampled when its token count
+  differs; a trunk that takes its tokens from another patch embedding has
+  no `patch_embed` and takes none; a tensor whose shape differs from the
+  trunk's keeps its init and is counted.
 - A named file that is absent raises `FileNotFoundError`; `pretrained` false
   or no file named leaves the model as it was built.
 """
@@ -84,12 +87,13 @@ def apply_pretrained_encoder(cfg, model: nn.Module, logger=None) -> list[tuple[s
     name = str(_cfg_get(enc, "name", ""))
     grafted = []
 
-    hr_file = _named_file(_cfg_get(enc, "hrnet"), "HRNet") if name == "hrnet" else None
+    hr_file = _named_file(_cfg_get(enc, "hrnet"), "HRNet") if name in ("hrnet", "fusion_hrnet") else None
     if hr_file:
-        trunk = model.encoder
+        path = "encoder.hrnet" if name == "fusion_hrnet" else "encoder"
+        trunk = model.get_submodule(path)
         values, loaded, skipped = port_hrnet(_load_torch_sd(hr_file), trunk.state_dict())
         n_loaded, n_kept = _copy_into(trunk, values)
-        grafted.append(("encoder", n_loaded, n_kept))
+        grafted.append((path, n_loaded, n_kept))
         if logger:
             logger.info(f"loaded HRNetV2 pretrained weights from {hr_file}: {len(loaded)} modules, "
                         f"{len(skipped)} kept init ({skipped[:4]}...)")

@@ -243,11 +243,35 @@ def test_build_ffl_matches_jax_config():
 
 
 @pytest.mark.parametrize(
+    "encoder,experiment",
+    [("early_fusion_vit_cnn", "ffl_fusion"), ("pointpillars_vit_cnn", "ffl_lidar"), ("pointpillars", "ffl_lidar")],
+)
+def test_lidar_and_fusion_encoders_build_and_run(encoder, experiment):
+    """FFL's LiDAR and fusion encoders (the full-width ViT trunks, at a 16 px
+    input): the encoder config equals JAX's, the model runs on its
+    modality's inputs and gives maps of the decoder's size."""
+    args = [f"experiment={experiment}", "dataset=synthetic", "experiment.encoder.in_size=16",
+            "experiment.encoder.max_num_points=64"]
+    cfg, jcfg = copy.deepcopy(compose(args)), copy.deepcopy(jax_compose(args))
+    cfg.experiment.encoder.name = jcfg.experiment.encoder.name = encoder
+    assert ffl_model.encoder_config(cfg) == jax_build_ffl(jcfg).encoder_cfg
+    model = build_ffl(cfg)
+    assert type(model.encoder) is hisup_factory.ENCODERS[encoder]
+    r = np.random.RandomState(5)
+    batch = {"lidar": torch.from_numpy(r.uniform(0, 16, (2, 64, 3)).astype(np.float32)),
+             "lidar_mask": torch.from_numpy(r.rand(2, 64) < 0.9)}
+    if encoder.startswith("early_fusion"):
+        batch["images"] = torch.from_numpy(_images(5, size=16))
+    with torch.no_grad():
+        out = model.eval()(batch)
+    size = int(cfg.experiment.model.decoder.in_feature_size)
+    assert out["seg"].shape == (2, 1, size, size) and out["crossfield"].shape == (2, 4, size, size)
+    assert torch.isfinite(out["seg"]).all() and float(out["crossfield"].abs().max()) <= 2.0
+
+
+@pytest.mark.parametrize(
     "encoder,item",
     [
-        ("early_fusion_vit_cnn", "LiDAR and fusion"),
-        ("pointpillars_vit_cnn", "LiDAR and fusion"),
-        ("pointpillars", "LiDAR and fusion"),
         ("unetresnet101", "Remaining encoders and CLI"),
         ("convnext", "Remaining encoders and CLI"),
     ],

@@ -29,6 +29,7 @@ from pixelspointspolygons_tpu.models import layers as jax_layers
 from pixelspointspolygons_tpu.models.pix2poly import Pix2Poly as JaxPix2Poly
 from pixelspointspolygons_tpu.models.pix2poly import ScoreNet as JaxScoreNet
 from pixelspointspolygons_tpu.models.pix2poly import build_pix2poly as jax_build_pix2poly
+from pixelspointspolygons_tpu.models.pix2poly import factory as jax_factory
 from pixelspointspolygons_tpu.models.pix2poly import Tokenizer as JaxTokenizer
 from pixelspointspolygons_tpu.models.pix2poly import greedy_generate as jax_greedy_generate
 from pixelspointspolygons_tpu.models.vit import ViTEncoder as JaxViTEncoder
@@ -42,10 +43,12 @@ from pixelspointspolygons_torch.models.pix2poly import (
     greedy_decode,
     greedy_generate,
 )
+from pixelspointspolygons_torch.models.pix2poly import factory
 from pixelspointspolygons_torch.models.pix2poly import model as p2p_model
 from pixelspointspolygons_torch.models.vit import ViTEncoder
 from pixelspointspolygons_torch.ops.sinkhorn import log_optimal_transport
 from pixelspointspolygons_torch.utils.bridge import flax_to_state_dict
+from test_torch_train_pix2poly import flax_init
 
 # tests/test_pix2poly.py::tiny_model_and_vars
 TINY = dict(vocab_size=19, encoder_len=16, dim=32, num_heads=4, num_layers=2, max_len=12, pad_idx=18,
@@ -376,11 +379,7 @@ def test_build_pix2poly_matches_the_flax_tree():
     assert float(sd["decoder.layer0.norm1.weight"].min()) == 1.0
 
 
-@pytest.mark.parametrize(
-    "encoder,item",
-    [("vit_dinov2", "Remaining encoders and CLI"), ("pointpillars_vit", "LiDAR and fusion"),
-     ("early_fusion_vit", "LiDAR and fusion")],
-)
+@pytest.mark.parametrize("encoder,item", [("vit_dinov2", "Remaining encoders and CLI")])
 def test_other_encoders_not_ported(encoder, item):
     cfg = compose(["experiment=p2p_image", "run_type=debug"])
     cfg.experiment.encoder.name = encoder
@@ -388,9 +387,45 @@ def test_other_encoders_not_ported(encoder, item):
         build_pix2poly(cfg)
 
 
-def test_lidar_batch_not_ported(tiny):
-    with pytest.raises(NotImplementedError, match="'LiDAR and fusion'"):
-        tiny["pm"].encode({"lidar": torch.zeros(1, 4, 3), "lidar_mask": torch.ones(1, 4, dtype=torch.bool)})
+@pytest.mark.parametrize("experiment", ["p2p_lidar", "p2p_fusion"])
+def test_lidar_and_fusion_encoders_build_and_run(experiment):
+    """`pointpillars_vit` and `early_fusion_vit` (the full-width trunk at a
+    16 px input): the encoder config equals JAX's, and the teacher-forced
+    forward runs on the modality's inputs."""
+    args = [f"experiment={experiment}", "run_type=debug", "experiment.encoder.in_size=16",
+            "experiment.encoder.max_num_points=64"]
+    cfg = compose(args)
+    assert factory.encoder_config(cfg) == jax_factory.encoder_config(jax_compose(args))
+    model = build_pix2poly(cfg, generator=torch.Generator().manual_seed(0))
+    assert type(model.encoder) is p2p_model.ENCODERS[cfg.experiment.encoder.name]
+    r = np.random.RandomState(4)
+    batch = {"lidar": torch.from_numpy(r.uniform(0, 16, (2, 64, 3)).astype(np.float32)),
+             "lidar_mask": torch.from_numpy(r.rand(2, 64) < 0.9)}
+    if experiment == "p2p_fusion":
+        batch["images"] = torch.from_numpy(r.normal(size=(2, 16, 16, 3)).astype(np.float32))
+    y = torch.full((2, model.max_len - 1), model.pad_idx, dtype=torch.long)
+    with torch.no_grad():
+        logits, perm = model.eval()(batch, y)
+    assert logits.shape == (2, model.max_len - 1, model.vocab_size) and torch.isfinite(perm).all()
+
+
+def test_lidar_batch_encodes_as_jax():
+    """A LiDAR batch through `Pix2Poly.encode` (the `pointpillars_vit`
+    tokens), against JAX's `encode` from the same bridged weights (float32
+    sums in another order through the PFN and one ViT block: 2e-5)."""
+    enc = {"name": "pointpillars_vit", "img_size": 16, "patch_size": 4, "dim": 32, "depth": 1, "num_heads": 2,
+           "width": 16.0, "height": 16.0, "voxel_x": 4.0, "voxel_y": 4.0, "max_points_per_voxel": 8}
+    r = np.random.RandomState(9)
+    batch = {"lidar": r.uniform(0, 16, (2, 64, 3)).astype(np.float32), "lidar_mask": r.rand(2, 64) < 0.9}
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jm = JaxPix2Poly(**TINY, encoder_cfg=enc)
+    variables = flax_init(jm, jbatch, jnp.zeros((2, STEPS), jnp.int32), seed=2)
+    want = jax.jit(lambda v, b: jm.apply(v, b, method=jm.encode))(variables, jbatch)
+    pm = _port(Pix2Poly(**TINY, encoder_cfg=enc), variables)
+    with torch.no_grad():
+        got = pm.encode({k: torch.from_numpy(v) for k, v in batch.items()})
+    assert got.shape == (2, 16, 32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=2e-5)
 
 
 def test_scorenet_batchnorm_trains_channel_last():

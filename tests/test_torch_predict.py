@@ -246,7 +246,7 @@ def test_predictor_matches_jax(slice_setup):
         handles = jp._forward(variables, shard_batch({"images": batch["images"]}, jp.mesh))
         want_polys, want_scores = jp._host_stage(handles)
         j_remask, j_juncs, j_scores = (np.asarray(h) for h in handles)
-        inputs = predictor_hisup.to_device(batch, port.device, predictor_hisup._INPUT_KEYS)
+        inputs = predictor_hisup.to_device(batch, port.device, predictor_hisup.INPUT_KEYS)
         p_remask, p_juncs, p_scores = (t.numpy() for t in port.forward(inputs))
         assert p_remask.dtype == j_remask.dtype == np.float16
 

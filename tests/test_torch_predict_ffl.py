@@ -141,7 +141,7 @@ def test_predictor_matches_jax(ffl_setup, monkeypatch):
     for batch in ffl_setup["batches"]:
         jout = jp._forward(variables, shard_batch({"images": batch["images"]}, jp.mesh))
         j_seg, j_cf = np.asarray(jout["seg"]), np.asarray(jout["crossfield"])
-        pout = port.forward(to_device(batch, port.device, predictor_ffl._INPUT_KEYS))
+        pout = port.forward(to_device(batch, port.device, predictor_ffl.INPUT_KEYS))
         p_seg, p_cf = pout["seg"].numpy(), pout["crossfield"].numpy()
         assert p_seg.dtype == j_seg.dtype == p_cf.dtype == np.float16
         for p, j in ((p_seg, j_seg), (p_cf, j_cf)):

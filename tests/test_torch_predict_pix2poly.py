@@ -185,7 +185,7 @@ def test_predictor_matches_jax(slice_setup):
     for batch in slice_setup["batches"]:
         j_tokens, j_scores = (np.asarray(a) for a in jp.decode_async(slice_setup["variables"], batch))
         want_polys, _ = jp.assemble(j_tokens.copy(), j_scores.copy())
-        inputs = port_pp.to_device(batch, port.device, port_pp._INPUT_KEYS)
+        inputs = port_pp.to_device(batch, port.device, port_pp.INPUT_KEYS)
         assert inputs["images"].dtype == torch.float32
         (tokens, scores), info = port.forward(inputs)
         np.testing.assert_array_equal(tokens.numpy(), j_tokens)
@@ -346,7 +346,7 @@ def test_bfloat16_not_ported(tiny_vit, tmp_path):
     assert all(p.dtype == torch.float32 for p in predictor.model.parameters())
     predictor.load_checkpoint()
     batch = {"images": np.random.RandomState(0).normal(size=(2, S, S, 3)).astype(np.float32)}
-    (tokens, scores), info = predictor.forward(port_pp.to_device(batch, predictor.device, port_pp._INPUT_KEYS))
+    (tokens, scores), info = predictor.forward(port_pp.to_device(batch, predictor.device, port_pp.INPUT_KEYS))
     assert scores.dtype == torch.bfloat16 and tokens.shape == (2, MAX_LEN - 1)
     polys, _ = predictor.predict_batch(batch)
     assert len(polys) == 2 and predictor._fetch(((tokens, scores), info, None))[1].dtype == np.float32

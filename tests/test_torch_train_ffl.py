@@ -149,7 +149,7 @@ def _f16_transfer(batch: dict) -> tuple[dict, dict]:
     the CPU (float16 keys promoted to float32) and JAX's `shard_batch`
     (float16 leaves), both as float32 numpy."""
     port = to_device(batch, torch.device("cpu"), FFL_BATCH_KEYS)
-    jax_side = shard_batch({k: batch[k] for k in FFL_BATCH_KEYS}, make_mesh(1))
+    jax_side = shard_batch({k: batch[k] for k in FFL_BATCH_KEYS if k in batch}, make_mesh(1))
     return ({k: v.numpy() for k, v in port.items()},
             {k: np.asarray(v).astype(np.float32) if v.dtype == jnp.float16 else np.asarray(v) for k, v in jax_side.items()})
 
@@ -167,7 +167,7 @@ def test_ffl_items_match_jax(datasets, split):
         for seed in range(3):
             want = jds.get_item(idx, np.random.RandomState(seed))
             got = pds.get_item(idx, np.random.RandomState(seed))
-            assert set(got) == set(want) == {"image_id", "images", *FFL_BATCH_KEYS[1:]}
+            assert set(got) == set(want) == {"image_id", *FFL_BATCH_KEYS} - {"lidar", "lidar_mask"}
             for k in want:
                 assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
                 np.testing.assert_array_equal(got[k], want[k], err_msg=k)
@@ -179,7 +179,8 @@ def test_ffl_items_match_jax(datasets, split):
     assert sum(float(it["gt_polygons_image"][1].sum()) for it in items) > 0
     batch = {k: np.stack([it[k] for it in items]) for k in items[0]}
     port, jax_side = _f16_transfer(batch)
-    for k in FFL_BATCH_KEYS:
+    assert set(port) == set(jax_side) == set(FFL_BATCH_KEYS) - {"lidar", "lidar_mask"}
+    for k in port:
         np.testing.assert_array_equal(port[k], jax_side[k], err_msg=k)
     # the float16 round moves the angle by at most half a float16 step
     assert 0 < np.abs(port["gt_crossfield_angle"] - batch["gt_crossfield_angle"]).max() <= 2.0**-10
