@@ -143,8 +143,23 @@ fails:
      time, peak memory, finite losses, a forward on 2 tiles on the card
      against the CPU;
  20. `cli.predict_demo` for ffl_lidar on one tile from a `.laz` file that
-     the port's `write_laz` wrote from the tile's points.
-They run in the order 1-5, 10-15, 6-9, 16-20. The line before the last is the
+     the port's `write_laz` wrote from the tile's points;
+ 21. training from the device cache (`training.device_cache=true`), each
+     part failing the run on its own: FFL-image at float32 and bfloat16
+     from phase 15's seeded weights (4 train + 1 val steps and the val-IoU
+     pass; the run fails if the trainer fell back to the host loader): the
+     step, the batcher's ms per batch, the pack and upload seconds and
+     bytes, the peak, the wall ms per train batch from the cache and from
+     the host loader in turns, and the first float32 step's losses against
+     a step on the host loader's batch of the same tiles; the cache's
+     first batch on the card against the CPU (FFL-image, HiSup-fusion,
+     Pix2Poly-image); HiSup-LiDAR from the cache with remat (5 AFM
+     launches): the step and its layers, the peak, the cache's point cap,
+     the voxelizer and PFN at that cap; one HiSup-LiDAR step with remat
+     against one without from the same weights on the same batch (losses,
+     gradients, BatchNorm buffers, peak and ms); one hisup_fusion step with
+     remat (peak); Pix2Poly-image from the cache (0 AFM launches).
+They run in the order 1-5, 10-15, 6-9, 16-21. The line before the last is the
 card's name and power limit, the one before it a JSON object with every
 kernel's numbers; the last line is {"ok": true, "device": {...}}.
 """
@@ -370,6 +385,41 @@ LIDAR_BF16_LOSS_TOL = 5e-2
 LIDAR_FWD_TOL = 1e-3
 LIDAR_STEP_DTYPE = {"p2p_lidar": "float32", "hisup_fusion": "float32", "ffl_lidar": "float32",
                     "ffl_fusion": "float32"}
+# The device cache and remat (phase 21):
+# - FFL-image from the cache, its first float32 step's losses against a step
+#   from the same weights on the host loader's batch of the same tiles, each
+#   term within FFL_CACHE_LOSS_TOL relative: the two batches differ in the
+#   Gaussian noise field (another generator, the same sigma: a random
+#   perturbation of every pixel by up to 7/255, which moves a random model's
+#   crossfield terms most), the colour jitter's HSV arithmetic (the cache's
+#   own, not cv2's) and the float16 rounding of the images and targets (the
+#   host path's alone); with GaussNoise left out of both, each term within
+#   FFL_CACHE_NOISELESS_TOL (the HSV arithmetic and the float16 rounding
+#   move pixels by ~1e-3 of their range);
+# - the cache's batch on the card against the same batch of the same pack
+#   on the CPU, GaussNoise left out (the two generators give other
+#   streams): every leaf but the images and the clouds equal; the images
+#   within CACHE_IMAGE_TOL absolute (normalized pixels up to ~3; each
+#   image's jitter mean is summed in another order, and the card divides
+#   by a host scalar as a product with its reciprocal); the clouds equal as
+#   sets (the shuffle's generators differ);
+# - HiSup-LiDAR, one step with remat and two without from the same weights
+#   on the same cached batch: losses within REMAT_LOSS_TOL relative, every
+#   BatchNorm buffer within REMAT_STATS_TOL relative to its largest value,
+#   gradients within REMAT_GRAD_TOL in relative L2, or within
+#   REMAT_NOISE_FACTOR times the two plain steps' own distance where that
+#   is larger. Not equal: the voxelizer's atomic centroid sums differ at the
+#   last bit from one forward to the next (phase 16), and the backward's atomic
+#   sums (the scatter-max's gradient, the convolutions' weight gradients)
+#   from one backward to the next; the remat step's backward reads the
+#   recompute's activations, which carry their own last bits (its gradient
+#   read 1.0 to 2.4 times the plain pair's distance of 2.1e-5 to 2.4e-5 on
+#   an NVIDIA H100 80GB HBM3 at 700 W, PERF.md). A second update of the
+#   running statistics would move them by a tenth of the batch statistics,
+#   a recompute of other numbers would move the gradient far more.
+FFL_CACHE_LOSS_TOL, FFL_CACHE_NOISELESS_TOL = 5e-2, 5e-3
+CACHE_IMAGE_TOL = 1e-5
+REMAT_LOSS_TOL, REMAT_GRAD_TOL, REMAT_STATS_TOL, REMAT_NOISE_FACTOR = 1e-6, 1e-5, 1e-6, 10.0
 
 
 def fail(msg: str) -> None:
@@ -3087,6 +3137,401 @@ def phase_ffl_lidar_demo() -> float:
     return demo_s
 
 
+# --- the device cache and remat (phase 21) ------------------------------------------
+
+
+def batcher_times(cache, epoch: int = 0) -> tuple[list, list]:
+    """Per batch of one epoch of `cache`: the ms of one `next(epoch_batches)`
+    by CUDA events (from an idle card) and by the host clock to a
+    synchronize."""
+    it = cache.epoch_batches(epoch)
+    events, wall = [], []
+    while True:
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        start.record()
+        batch = next(it, None)
+        end.record()
+        torch.cuda.synchronize()
+        if batch is None:
+            return events, wall
+        events.append(start.elapsed_time(end))
+        wall.append((time.perf_counter() - t) * 1e3)
+
+
+def cache_setup_line(trainer) -> str:
+    return "; ".join(f"{split}: {c.n} tiles, {c.nbytes} bytes, packed or loaded in {c.pack_s:.2f} s, uploaded in "
+                     f"{c.upload_s:.3f} s" for split, c in trainer.cache.items())
+
+
+def epoch_wall_ms(trainer, batches, *args) -> float:
+    """Host ms per train step over `batches` (their making included), to a
+    synchronize at the end."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    n = 0
+    for batch in batches:
+        trainer._train_step(trainer.state, batch, *args)
+        n += 1
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / n
+
+
+def run_cached_trainer(cls, cfg, what: str) -> tuple:
+    """The trainer of `cfg` (training.device_cache=true) through train():
+    4 train + 1 val steps and the val-IoU pass with the counters set to 0
+    just before and read just after; fails if it took the host loader."""
+    from pixelspointspolygons_torch.ops.afm import afm_cuda
+
+    torch.cuda.empty_cache()
+    trainer = cls(cfg, device=CARD)
+    iou_pass_s, step_losses, first = [], [], {}
+    record_steps(trainer, step_losses, iou_pass_s, first)
+    torch.cuda.reset_peak_memory_stats()
+    afm_cuda.launches = 0
+    t0 = time.perf_counter()
+    history = trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, peak = afm_cuda.launches, torch.cuda.max_memory_allocated()
+    if trainer.cache is None:
+        fail(f"{what}: the trainer took the host loader, not the device cache")
+    n_train, n_val = len(trainer.cache["train"]), len(trainer.cache["val"])
+    losses = [{k: float(v) for k, v in m.items()} for m in step_losses]
+    print(f"{what} from the device cache: {n_train} train + {n_val} val steps and the val-IoU pass in {wall:.1f} s "
+          f"(set-up included), peak {peak / 2**30:.2f} GiB, afm launches {launches}; cache {cache_setup_line(trainer)}",
+          flush=True)
+    print(f"{what} history: " + json.dumps(history), flush=True)
+    if (n_train, n_val) != (TRAIN_STEPS, VAL_STEPS) or len(losses) != n_train:
+        fail(f"{what}: expected {TRAIN_STEPS} train and {VAL_STEPS} val steps, got {n_train}, {n_val}, {len(losses)}")
+    if not all(np.isfinite(v) for k, v in history.items() if k != "epoch"):
+        fail(f"{what}: non-finite losses: {history}")
+    val_iou = history.get("val_iou")
+    if val_iou is None or not 0.0 <= val_iou <= 1.0 or len(iou_pass_s) != 1:
+        fail(f"{what}: the val-IoU pass gave no IoU in [0, 1]: {val_iou}")
+    return trainer, {"launches": launches, "peak_bytes": peak, "losses": losses, "first": first,
+                     "val_iou": val_iou, "iou_pass_ms": iou_pass_s[0] * 1e3}
+
+
+def steady_step_ms(trainer, batches: list, *args) -> float:
+    trainer._train_step(trainer.state, batches[0], *args)
+    torch.cuda.synchronize()
+    times = []
+    for batch in batches:
+        t = time.perf_counter()
+        trainer._train_step(trainer.state, batch, *args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def ffl_step_losses(cfg, state_dict: dict, batch: dict, weights: dict) -> dict:
+    """The losses of one float32 FFL train step from `state_dict` on `batch`."""
+    from pixelspointspolygons_torch.models.ffl import build_ffl
+    from pixelspointspolygons_torch.models.ffl.losses import make_ffl_loss
+    from pixelspointspolygons_torch.train.ffl_step import make_train_step
+    from pixelspointspolygons_torch.train.state import TrainState, make_optimizer, make_scheduler
+
+    model = build_ffl(cfg, device=CARD)
+    model.load_state_dict(state_dict)
+    lr = float(cfg.experiment.model.learning_rate)
+    opt = make_optimizer("adam", model.parameters(), lr)
+    loss_fn, _ = make_ffl_loss(cfg)
+    state = TrainState(model, opt, make_scheduler(opt, lambda n: lr, lr))
+    return {k: float(v) for k, v in make_train_step(loss_fn)(state, batch, weights).items()}
+
+
+def ffl_losses_against_host(cfg, loader, cache, state_dict: dict, weights: dict, got: dict, tol: float,
+                            what: str) -> dict:
+    """`got`, the losses of a step on the cache's first batch of epoch 0,
+    against a step from the same weights on the host loader's batch of the
+    same tiles; each term within `tol` relative."""
+    from pixelspointspolygons_torch.data.loader import to_device
+    from pixelspointspolygons_torch.train.trainer_ffl import FFL_BATCH_KEYS
+
+    order = np.arange(cache.n)
+    np.random.RandomState(cache.seed).shuffle(order)
+    loader.set_epoch(0)
+    host = to_device(loader._make_batch(order[:B]), CARD, FFL_BATCH_KEYS)
+    want = ffl_step_losses(cfg, state_dict, host, weights)
+    err = {k: abs(got[k] / want[k] - 1.0) for k in want}
+    print(f"{what}: first step from the cache {got}; from the host loader's batch of the same tiles {want}; rel diff "
+          f"{err} (tol {tol})", flush=True)
+    if set(err) != set(got) or not all(e <= tol for e in err.values()):
+        fail(f"{what}: the cache's first-step losses differ from the host loader's by {err}")
+    return err
+
+
+def ffl_cache_train(overrides: list[str], dtype: str, smi: str) -> dict:
+    """FFL-image from the device cache at `dtype`: the run, the step, the
+    batcher, the wall per train batch from the cache and from the host
+    loader in turns; at float32 the first step's losses against a step on
+    the host loader's batch of the same tiles from the same weights."""
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.data.device_cache import FFLDeviceCache
+    from pixelspointspolygons_torch.data.loader import build_loader
+    from pixelspointspolygons_torch.train.trainer_ffl import FFL_BATCH_KEYS, FFLTrainer
+
+    cfg = compose(overrides + [f"host.compute_dtype={dtype}", "training.device_cache=true"])
+    what = f"ffl_image ({dtype})"
+    trainer, run = run_cached_trainer(FFLTrainer, cfg, what)
+    if run["launches"]:
+        fail(f"{what} from the cache launched the afm kernel {run['launches']} times, expected 0")
+    cache = trainer.cache["train"]
+    events, wall = batcher_times(cache)
+    weights = trainer._weights_for_epoch(0)
+    batches = [{k: b[k] for k in FFL_BATCH_KEYS if k in b} for b in cache.epoch_batches(0)]
+    step_ms = steady_step_ms(trainer, batches, weights, None)
+    turns = []
+    for source in ("cache", "host", "host", "cache"):
+        saved = trainer.cache
+        trainer.cache = saved if source == "cache" else None
+        turns.append((source, epoch_wall_ms(trainer, trainer.epoch_batches("train", 1, FFL_BATCH_KEYS), weights, None)))
+        trainer.cache = saved
+    by = {src: [round(ms, 1) for s, ms in turns if s == src] for src in ("cache", "host")}
+    print(f"{what} from the cache: train step {step_ms:.1f} ms (median of {len(batches)}); batcher per batch of {B}: "
+          f"{[round(x, 3) for x in events]} ms (CUDA events), {[round(x, 3) for x in wall]} ms (host clock); wall per "
+          f"train batch, in turns: cache {by['cache']} ms, host loader {by['host']} ms; peak "
+          f"{run['peak_bytes'] / 2**30:.2f} GiB; val IoU {run['val_iou']:.4f}; card {smi}", flush=True)
+    out = {"step_ms": step_ms, "batcher_ms": statistics.median(events), "batcher_wall_ms": statistics.median(wall),
+           "wall_cache_ms": by["cache"], "wall_host_ms": by["host"], **run,
+           "cache_bytes": sum(c.nbytes for c in trainer.cache.values()),
+           "pack_s": {k: c.pack_s for k, c in trainer.cache.items()},
+           "upload_s": {k: c.upload_s for k, c in trainer.cache.items()}}
+    if dtype != "float32":
+        return out
+
+    # the first step's losses against a step on the host loader's batch of
+    # the same tiles (the loader's per-item streams give the same D4 and
+    # jitter), from the same weights; then the same without GaussNoise
+    out["loss_err"] = ffl_losses_against_host(cfg, trainer.train_loader, cache, run["first"]["state"], weights,
+                                              run["losses"][0], FFL_CACHE_LOSS_TOL, what)
+    quiet = compose(overrides + ["host.compute_dtype=float32", "experiment.encoder.augmentations=[D4,ColorJitter,Normalize]"])
+    quiet_cache = FFLDeviceCache(quiet, "train", CARD)
+    first = {k: v for k, v in next(iter(quiet_cache.epoch_batches(0))).items() if k in FFL_BATCH_KEYS}
+    quiet_loader = build_loader(quiet, "train")
+    got = ffl_step_losses(quiet, run["first"]["state"], first, weights)
+    out["noiseless_loss_err"] = ffl_losses_against_host(quiet, quiet_loader, quiet_cache, run["first"]["state"],
+                                                        weights, got, FFL_CACHE_NOISELESS_TOL, f"{what} without noise")
+    return out
+
+
+def cache_card_against_cpu(p2p_overrides: list[str], ffl_overrides: list[str]) -> dict:
+    """The cache's first train batch of epoch 0 on the card against the same
+    batch on the CPU, from the same pack, GaussNoise left out: FFL-image,
+    HiSup-fusion and Pix2Poly-image."""
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.data import device_cache as dc
+    from pixelspointspolygons_torch.models.pix2poly import Tokenizer
+
+    out = {}
+    for experiment, overrides in (("ffl_image", ffl_overrides), ("hisup_fusion", lidar_overrides("hisup_fusion")),
+                                  ("p2p_image", p2p_overrides)):
+        cfg = compose(overrides)
+        augs = [a for a in cfg.experiment.encoder.augmentations if a != "GaussNoise"]
+        cfg.experiment.encoder.augmentations = augs
+        family = cfg.experiment.model.name
+        if family == "pix2poly":
+            card, cpu = (dc.P2PDeviceCache(cfg, "train", Tokenizer(cfg), d) for d in (CARD, "cpu"))
+        elif family == "hisup":
+            card, cpu = (dc.HiSupDeviceCache(cfg, "train", d) for d in (CARD, "cpu"))
+        else:
+            card, cpu = (dc.FFLDeviceCache(cfg, "train", d) for d in (CARD, "cpu"))
+        got, want = next(iter(card.epoch_batches(0))), next(iter(cpu.epoch_batches(0)))
+        if set(got) != set(want):
+            fail(f"cache {experiment}: the card's batch has leaves {sorted(got)}, the CPU's {sorted(want)}")
+        equal, image_err = [], None
+        for k, w in want.items():
+            g = got[k].cpu() if torch.is_tensor(got[k]) else torch.from_numpy(np.asarray(got[k]))
+            w = w if torch.is_tensor(w) else torch.from_numpy(np.asarray(w))
+            if k in ("lidar", "lidar_mask"):
+                continue
+            if k == "images":
+                image_err = float((g - w).abs().max())
+                if not image_err <= CACHE_IMAGE_TOL:
+                    fail(f"cache {experiment}: the card's images differ from the CPU's by {image_err}")
+            elif g.dtype != w.dtype or not torch.equal(g, w):
+                fail(f"cache {experiment}: leaf {k} differs between the card and the CPU")
+            else:
+                equal.append(k)
+        if "lidar" in want:
+            pts, mask = got["lidar"].cpu(), got["lidar_mask"].cpu()
+            if not torch.equal(mask.sum(1), want["lidar_mask"].sum(1)):
+                fail(f"cache {experiment}: the clouds' point counts differ between the card and the CPU")
+            for b in range(B):
+                g, w = pts[b][mask[b]].numpy(), want["lidar"][b][want["lidar_mask"][b]].numpy()
+                if not np.array_equal(g[np.lexsort(g.T[::-1])], w[np.lexsort(w.T[::-1])]):
+                    fail(f"cache {experiment}: cloud {b} differs between the card and the CPU as a set")
+            equal.append("lidar (as sets)")
+        print(f"cache {experiment}: the card's first batch (augmentations {augs}) against the CPU's: equal {equal}; "
+              f"images max abs err {image_err} (tol {CACHE_IMAGE_TOL})", flush=True)
+        out[experiment] = {"equal": equal, "image_err": image_err}
+        del card, cpu
+    return out
+
+
+def hisup_lidar_cache_remat(smi: str) -> dict:
+    """HiSup-LiDAR from the cache with remat through the trainer (5 AFM
+    launches), its step, layers, peak, the cache's cap, the voxelizer and
+    PFN at that cap; then one step with remat and one without from the same
+    weights on the same cached batch."""
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.models.hisup.factory import build_hisup
+    from pixelspointspolygons_torch.ops.voxelize import assign_pillars
+    from pixelspointspolygons_torch.train.hisup_step import make_train_step
+    from pixelspointspolygons_torch.train.state import TrainState, make_optimizer, make_scheduler
+    from pixelspointspolygons_torch.train.trainer_hisup import _DEV_KEYS, HiSupTrainer
+
+    cfg = compose(lidar_overrides("hisup_lidar") + ["host.compute_dtype=float32", "training.device_cache=true",
+                                                    "training.remat=true"])
+    trainer, run = run_cached_trainer(HiSupTrainer, cfg, "hisup_lidar (float32, remat)")
+    if run["launches"] != TRAIN_STEPS + VAL_STEPS:
+        fail(f"afm launched {run['launches']} times in HiSup-LiDAR training from the cache, expected "
+             f"{TRAIN_STEPS + VAL_STEPS}")
+    cache = trainer.cache["train"]
+    cap = int(cache.dev["lidar"].shape[1])
+    events, wall = batcher_times(cache)
+    batches = [{k: b[k] for k in _DEV_KEYS if k in b} for b in cache.epoch_batches(0)]
+    step_ms = steady_step_ms(trainer, batches)
+    parts = [lidar_step_parts(trainer, batch) for batch in batches]
+    breakdown = {k: statistics.median(p[k] for p in parts) for k in parts[0]}
+    enc = cfg.experiment.encoder
+    pts, valid = batches[0]["lidar"], batches[0]["lidar_mask"]
+    grid = dict(width=float(enc.in_width), height=float(enc.in_height), voxel_x=float(enc.in_voxel_size.x),
+                voxel_y=float(enc.in_voxel_size.y), max_points_per_voxel=int(enc.max_num_points_per_voxel))
+    canvas = trainer.state.model.encoder.pp_vit.pillar_canvas
+    assign_ms = cuda_ms(lambda: assign_pillars(pts, valid, **grid), 5, 3)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: canvas(pts, valid), 3, 3)
+    print(f"hisup_lidar from the cache with remat: train step {step_ms:.1f} ms (median of {len(batches)}); the plain "
+          f"step by layer on the cached batches (ms, CUDA events): {json.dumps(breakdown)}; peak "
+          f"{run['peak_bytes'] / 2**30:.2f} GiB; point cap {cap} (the host loader's {int(enc.max_num_points)}), "
+          f"{int(valid.sum())} valid points in the first batch; at that cap on {B} clouds: assignment "
+          f"{assign_ms:.2f} ms, canvas forward {fwd_ms:.2f} ms; batcher per batch {[round(x, 3) for x in events]} ms "
+          f"(CUDA events), {[round(x, 3) for x in wall]} ms (host clock); val IoU {run['val_iou']:.4f}; card {smi}",
+          flush=True)
+
+    # one step with remat and two without, from the same weights on the same batch
+    sd = {k: v.detach().clone() for k, v in trainer.state.model.state_dict().items()}
+    weights = {k: float(v) for k, v in cfg.experiment.model.loss_weights.items()}
+    lr = float(cfg.experiment.model.learning_rate)
+    del trainer
+    res = []
+    for remat in (False, False, True):
+        torch.cuda.empty_cache()
+        model = build_hisup(cfg, device=CARD)
+        model.load_state_dict(sd)
+        opt = make_optimizer("adamw", model.parameters(), lr, weight_decay=float(cfg.experiment.model.weight_decay))
+        state = TrainState(model, opt, make_scheduler(opt, lambda n: lr, lr))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        metrics = make_train_step(weights, S, remat=remat)(state, batches[0])
+        torch.cuda.synchronize()
+        ms, peak = (time.perf_counter() - t) * 1e3, torch.cuda.max_memory_allocated()
+        res.append(({k: float(v) for k, v in metrics.items()},
+                    {n: p.grad.detach().double() for n, p in model.named_parameters()},
+                    {n: b.detach().clone() for n, b in model.named_buffers()}, ms, peak))
+        del model, opt, state
+
+    def gaps(a, b) -> tuple[float, float, float]:
+        loss = max(abs(b[0][k] / a[0][k] - 1.0) for k in a[0])
+        grad = (sum(float(((b[1][k] - a[1][k]) ** 2).sum()) for k in a[1])
+                / sum(float((a[1][k] ** 2).sum()) for k in a[1])) ** 0.5
+        stats = max(float((b[2][k] - a[2][k]).abs().max() / a[2][k].abs().max().clamp(min=1e-12)) for k in a[2])
+        return loss, grad, stats
+
+    plain, again, remat_run = res
+    noise = gaps(plain, again)
+    loss_err, grad_err, stats_err = gaps(plain, remat_run)
+    grad_tol = max(REMAT_GRAD_TOL, REMAT_NOISE_FACTOR * noise[1])
+    b0, b1 = plain[2], remat_run[2]
+    moved = max(float((b0[k] - sd[k]).abs().max() / sd[k].abs().max().clamp(min=1e-12)) for k in b0)
+    counts = [k for k in b0 if k.endswith("num_batches_tracked")]
+    ms0, peak0, ms1, peak1 = plain[3], plain[4], remat_run[3], remat_run[4]
+    print(f"hisup_lidar one step with remat against one without (same weights, same cached batch): losses rel diff "
+          f"{loss_err:.3g} (tol {REMAT_LOSS_TOL}), gradients rel L2 {grad_err:.3g} (tol {grad_tol:.3g}: two plain "
+          f"steps read {noise[1]:.3g} apart, losses {noise[0]:.3g}, buffers {noise[2]:.3g}), BatchNorm buffers "
+          f"({len(b0)}, num_batches_tracked: {len(counts)}) rel diff {stats_err:.3g} (tol {REMAT_STATS_TOL}; one "
+          f"update moved them by up to {moved:.3g}); step {ms0:.1f} and {again[3]:.1f} ms, peak {peak0 / 2**30:.2f} "
+          f"GiB without, {ms1:.1f} ms and {peak1 / 2**30:.2f} GiB with remat (first calls); card {smi}", flush=True)
+    if not (loss_err <= REMAT_LOSS_TOL and grad_err <= grad_tol and stats_err <= REMAT_STATS_TOL):
+        fail(f"remat: the step differs from the plain one: losses {loss_err}, gradients {grad_err}, "
+             f"buffers {stats_err}")
+    if set(b0) != set(b1) or any(not torch.equal(b0[k], b1[k]) for k in counts):
+        fail("remat: the BatchNorm counts differ from the plain step's")
+    return {"step_ms": step_ms, "breakdown": breakdown, "cap": cap, "assign_ms": assign_ms, "canvas_fwd_ms": fwd_ms,
+            "batcher_ms": statistics.median(events), **run,
+            "remat": {"loss_err": loss_err, "grad_err": grad_err, "stats_err": stats_err, "noise": noise,
+                      "plain_ms": ms0, "remat_ms": ms1, "plain_peak": peak0, "remat_peak": peak1}}
+
+
+def hisup_fusion_remat_step(smi: str) -> dict:
+    """One hisup_fusion step at float32, batch 16, with remat, through the
+    trainer's set-up on the host loader's first batch (1 AFM launch), as
+    phase 19 runs it without remat."""
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.data.loader import device_prefetch
+    from pixelspointspolygons_torch.ops.afm import afm_cuda
+    from pixelspointspolygons_torch.train.trainer_hisup import _DEV_KEYS, HiSupTrainer
+
+    cfg = compose(lidar_overrides("hisup_fusion") + ["host.compute_dtype=float32", "training.remat=true"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = HiSupTrainer(cfg, device=CARD)
+    trainer.generator = torch.Generator(device=CARD).manual_seed(int(cfg.get("seed", 42)))
+    trainer.setup()
+    batch = next(iter(device_prefetch(trainer.train_loader, CARD, _DEV_KEYS)))
+    afm_cuda.launches = 0
+    metrics = {k: float(v) for k, v in trainer._train_step(trainer.state, batch).items()}
+    torch.cuda.synchronize()
+    launches = afm_cuda.launches
+    t = time.perf_counter()
+    trainer._train_step(trainer.state, batch)
+    torch.cuda.synchronize()
+    step_ms, peak = (time.perf_counter() - t) * 1e3, torch.cuda.max_memory_allocated()
+    print(f"hisup_fusion (float32, remat): one train step at batch {B}: losses "
+          f"{ {k: round(v, 6) for k, v in metrics.items()} }, afm launches {launches}; the next step {step_ms:.1f} ms; "
+          f"peak {peak / 2**30:.2f} GiB (phase 19 takes the same step without remat); card {smi}", flush=True)
+    if launches != 1 or not all(np.isfinite(v) for v in metrics.values()):
+        fail(f"hisup_fusion with remat: {metrics} with {launches} afm launches (expected 1)")
+    del trainer, batch
+    return {"step_ms": step_ms, "peak_bytes": peak, "launches": launches}
+
+
+def p2p_cache_train(overrides: list[str], smi: str) -> dict:
+    """Pix2Poly-image from the device cache at float32: 4 train + 1 val steps
+    and the val-IoU pass (0 AFM launches), the step and the batcher."""
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.train.trainer_pix2poly import _DEV_KEYS, Pix2PolyTrainer
+
+    cfg = compose(overrides + ["host.compute_dtype=float32", "training.device_cache=true"])
+    trainer, run = run_cached_trainer(Pix2PolyTrainer, cfg, "p2p_image (float32)")
+    if run["launches"]:
+        fail(f"Pix2Poly from the cache launched the afm kernel {run['launches']} times, expected 0")
+    cache = trainer.cache["train"]
+    events, wall = batcher_times(cache)
+    batches = [{k: b[k] for k in _DEV_KEYS if k in b} for b in cache.epoch_batches(0)]
+    step_ms = steady_step_ms(trainer, batches, trainer.generator)
+    print(f"p2p_image from the cache: train step {step_ms:.1f} ms (median of {len(batches)}); batcher per batch "
+          f"{[round(x, 3) for x in events]} ms (CUDA events), {[round(x, 3) for x in wall]} ms (host clock); peak "
+          f"{run['peak_bytes'] / 2**30:.2f} GiB; card {smi}", flush=True)
+    del trainer
+    return {"step_ms": step_ms, "batcher_ms": statistics.median(events), **run}
+
+
+def phase_device_cache(ffl_overrides: list[str], p2p_overrides: list[str], smi: str) -> dict:
+    """Phase 21: training from the device cache and HiSup's remat."""
+    ffl_overrides = ffl_overrides + [f"init_weights_from={os.path.join(WORK, 'ffl_seeded_init.pt')}"]
+    ffl = {dtype: ffl_cache_train(ffl_overrides, dtype, smi) for dtype in ("float32", "bfloat16")}
+    card_cpu = cache_card_against_cpu(p2p_overrides, ffl_overrides)
+    lidar = hisup_lidar_cache_remat(smi)
+    fusion = hisup_fusion_remat_step(smi)
+    p2p = p2p_cache_train(p2p_overrides, smi)
+    return {"ffl": ffl, "card_cpu": card_cpu, "hisup_lidar": lidar, "hisup_fusion": fusion, "p2p": p2p}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
@@ -3187,6 +3632,19 @@ def main() -> None:
         print(f"{experiment} ({t['dtype']}): train step {t['step_ms']:.1f} ms, peak {t['peak_bytes']} bytes "
               f"({t['peak_bytes'] / 2**30:.2f} GiB), afm launches {t['launches']}, card {smi}", flush=True)
     phase_ffl_lidar_demo()
+    cached = phase_device_cache(ffl_overrides, p2p_overrides, smi)
+    for dtype, t in cached["ffl"].items():
+        print(f"ffl_image from the device cache ({dtype}): train step {t['step_ms']:.1f} ms, batcher "
+              f"{t['batcher_ms']:.3f} ms per batch, wall per train batch from the cache {t['wall_cache_ms']} ms and "
+              f"from the host loader {t['wall_host_ms']} ms, peak {t['peak_bytes'] / 2**30:.2f} GiB, cache "
+              f"{t['cache_bytes']} bytes; card {smi}", flush=True)
+    hl = cached["hisup_lidar"]
+    print(f"hisup_lidar from the device cache with remat: train step {hl['step_ms']:.1f} ms, peak "
+          f"{hl['peak_bytes'] / 2**30:.2f} GiB, point cap {hl['cap']}, PFN forward {hl['canvas_fwd_ms']:.2f} ms; one "
+          f"step without remat {hl['remat']['plain_ms']:.1f} ms at {hl['remat']['plain_peak'] / 2**30:.2f} GiB, with "
+          f"{hl['remat']['remat_ms']:.1f} ms at {hl['remat']['remat_peak'] / 2**30:.2f} GiB; hisup_fusion with remat "
+          f"peak {cached['hisup_fusion']['peak_bytes'] / 2**30:.2f} GiB; p2p_image from the cache step "
+          f"{cached['p2p']['step_ms']:.1f} ms; card {smi}", flush=True)
     afm_row["launches_by_path"] = {
         "hisup_train": launches["afm"], "hisup_predict": 0, "pix2poly_predict": 0,
         "pix2poly_train_float32": trained["float32"]["launches"],
@@ -3198,6 +3656,10 @@ def main() -> None:
         "ffl_predict_bfloat16": ffl_train["predict_bf16"]["launches"],
         "hisup_lidar_train": lidar["launches"], "p2p_fusion_predict": fusion["launches"],
         **{f"{e}_step": t["launches"] for e, t in steps.items()},
+        "hisup_lidar_train_cache_remat": hl["launches"], "hisup_fusion_step_remat": cached["hisup_fusion"]["launches"],
+        "ffl_train_cache_float32": cached["ffl"]["float32"]["launches"],
+        "ffl_train_cache_bfloat16": cached["ffl"]["bfloat16"]["launches"],
+        "pix2poly_train_cache": cached["p2p"]["launches"],
     }
     print(f"smoke run: {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"kernels": [afm_row]}), flush=True)

@@ -4,7 +4,9 @@
 - `BatchNorm`: flax `nn.BatchNorm(momentum=0.9)` over the channel axis 1
   (NCHW maps, or (N, C) rows). Flax updates the running variance with the
   *biased* batch variance; `torch.nn.BatchNorm2d` uses the unbiased one, so
-  it cannot stand in. Torch momentum 0.1 is flax momentum 0.9.
+  it cannot stand in. Torch momentum 0.1 is flax momentum 0.9. Inside
+  `running_stats_frozen(module)` a train-mode forward leaves the running
+  statistics as they are (a recomputed forward, `train/hisup_step.py`).
 - `LayerNorm`: flax's eps is 1e-6 (torch's default 1e-5).
 - `MultiHeadAttention`: explicit q/k/v/o projections, logits divided by
   √Dh after the product, softmax in float32, masks as an additive −1e9
@@ -104,6 +106,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features, device=device))
         self.register_buffer("running_mean", torch.zeros(num_features, device=device))
         self.register_buffer("running_var", torch.ones(num_features, device=device))
+        self.update_running_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
@@ -114,6 +117,8 @@ class BatchNorm(nn.Module):
                 x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps
             ), dt)
         out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        if not self.update_running_stats:
+            return cast_to(out, dt)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=[d for d in range(x.ndim) if d != 1], unbiased=False)
             self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
@@ -162,10 +167,26 @@ class RowBatchNorm(BatchNorm):
         if dt is not None:
             x = cast_to(x, widen(dt))
         out, mean, var = _RowBatchNormFn.apply(x, self.weight, self.bias, self.eps)
+        if not self.update_running_stats:
+            return cast_to(out, dt)
         with torch.no_grad():
             self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
             self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
         return cast_to(out, dt)
+
+
+@contextlib.contextmanager
+def running_stats_frozen(module: nn.Module):
+    """Within the block, the train-mode BatchNorms of `module` normalize by
+    their batch statistics and leave their running statistics unchanged."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.update_running_stats = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.update_running_stats = True
 
 
 def lecun_normal_(weight: torch.Tensor, generator: torch.Generator | None = None) -> None:

@@ -8,17 +8,25 @@ Float32 runs as float32: TF32 is off for matmuls and cuDNN convolutions
 `checkpoint=<name>` resumes a run (weights, optimizer, schedule, epoch);
 without it, `init_weights_from=<file>` warm-starts from the weights of
 another run's checkpoint, as the JAX trainer does (trainer.py:91-121).
+
+`training.device_cache` (`auto`, `true`) trains and validates from a split
+held on the device (`data/device_cache.py`), with JAX's fallbacks: `auto`
+takes the host loader when the cache cannot serve the config, `true` only
+when the split would not fit; the val-IoU pass keeps the host loader.
 """
 
 from __future__ import annotations
 
 import os
 import time
+from typing import Iterator
 
 import numpy as np
 import torch
 
 from ..config.engine import Config
+from ..data.device_cache import CacheFitError
+from ..data.loader import device_prefetch
 from ..device import resolve_device, set_tf32
 from ..utils.checkpoint import CheckpointManager, save_best_and_latest, smart_restore_params
 from ..utils.logger import make_logger
@@ -26,12 +34,9 @@ from ..utils.seeding import seed_everything
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise on the options this slice of the port does not run yet."""
-    dc = str(cfg.training.get("device_cache") or "false").lower()
-    if dc in ("auto", "true", "1"):
-        raise NotImplementedError("training.device_cache: ROADMAP 'Port queue' item 'Device cache'")
-    if bool(cfg.training.get("remat") or False):
-        raise NotImplementedError("training.remat: ROADMAP 'Port queue' item 'Activation recomputation'")
+    """Raise on the options this slice of the port does not run yet (none
+    of the training block's since `training.device_cache` and
+    `training.remat` were ported)."""
 
 
 class Trainer:
@@ -47,9 +52,42 @@ class Trainer:
             "val_iou": float(cfg.training.best_val_iou),
         }
         self.start_epoch = int(cfg.experiment.model.start_epoch)
+        self.cache = None  # the device cache's {"train", "val"}, set up by `make_device_caches`
 
     # subclasses implement: setup / train_one_epoch / val_one_epoch /
     # predict_and_eval
+
+    def make_device_caches(self, build) -> dict | None:
+        """{"train": build("train"), "val": build("val")} under
+        `training.device_cache` (auto, true), else None (JAX
+        trainer_*.py set-up): `auto` falls back to the host loader on
+        NotImplementedError or ValueError, `true` only on CacheFitError."""
+        dc = str(self.cfg.training.get("device_cache") or "false").lower()
+        if dc not in ("auto", "true", "1"):
+            return None
+        try:
+            return {"train": build("train"), "val": build("val")}
+        except (NotImplementedError, ValueError) as e:
+            if dc != "auto" and not isinstance(e, CacheFitError):
+                raise
+            self.logger.warning(f"device cache unavailable ({e}); host loader")
+            return None
+
+    def epoch_batches(self, split: str, epoch: int, keys: tuple) -> Iterator[dict]:
+        """The `keys` leaves of one epoch's batches on the device: from the
+        device cache when there is one, else from the host loader one batch
+        ahead (`device_prefetch`)."""
+        if self.cache:
+            return ({k: b[k] for k in keys if k in b} for b in self.cache[split].epoch_batches(epoch))
+        if split == "val":
+            return device_prefetch(self.val_loader, self.device, keys)
+        self.train_loader.set_epoch(epoch)
+        return device_prefetch(self.train_loader, self.device, keys)
+
+    def steps_per_epoch(self) -> int:
+        """Train steps per epoch, for the schedule: the cache's when there is
+        one (it drops the last partial batch; the host loader pads it)."""
+        return len(self.cache["train"]) if self.cache else len(self.train_loader)
 
     def train(self) -> dict:
         from ..utils.experiment_log import RunLogger

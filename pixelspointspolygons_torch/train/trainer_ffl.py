@@ -6,7 +6,9 @@ train/trainer_ffl.py:38-59, :244-253).
 
 Batches reach the device one step ahead, from pinned memory, with the
 ground-truth maps rounded to float16 as JAX ships them
-(`data.loader.device_prefetch`, `F16_KEYS`). The model computes in
+(`data.loader.device_prefetch`, `F16_KEYS`), or come from the device cache
+(`training.device_cache`), whose rasters are not rounded, as in JAX's
+cache. The model computes in
 `host.compute_dtype` (float32 or bfloat16) with float32 parameters; the
 losses widen its outputs to float32, and Adam's update is float32. With
 `loss.multi.normalize` the running norms are updated once per epoch from
@@ -19,7 +21,8 @@ from __future__ import annotations
 
 import torch
 
-from ..data.loader import INPUT_KEYS, build_loader, device_prefetch
+from ..data.device_cache import FFLDeviceCache
+from ..data.loader import INPUT_KEYS, build_loader
 from ..eval.metrics import compute_iou_ciou
 from ..models.ffl import build_ffl
 from ..models.ffl.losses import LossNormTracker, make_ffl_loss
@@ -41,10 +44,13 @@ class FFLTrainer(Trainer):
         m = cfg.experiment.model
         self.train_loader = build_loader(cfg, "train")
         self.val_loader = build_loader(cfg, "val")
+        self.cache = self.make_device_caches(lambda split: FFLDeviceCache(cfg, split, self.device))
+        if cfg.training.get("remat"):
+            self.logger.info("training.remat has no effect on FFL: only HiSup's step recomputes, as in JAX")
 
         model = build_ffl(cfg, device=self.device, generator=self.generator, dtype=compute_dtype(cfg))
         apply_pretrained_encoder(cfg, model, self.logger)
-        total_steps = len(self.train_loader) * int(m.num_epochs)
+        total_steps = self.steps_per_epoch() * int(m.num_epochs)
         base_lr = float(m.learning_rate)
         optimizer = make_optimizer("adam", model.parameters(), base_lr)
         self.state = TrainState(model, optimizer, make_scheduler(optimizer, cosine_with_warmup(base_lr, total_steps),
@@ -65,11 +71,8 @@ class FFLTrainer(Trainer):
     def train_one_epoch(self, epoch: int) -> dict:
         weights = self._weights_for_epoch(epoch)
         norms = self._norm_tracker.norms() if self._normalize else None
-        self.train_loader.set_epoch(epoch)
-        records = [
-            self._train_step(self.state, batch, weights, norms)
-            for batch in device_prefetch(self.train_loader, self.device, FFL_BATCH_KEYS)
-        ]
+        records = [self._train_step(self.state, batch, weights, norms)
+                   for batch in self.epoch_batches("train", epoch, FFL_BATCH_KEYS)]
         summary = self.summarize_deferred(records)
         if self._normalize:
             self._norm_tracker.update({k: v for k, v in summary.items() if k != "loss"})
@@ -77,10 +80,8 @@ class FFLTrainer(Trainer):
 
     def val_one_epoch(self, epoch: int) -> dict:
         weights = self._weights_for_epoch(epoch)
-        records = [
-            self._val_step(self.state, batch, weights)
-            for batch in device_prefetch(self.val_loader, self.device, FFL_BATCH_KEYS)
-        ]
+        records = [self._val_step(self.state, batch, weights)
+                   for batch in self.epoch_batches("val", epoch, FFL_BATCH_KEYS)]
         return self.summarize_deferred(records)
 
     def predict_and_eval(self, epoch: int) -> float:

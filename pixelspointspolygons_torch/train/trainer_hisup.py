@@ -4,7 +4,9 @@ pixelspointspolygons_tpu/train/trainer_hisup.py (reference
 train/trainer_hisup.py:31-63).
 
 Batches reach the device one step ahead, from pinned memory
-(`data.loader.device_prefetch`). The model computes in
+(`data.loader.device_prefetch`), or come from the device cache
+(`training.device_cache`, `data/device_cache.py`). `training.remat`
+recomputes the forward in the backward (`hisup_step.py`). The model computes in
 `host.compute_dtype` (float32 or bfloat16) with float32 parameters; the
 targets, the losses and AdamW's update stay float32. A configured HRNet
 checkpoint is grafted in right after the model is built
@@ -15,7 +17,8 @@ from __future__ import annotations
 
 import torch
 
-from ..data.loader import INPUT_KEYS, build_loader, device_prefetch
+from ..data.device_cache import HiSupDeviceCache
+from ..data.loader import INPUT_KEYS, build_loader
 from ..eval.metrics import compute_iou_ciou
 from ..models.hisup.factory import build_hisup
 from ..parallel import all_gather_objects
@@ -36,10 +39,11 @@ class HiSupTrainer(Trainer):
         m = cfg.experiment.model
         self.train_loader = build_loader(cfg, "train")
         self.val_loader = build_loader(cfg, "val")
+        self.cache = self.make_device_caches(lambda split: HiSupDeviceCache(cfg, split, self.device))
 
         model = build_hisup(cfg, device=self.device, generator=self.generator, dtype=compute_dtype(cfg))
         apply_pretrained_encoder(cfg, model, self.logger)
-        total_steps = len(self.train_loader) * int(m.num_epochs)
+        total_steps = self.steps_per_epoch() * int(m.num_epochs)
         base_lr = float(m.learning_rate)
         schedule = cosine_with_warmup(base_lr, total_steps)
         optimizer = make_optimizer("adamw", model.parameters(), base_lr, weight_decay=float(m.weight_decay))
@@ -50,7 +54,7 @@ class HiSupTrainer(Trainer):
 
         weights = {k: float(v) for k, v in m.loss_weights.items()}
         size = int(m.decoder.in_feature_size)
-        self._train_step = make_train_step(weights, size)
+        self._train_step = make_train_step(weights, size, remat=bool(cfg.training.get("remat") or False))
         self._val_step = make_val_step(weights, size)
 
         # the val IoU's predictor shares the model; as in the JAX trainer
@@ -63,18 +67,11 @@ class HiSupTrainer(Trainer):
         self._predictor.dp_tolerance = 1.0
 
     def train_one_epoch(self, epoch: int) -> dict:
-        self.train_loader.set_epoch(epoch)
-        records = [
-            self._train_step(self.state, batch)
-            for batch in device_prefetch(self.train_loader, self.device, _DEV_KEYS)
-        ]
+        records = [self._train_step(self.state, batch) for batch in self.epoch_batches("train", epoch, _DEV_KEYS)]
         return self.summarize_deferred(records)
 
     def val_one_epoch(self, epoch: int) -> dict:
-        records = [
-            self._val_step(self.state, batch)
-            for batch in device_prefetch(self.val_loader, self.device, _DEV_KEYS)
-        ]
+        records = [self._val_step(self.state, batch) for batch in self.epoch_batches("val", epoch, _DEV_KEYS)]
         return self.summarize_deferred(records)
 
     def predict_and_eval(self, epoch: int) -> float:

@@ -4,7 +4,8 @@
 - AdamW with β = (0.9, 0.95) and a linear warmup-decay with 5 % warmup;
 - CE (PAD left out) + Sinkhorn BCE, weighted by the config (`pix2poly_step.py`);
 - a teacher-forced train epoch and a val-loss epoch, batches reaching the
-  device one step ahead from pinned memory (`data.loader.device_prefetch`);
+  device one step ahead from pinned memory (`data.loader.device_prefetch`)
+  or coming from the device cache (`training.device_cache`);
 - every `val_every` epochs the val split greedy-decoded (early exit, raw
   scores), assembled into polygons and scored, at the model's compute
   dtype, through a predictor that shares the model.
@@ -19,7 +20,8 @@ visualization'.
 
 from __future__ import annotations
 
-from ..data.loader import INPUT_KEYS, build_loader, device_prefetch
+from ..data.device_cache import P2PDeviceCache
+from ..data.loader import INPUT_KEYS, build_loader
 from ..eval.metrics import compute_iou_ciou
 from ..models.pix2poly import Tokenizer, build_pix2poly
 from ..parallel import all_gather_objects
@@ -41,11 +43,14 @@ class Pix2PolyTrainer(Trainer):
         self.tokenizer = Tokenizer(cfg)
         self.train_loader = build_loader(cfg, "train", tokenizer=self.tokenizer)
         self.val_loader = build_loader(cfg, "val", tokenizer=self.tokenizer)
+        self.cache = self.make_device_caches(lambda split: P2PDeviceCache(cfg, split, self.tokenizer, self.device))
+        if cfg.training.get("remat"):
+            self.logger.info("training.remat has no effect on Pix2Poly: only HiSup's step recomputes, as in JAX")
 
         model = build_pix2poly(cfg, self.tokenizer, device=self.device, generator=self.generator,
                                dtype=compute_dtype(cfg))
         apply_pretrained_encoder(cfg, model, self.logger)
-        total_steps = len(self.train_loader) * int(m.num_epochs)
+        total_steps = self.steps_per_epoch() * int(m.num_epochs)
         base_lr = float(m.learning_rate)
         schedule = linear_warmup_decay(base_lr, total_steps, 0.05)
         optimizer = make_optimizer("adamw", model.parameters(), base_lr, weight_decay=float(m.weight_decay), b2=0.95)
@@ -60,18 +65,12 @@ class Pix2PolyTrainer(Trainer):
         self._predictor = Pix2PolyPredictor(cfg, device=self.device, model=model)
 
     def train_one_epoch(self, epoch: int) -> dict:
-        self.train_loader.set_epoch(epoch)
-        records = [
-            self._train_step(self.state, batch, self.generator)
-            for batch in device_prefetch(self.train_loader, self.device, _DEV_KEYS)
-        ]
+        records = [self._train_step(self.state, batch, self.generator)
+                   for batch in self.epoch_batches("train", epoch, _DEV_KEYS)]
         return self.summarize_deferred(records)
 
     def val_one_epoch(self, epoch: int) -> dict:
-        records = [
-            self._val_step(self.state, batch)
-            for batch in device_prefetch(self.val_loader, self.device, _DEV_KEYS)
-        ]
+        records = [self._val_step(self.state, batch) for batch in self.epoch_batches("val", epoch, _DEV_KEYS)]
         return self.summarize_deferred(records)
 
     def predict_and_eval(self, epoch: int) -> float:

@@ -174,9 +174,12 @@ def test_cli_other_models_not_ported(experiment, tmp_path, monkeypatch):
 @pytest.mark.parametrize(
     "override,item",
     [
-        ("training.device_cache=true", "Device cache"),
-        ("training.device_cache=auto", "Device cache"),
-        ("training.remat=true", "Activation recomputation"),
+        # the device cache and remat once named items 'Device cache' and
+        # 'Activation recomputation'; both are ported
+        # (tests/test_torch_device_cache.py)
+        pytest.param("training.device_cache=true", None, id="training.device_cache=true-Device cache"),
+        pytest.param("training.device_cache=auto", None, id="training.device_cache=auto-Device cache"),
+        pytest.param("training.remat=true", None, id="training.remat=true-Activation recomputation"),
         # FFL at bfloat16 once named item 'FFL'; every family now runs at it
         # (tests/test_torch_ffl_bf16.py, test_torch_hisup_bf16.py, test_torch_bf16.py)
         pytest.param("experiment.model.name=ffl host.compute_dtype=bfloat16", None,
