@@ -20,17 +20,17 @@ fails:
      time, peak memory, the host loader's time per batch, the step cut at
      its layers with its convolutions' operation rate, and the trained
      model's output on the card against the same model on the CPU;
-  5. the predict path: the 64-tile test split predicted from the training's
+  5. the predict path: the 32-tile test split predicted from the training's
      `latest` checkpoint and evaluated through `cli/predict.py`'s functions,
      with the counters set to 0 just before and read just after (it
      launches no kernel of the port); tiles per second, each batch's device
      time (forward + junction extraction, CUDA events), host-stage time and
      wall time, the metric dict; 4 tiles' maps on the card against the
      CPU's and the junction candidates of the same maps on both; the host
-     stage alone on the ground-truth masks and corners of the 64 tiles;
+     stage alone on the ground-truth masks and corners of the 32 tiles;
   6. the Pix2Poly predict path: a seeded random Pix2Poly-image at full width
      (ViT-S/8 at 224 px, 6-layer decoder, 192 vertex slots) written as
-     `latest` in the trainer's format, the 64-tile test split predicted and
+     `latest` in the trainer's format, the 32-tile test split predicted and
      evaluated through `cli/predict.py`'s functions with the counters set to
      0 just before and read just after (no kernel of the port runs: 0 AFM
      launches); tiles per second, each batch's device time cut into encoder,
@@ -58,7 +58,7 @@ fails:
   8. the same training at bfloat16 (`host.compute_dtype=bfloat16`) from the
      same initial weights, its first step's losses against the float32
      run's;
-  9. Pix2Poly prediction at bfloat16 of the 64-tile test split from that
+  9. Pix2Poly prediction at bfloat16 of the 32-tile test split from that
      training's `latest`, with the counters set to 0 just before and read
      just after, timed per batch as in 6; on 2 tiles the card's bfloat16
      against the CPU's (encoder tokens, decode tokens outside near-ties,
@@ -89,7 +89,7 @@ fails:
  14. the FFL predict path: a seeded random FFL-image at full width (ViT-S/8
      at 224 px, `ViTCNNEncoder`, heads of width 256; its seg head shifted
      and sharpened so that its maps have contours) written as `latest`, the
-     64-tile test split predicted and evaluated through `cli/predict.py`'s
+     32-tile test split predicted and evaluated through `cli/predict.py`'s
      functions with the counters set to 0 just before and read just after
      (0 AFM launches, 0 failed batches, the four prediction files); tiles
      per second, each batch's forward (CUDA events), contours (host), ACM
@@ -134,7 +134,7 @@ fails:
      gradients); one bfloat16 step from the same weights on the same batch,
      its losses against the float32 run's first;
  18. Pix2Poly early-fusion prediction (`experiment=p2p_fusion`) of the
-     64-tile test split from a seeded random model, through
+     32-tile test split from a seeded random model, through
      `cli/predict.py`'s functions (0 AFM launches): tiles/s, the encoder's
      ms per batch, the encoder tokens on 2 tiles on the card against the
      CPU;
@@ -159,16 +159,34 @@ fails:
      against one without from the same weights on the same batch (losses,
      gradients, BatchNorm buffers, peak and ms); one hisup_fusion step with
      remat (peak); Pix2Poly-image from the cache (0 AFM launches).
-They run in the order 1-5, 10-15, 6-9, 16-21. The line before the last is the
+ 22. data parallel on the one card (`parallel.py`, the synchronised
+     BatchNorms of `models/layers.py`, DDP), the script's own process
+     joining a group of one over NCCL for each DDP step and leaving it
+     after: HiSup-image at float32, one DDP step against two plain steps
+     from the same weights on the same batch (losses, gradients, every
+     BatchNorm buffer), then 4 turns each of DDP and plain steps in turns
+     (median ms, peak, the collectives of a DDP step: two per BatchNorm, an
+     all-gather and an all-reduce, and DDP's gradient buckets; 2 AFM
+     launches a DDP turn); Pix2Poly-image and
+     FFL-image, one DDP step against one plain step (losses, ms, peak, 0
+     AFM launches); two gloo ranks on the one card, spawned here, running
+     the tiny HRNet HiSup and the tiny fusion Pix2Poly on the two halves
+     of a batch against the one-process step on the whole batch on the
+     card; ROADMAP 3.16's float32 gradient against float64 on the card
+     and the CPU.
+They run in the order 1-5, 10-15, 6-9, 16-22. The line before the last is the
 card's name and power limit, the one before it a JSON object with every
 kernel's numbers; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import importlib
 import json
 import math
+import multiprocessing
 import os
 import shutil
 import statistics
@@ -201,7 +219,7 @@ AFM_OPS_PER_PAIR_UNSHARED = 18
 
 B, L, S = 16, 256, 224
 TRAIN_STEPS, VAL_STEPS = 4, 1
-TEST_TILES = 64  # 4 batches: the predictor's one batch in flight runs
+TEST_TILES = 32  # 2 batches: the predictor's one batch in flight runs
 # the card's probability maps against the CPU's: the training phase holds
 # the raw outputs to 1e-3 of their range, and a softmax or sigmoid moves
 # by less than its input does
@@ -420,6 +438,45 @@ LIDAR_STEP_DTYPE = {"p2p_lidar": "float32", "hisup_fusion": "float32", "ffl_lida
 FFL_CACHE_LOSS_TOL, FFL_CACHE_NOISELESS_TOL = 5e-2, 5e-3
 CACHE_IMAGE_TOL = 1e-5
 REMAT_LOSS_TOL, REMAT_GRAD_TOL, REMAT_STATS_TOL, REMAT_NOISE_FACTOR = 1e-6, 1e-5, 1e-6, 10.0
+# Data parallel (phase 22), one card:
+# - HiSup-image at world size 1 over NCCL (DDP and the synchronised
+#   BatchNorms, `parallel.py`, `models/layers.py`) against the plain step
+#   from the same weights on the same batch: losses within DDP_LOSS_TOL
+#   relative, every BatchNorm buffer within DDP_STATS_TOL relative to its
+#   largest value. The gradient is not held to the plain step's: the
+#   synchronised layers sum in another order than cuDNN's batch norm, and
+#   the float32 gradient through 323 BatchNorms carries each order's
+#   rounding (9.05e-3 between the two at batch 16 where two plain steps
+#   read 3.15e-6 apart on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md). Each is held
+#   against the float64 gradient of the same step on the batch's first
+#   DDP_EXACT_ROWS tiles (float64 at batch 16 would not fit): the DDP
+#   step's no farther from it than DDP_EXACT_FACTOR times the plain step's
+#   plus DDP_EXACT_FLOOR, as tests/test_torch_ddp.py holds the CPU's (an
+#   error in the synchronised backward moves the gradient by O(1): the
+#   unsynchronised control there reads 1.1);
+# - Pix2Poly-image and FFL-image: the first DDP step's losses against the
+#   plain step's from the same weights, DDP_LOSS_TOL;
+# - two gloo ranks on the one card, each on its half of a batch of 8, the
+#   tiny HRNet HiSup and the tiny fusion Pix2Poly of `graft_entry_torch.py`
+#   (HiSup at DDP_TINY_SIZE px) against the one-process step on the whole
+#   batch on the card: in float32 the losses and buffers (the bounds
+#   above), in float64 the gradient within DDP64_GRAD_TOL in relative L2,
+#   or DDP_NOISE_FACTOR times two one-process steps' own distance where
+#   that is larger (the voxelizer's float32 centroid sums are atomic:
+#   Pix2Poly's float64 gradient reads 1.2e-7 to 1.5e-7 from the
+#   one-process step's, PERF.md). Not in float32: a ReLU input within a rounding
+#   of 0 takes either side with the order of a sum, and one such element
+#   moves a tiny model's gradient by 1e-2 (tests/test_torch_ddp.py holds
+#   the same cases to JAX and to float64 on the CPU);
+# - ROADMAP 3.16: the tiny HRNet HiSup's float32 gradient against its
+#   float64 gradient at DRIFT_SIZE px, batch 2, on the card (cuDNN, TF32
+#   off) and on the CPU (one thread and the thread pool), printed.
+DDP_LOSS_TOL, DDP_STATS_TOL, DDP_NOISE_FACTOR = 1e-5, 1e-5, 10.0
+DDP_EXACT_ROWS, DDP_EXACT_FACTOR, DDP_EXACT_FLOOR = 4, 2.0, 1e-5
+DDP_TURNS = 4
+DDP_TINY_SIZE, DDP_TINY_ROWS = 32, 8
+DDP64_GRAD_TOL = 1e-9
+DRIFT_SIZE = 64
 
 
 def fail(msg: str) -> None:
@@ -2952,7 +3009,7 @@ def phase_hisup_lidar_train(overrides: list[str]) -> dict:
 
 def phase_p2p_fusion_predict(overrides: list[str]) -> dict:
     """Phase 18: Pix2Poly early-fusion prediction (early_fusion_vit at full
-    width) of the 64-tile test split from a seeded random model written as
+    width) of the 32-tile test split from a seeded random model written as
     `latest`, through the functions `cli/predict.py::main` calls, with the
     counters set to 0 just before and read just after (0 AFM launches);
     tiles per second and the encoder's ms per batch; on P2P_CPU_TILES tiles
@@ -3532,6 +3589,388 @@ def phase_device_cache(ffl_overrides: list[str], p2p_overrides: list[str], smi: 
     return {"ffl": ffl, "card_cpu": card_cpu, "hisup_lidar": lidar, "hisup_fusion": fusion, "p2p": p2p}
 
 
+# --- data parallel (phase 22) ---------------------------------------------------------
+
+
+@contextlib.contextmanager
+def world_of_one(dev: torch.device):
+    """A process group of this one process for the block (NCCL on the card,
+    gloo on the CPU): the port's data-parallel path at world size 1."""
+    from pixelspointspolygons_torch.parallel import destroy_distributed, free_port, init_distributed
+
+    init_distributed(dev.type, world_size=1, rank=0, init_method=f"tcp://127.0.0.1:{free_port()}")
+    try:
+        yield
+    finally:
+        destroy_distributed()
+
+
+def unwrap(state) -> None:
+    """Drop the DDP wrapper (and its reducer's hooks) before the group goes."""
+    state.ddp = None
+    gc.collect()
+
+
+def timed_step(trainer, batch: dict, args: tuple) -> tuple[dict, float, int]:
+    """(metrics, ms, peak bytes) of one train step of the trainer."""
+    dev = trainer.device
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    metrics = {k: float(v) for k, v in trainer._train_step(trainer.state, batch, *args).items()}
+    sync(dev)
+    ms = (time.perf_counter() - t) * 1e3
+    return metrics, ms, torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+
+
+def ddp_turn(trainer, batch: dict, args: tuple) -> dict:
+    """Under a group of one: DDP around the model (as the trainers' set-up
+    puts it under a group), one step (DDP builds its buckets in the first
+    backward), then one timed step with the collectives it issued and the
+    AFM launches of both steps."""
+    from pixelspointspolygons_torch import parallel
+    from pixelspointspolygons_torch.ops.afm import afm_cuda
+
+    with world_of_one(trainer.device):
+        trainer.state.wrap()
+        afm_cuda.launches = 0
+        trainer._train_step(trainer.state, batch, *args)
+        parallel.collectives.clear()
+        metrics, ms, peak = timed_step(trainer, batch, args)
+        out = {"metrics": metrics, "ms": ms, "peak": peak, "collectives": dict(parallel.collectives),
+               "launches": afm_cuda.launches}
+        unwrap(trainer.state)
+    return out
+
+
+def plain_turn(trainer, batch: dict, args: tuple) -> dict:
+    metrics, ms, peak = timed_step(trainer, batch, args)
+    return {"metrics": metrics, "ms": ms, "peak": peak}
+
+
+def first_steps(trainer, batch: dict, args: tuple, plain_runs: int) -> list:
+    """From the same weights on the same batch: one step at world size 1
+    through DDP, then `plain_runs` plain steps; each gives (metrics,
+    gradients, buffers)."""
+    state = trainer.state
+    sd = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    out = []
+    for ddp in [True] + [False] * plain_runs:
+        state.model.load_state_dict(sd)
+        with world_of_one(trainer.device) if ddp else contextlib.nullcontext():
+            if ddp:
+                state.wrap()
+            metrics = {k: float(v) for k, v in trainer._train_step(state, batch, *args).items()}
+            if ddp:
+                unwrap(state)
+        out.append((metrics, {n: p.grad.detach().clone() for n, p in state.model.named_parameters()},
+                    {n: b.detach().clone() for n, b in state.model.named_buffers()}))
+    state.model.load_state_dict(sd)
+    return out
+
+
+def step_gaps(a: tuple, b: tuple) -> tuple[float, float, float]:
+    """(losses, gradients, buffers) of step b against step a: the largest
+    relative loss difference, the gradient's relative L2, the largest
+    buffer difference relative to the buffer's largest value."""
+    loss = max(abs(b[0][k] / a[0][k] - 1.0) for k in a[0])
+    return loss, grad_rel_l2(b[1], a[1]), max(
+        (float((b[2][k] - a[2][k]).abs().max() / a[2][k].abs().max().clamp(min=1e-12)) for k in a[2]), default=0.0)
+
+
+def grad_rel_l2(got: dict, want: dict) -> float:
+    return (sum(float(((got[k].double().cpu() - want[k].double().cpu()) ** 2).sum()) for k in want)
+            / sum(float((want[k].double() ** 2).sum()) for k in want)) ** 0.5
+
+
+def hisup_loss_grads(model, batch: dict, size: int, weights: dict, dtype: torch.dtype) -> dict:
+    """The gradient of HiSup's five weighted losses (the train step's) of
+    `model` in `dtype` on `batch`, its targets from the float32 batch (the
+    AFM kernel takes float32) widened to `dtype`; on the CPU."""
+    from pixelspointspolygons_torch.models.hisup.model import encode_targets, hisup_losses
+
+    targets = {k: v.to(dtype) if v.is_floating_point() else v for k, v in encode_targets(batch, size).items()}
+    model.train().zero_grad(set_to_none=True)
+    losses = hisup_losses(model({"images": batch["images"].to(dtype)}), targets)
+    sum(weights[k] * v for k, v in losses.items()).backward()
+    return {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+
+
+def against_exact(what: str, ddp: dict, plain: dict, exact: dict) -> dict:
+    """The DDP step's float32 gradient no farther from the float64 one than
+    DDP_EXACT_FACTOR times the plain float32 step's, plus DDP_EXACT_FLOOR."""
+    got, base = grad_rel_l2(ddp, exact), grad_rel_l2(plain, exact)
+    tol = DDP_EXACT_FACTOR * base + DDP_EXACT_FLOOR
+    print(f"{what}: gradient against float64, relative L2: DDP {got:.3g}, plain {base:.3g} (tol {tol:.3g}); DDP "
+          f"against plain {grad_rel_l2(ddp, plain):.3g}", flush=True)
+    if got > tol:
+        fail(f"{what}: the DDP step's gradient lies {got} from float64, the plain step's {base}")
+    return {"ddp": got, "plain": base}
+
+
+def ddp_against_plain(what: str, ddp: tuple, plain: tuple, again: tuple) -> dict:
+    """The DDP step's losses and BatchNorm buffers against the plain step's
+    from the same weights on the same batch (its gradient printed beside
+    the two plain steps' own distance: `against_exact` holds it)."""
+    noise = step_gaps(plain, again)
+    loss, grad, stats = step_gaps(plain, ddp)
+    print(f"{what}: the DDP step against the plain step from the same weights on the same batch: losses rel diff "
+          f"{loss:.3g} (tol {DDP_LOSS_TOL}), BatchNorm buffers rel diff {stats:.3g} (tol {DDP_STATS_TOL}), gradients "
+          f"rel L2 {grad:.3g} (two plain steps read {noise[1]:.3g} apart, losses {noise[0]:.3g}, buffers "
+          f"{noise[2]:.3g})", flush=True)
+    if not (loss <= DDP_LOSS_TOL and stats <= DDP_STATS_TOL):
+        fail(f"{what}: the DDP step differs from the plain one: losses {loss}, buffers {stats}")
+    return {"loss_err": loss, "grad_err": grad, "stats_err": stats, "noise": noise}
+
+
+def ddp_trainer(cls, cfg, keys: tuple, dev: torch.device):
+    """The trainer's set-up without a group (its model bare), its first
+    train batch on the device and the train step's extra arguments."""
+    from pixelspointspolygons_torch.data.loader import device_prefetch
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    trainer = cls(cfg, device=dev)
+    trainer.generator = torch.Generator(device=dev).manual_seed(int(cfg.get("seed", 42)))
+    trainer.setup()
+    batch = next(iter(device_prefetch(trainer.train_loader, dev, keys)))
+    name = cfg.experiment.model.name
+    args = (trainer._weights_for_epoch(0),) if name == "ffl" else (trainer.generator,) if name == "pix2poly" else ()
+    return trainer, batch, args
+
+
+def ddp_hisup(overrides: list[str], smi: str, dev: torch.device = CARD) -> dict:
+    """HiSup-image float32 at world size 1 over NCCL against the plain step:
+    the first step from the same weights, then DDP_TURNS turns each of DDP
+    and plain, in turns (median ms, peak, collectives per step, AFM
+    launches)."""
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.models.hisup.factory import build_hisup
+    from pixelspointspolygons_torch.models.layers import BatchNorm
+    from pixelspointspolygons_torch.train.trainer_hisup import _DEV_KEYS, HiSupTrainer
+
+    cfg = compose(overrides + ["host.compute_dtype=float32"])
+    trainer, batch, args = ddp_trainer(HiSupTrainer, cfg, _DEV_KEYS, dev)
+    n_norms = sum(isinstance(m, BatchNorm) for m in trainer.state.model.modules())
+    ddp, plain, again = first_steps(trainer, batch, args, 2)
+    check = ddp_against_plain(f"hisup_image (float32, world size 1, batch {B})", ddp, plain, again)
+    del ddp, plain, again
+    # the gradients against float64's, on the batch's first DDP_EXACT_ROWS tiles
+    small = {k: v[:DDP_EXACT_ROWS] for k, v in batch.items()}
+    (_, ddp, _), (_, plain, _) = first_steps(trainer, small, args, 1)
+    model64 = build_hisup(cfg, device=dev, dtype=torch.float64).double()
+    model64.load_state_dict(trainer.state.model.state_dict())
+    weights = {k: float(v) for k, v in cfg.experiment.model.loss_weights.items()}
+    exact = hisup_loss_grads(model64, small, int(cfg.experiment.model.decoder.in_feature_size), weights,
+                             torch.float64)
+    check["exact"] = against_exact(f"hisup_image (float32, world size 1, batch {DDP_EXACT_ROWS})", ddp, plain, exact)
+    del ddp, plain, exact, model64
+    turns = {"ddp": [], "plain": []}
+    for _ in range(DDP_TURNS):
+        turns["ddp"].append(ddp_turn(trainer, batch, args))
+        turns["plain"].append(plain_turn(trainer, batch, args))
+    with world_of_one(dev):
+        trainer.state.wrap()
+        profiles = {"ddp": profile_call(lambda: trainer._train_step(trainer.state, batch, *args),
+                                        "hisup_image DDP step (world size 1)", top=12)}
+        unwrap(trainer.state)
+    profiles["plain"] = profile_call(lambda: trainer._train_step(trainer.state, batch, *args),
+                                     "hisup_image plain step", top=12)
+    coll = turns["ddp"][-1]["collectives"]
+    launches = sum(t["launches"] for t in turns["ddp"])
+    out = {kind: {"ms": [t["ms"] for t in ts], "peak": max(t["peak"] for t in ts)} for kind, ts in turns.items()}
+    med = {kind: statistics.median(v["ms"]) for kind, v in out.items()}
+    print(f"hisup_image data parallel (float32, batch {B}, world size 1): DDP step {med['ddp']:.1f} ms "
+          f"{[round(x, 1) for x in out['ddp']['ms']]}, plain step {med['plain']:.1f} ms "
+          f"{[round(x, 1) for x in out['plain']['ms']]} (in turns), +{100 * (med['ddp'] / med['plain'] - 1):.2f} %; "
+          f"peak {out['ddp']['peak'] / 2**30:.2f} and {out['plain']['peak'] / 2**30:.2f} GiB; collectives per DDP "
+          f"step {coll} ({n_norms} BatchNorms); afm launches in the DDP steps {launches}; card {smi}", flush=True)
+    if coll.get("batch_norm") != 2 * n_norms or not coll.get("bucket"):
+        fail(f"hisup DDP step: collectives {coll}, expected 2 per BatchNorm ({n_norms}) and the gradient buckets")
+    if launches != (2 * DDP_TURNS if dev.type == "cuda" else 0):
+        fail(f"hisup DDP steps launched the afm kernel {launches} times, expected {2 * DDP_TURNS}")
+    del trainer, batch
+    return {**out, "median_ms": med, "collectives": coll, "n_norms": n_norms, "launches": launches, "check": check,
+            "profiles": profiles}
+
+
+def ddp_one_step(name: str, overrides: list[str], smi: str, dev: torch.device = CARD) -> dict:
+    """Pix2Poly-image or FFL-image float32: the first DDP step's losses
+    against the plain step's from the same weights, then one plain and one
+    DDP turn (ms, peak)."""
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.train import trainer_ffl, trainer_pix2poly
+
+    cls, keys = ((trainer_pix2poly.Pix2PolyTrainer, trainer_pix2poly._DEV_KEYS) if name == "pix2poly"
+                 else (trainer_ffl.FFLTrainer, trainer_ffl.FFL_BATCH_KEYS))
+    cfg = compose(overrides + ["host.compute_dtype=float32"])
+    trainer, batch, args = ddp_trainer(cls, cfg, keys, dev)
+    (ddp, _, _), (plain, _, _) = first_steps(trainer, batch, args, 1)
+    loss = max(abs(ddp[k] / plain[k] - 1.0) for k in plain)
+    turns = {"plain": plain_turn(trainer, batch, args), "ddp": ddp_turn(trainer, batch, args)}
+    print(f"{name} data parallel (float32, batch {B}, world size 1): DDP step {turns['ddp']['ms']:.1f} ms, plain step "
+          f"{turns['plain']['ms']:.1f} ms; peak {turns['ddp']['peak'] / 2**30:.2f} and "
+          f"{turns['plain']['peak'] / 2**30:.2f} GiB; collectives per DDP step {turns['ddp']['collectives']}; first "
+          f"step losses DDP {ddp} against plain {plain}, rel diff {loss:.3g} (tol {DDP_LOSS_TOL}); afm launches "
+          f"{turns['ddp']['launches']}; card {smi}", flush=True)
+    if loss > DDP_LOSS_TOL or turns["ddp"]["launches"]:
+        fail(f"{name} DDP step: losses {loss} from the plain step's, {turns['ddp']['launches']} afm launches")
+    del trainer, batch
+    return {"loss_err": loss, **{k: {"ms": v["ms"], "peak": v["peak"]} for k, v in turns.items()},
+            "launches": turns["ddp"]["launches"], "collectives": turns["ddp"]["collectives"]}
+
+
+def tiny_cases() -> dict:
+    """The two tiny models of the gloo check and their global batches:
+    {name: (family, batch)}; the Pix2Poly halves hold 13 and 5 targets a row."""
+    import graft_entry_torch as entry
+
+    hisup = entry.dryrun_batches(DDP_TINY_ROWS, size=DDP_TINY_SIZE)["hisup"]
+    p2p = entry.dryrun_batches(DDP_TINY_ROWS, seed=1)["pix2poly"]
+    r = np.random.RandomState(2)
+    p2p["y"][:] = 34
+    p2p["y"][:, 0] = 32
+    for b in range(DDP_TINY_ROWS):
+        n = 12 if b < DDP_TINY_ROWS // 2 else 4
+        p2p["y"][b, 1:n + 1] = r.randint(0, 32, n)
+        p2p["y"][b, n + 1] = 33
+    return {"hisup_hrnet": ("hisup", hisup), "pix2poly_fusion": ("pix2poly", p2p)}
+
+
+def tiny_step(family: str, batch: dict, dev: torch.device, dtype: torch.dtype = torch.float32) -> tuple:
+    """One train step of the tiny model of `family` (weights from seed 0
+    on the CPU) computing in `dtype` on `batch` (numpy, float32: the
+    targets' AFM takes float32) on `dev`, through DDP under a group:
+    (global metrics, gradients, buffers), on the CPU."""
+    import graft_entry_torch as entry
+    from pixelspointspolygons_torch.parallel import all_reduce_mean
+    from pixelspointspolygons_torch.train import hisup_step, pix2poly_step
+    from pixelspointspolygons_torch.train.state import TrainState, make_optimizer, make_scheduler
+
+    gen = torch.Generator().manual_seed(0)
+    model = (entry.tiny_hisup("hrnet", gen, DDP_TINY_SIZE, dtype) if family == "hisup"
+             else entry.tiny_pix2poly(gen, dtype)).to(dev)
+    opt = make_optimizer("adamw", model.parameters(), 1e-4)
+    state = TrainState(model, opt, make_scheduler(opt, lambda n: 1e-4, 1e-4))
+    state.wrap()
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    if family == "hisup":
+        metrics = hisup_step.make_train_step(entry.HISUP_WEIGHTS, DDP_TINY_SIZE)(state, batch)
+    else:
+        metrics = pix2poly_step.make_train_step(1.0, 10.0, 34)(state, batch)
+    means = all_reduce_mean(torch.stack([metrics[k].double() for k in metrics])).tolist()
+    return (dict(zip(metrics, means)), {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            {n: b.detach().cpu() for n, b in model.named_buffers()})
+
+
+def _gloo_rank(rank: int, init_method: str, out_file: str, dev_type: str) -> None:
+    """One of two gloo ranks on card 0 (or the CPU): each tiny case's DDP
+    step on this rank's half; rank 0 saves the results."""
+    import torch.distributed as dist
+
+    from pixelspointspolygons_torch.device import set_tf32
+
+    set_tf32(False)
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" else torch.device(dev_type)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=init_method, world_size=2, rank=rank)
+    try:
+        half = DDP_TINY_ROWS // 2
+        results = {(name, dtype): tiny_step(family, {k: v[rank * half:(rank + 1) * half] for k, v in batch.items()},
+                                            dev, dtype)
+                   for name, (family, batch) in tiny_cases().items() for dtype in (torch.float32, torch.float64)}
+        if rank == 0:
+            torch.save(results, out_file)
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_on_the_card(smi: str, dev: torch.device = CARD) -> dict:
+    """Two gloo ranks on the one card (NCCL refuses two ranks on one
+    device), spawned here: the tiny HRNet HiSup's and the tiny fusion
+    Pix2Poly's DDP steps on the two halves, with the synchronised
+    BatchNorms' and DDP's collectives on CUDA tensors, against the
+    one-process step on the whole batch on the card (twice: the atomics'
+    own spread)."""
+    from pixelspointspolygons_torch.parallel import free_port
+
+    out_file = os.path.join(WORK, "gloo_ranks.pt")
+    ctx = multiprocessing.get_context("spawn")
+    init_method = f"tcp://127.0.0.1:{free_port()}"
+    procs = [ctx.Process(target=_gloo_rank, args=(r, init_method, out_file, dev.type)) for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(600)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    if any(p.exitcode for p in procs):
+        fail(f"gloo ranks on the card exited with {[p.exitcode for p in procs]}")
+    got = torch.load(out_file, weights_only=False)
+    out = {}
+    for name, (family, batch) in tiny_cases().items():
+        what = f"{name}, 2 gloo ranks on the card"
+        plain, again = tiny_step(family, batch, dev), tiny_step(family, batch, dev)
+        out[name] = ddp_against_plain(what, got[(name, torch.float32)], plain, again)
+        plain64, again64 = tiny_step(family, batch, dev, torch.float64), tiny_step(family, batch, dev, torch.float64)
+        grad, noise = grad_rel_l2(got[(name, torch.float64)][1], plain64[1]), grad_rel_l2(again64[1], plain64[1])
+        tol = max(DDP64_GRAD_TOL, DDP_NOISE_FACTOR * noise)
+        print(f"{what}: the float64 DDP step's gradient against the float64 one-process step's, relative L2 "
+              f"{grad:.3g} (tol {tol:.3g}: two one-process steps read {noise:.3g} apart)", flush=True)
+        if grad > tol:
+            fail(f"{what}: the float64 DDP step's gradient lies {grad} from the one-process step's")
+        out[name]["grad64_err"] = grad
+    return out
+
+
+def float64_drift(smi: str, dev: torch.device = CARD) -> dict:
+    """ROADMAP 3.16: the tiny HRNet HiSup's float32 gradient of the five
+    weighted losses against its float64 gradient, at DRIFT_SIZE px and
+    batch 2 from the same weights and targets, on the card (cuDNN, TF32
+    off) and on the CPU with one thread and with the thread pool."""
+    import graft_entry_torch as entry
+
+    batch = {k: torch.from_numpy(v) for k, v in entry.dryrun_batches(2, seed=3, size=DRIFT_SIZE)["hisup"].items()}
+
+    def grads(on, dtype):
+        model = entry.tiny_hisup("hrnet", torch.Generator().manual_seed(0), DRIFT_SIZE, dtype).to(on)
+        return hisup_loss_grads(model, {k: v.to(on) for k, v in batch.items()}, DRIFT_SIZE, entry.HISUP_WEIGHTS, dtype)
+
+    rel = grad_rel_l2
+    out = {"card": rel(grads(dev, torch.float32), grads(dev, torch.float64))}
+    threads = torch.get_num_threads()
+    exact = grads(torch.device("cpu"), torch.float64)
+    out["cpu_pool"] = rel(grads(torch.device("cpu"), torch.float32), exact)
+    torch.set_num_threads(1)
+    try:
+        out["cpu_one_thread"] = rel(grads(torch.device("cpu"), torch.float32), exact)
+    finally:
+        torch.set_num_threads(threads)
+    print(f"ROADMAP 3.16: the tiny HRNet HiSup's float32 gradient against float64 ({DRIFT_SIZE} px, batch 2), "
+          f"relative L2: card {out['card']:.3g} (cuDNN, TF32 off), CPU {out['cpu_pool']:.3g} ({threads} threads), "
+          f"CPU {out['cpu_one_thread']:.3g} (one thread); card {smi}", flush=True)
+    return out
+
+
+def phase_data_parallel(overrides: list[str], p2p_overrides: list[str], ffl_overrides: list[str], smi: str) -> dict:
+    """Phase 22: data-parallel training on the one card."""
+    hisup = ddp_hisup(overrides, smi)
+    others = {name: ddp_one_step(name, o, smi) for name, o in (("pix2poly", p2p_overrides), ("ffl", ffl_overrides))}
+    gloo = gloo_on_the_card(smi)
+    drift = float64_drift(smi)
+    return {"hisup": hisup, **others, "gloo": gloo, "drift": drift}
+
+
+def elapsed(what: str) -> None:
+    print(f"elapsed before {what}: {time.perf_counter() - T0:.1f} s", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
@@ -3553,6 +3992,7 @@ def main() -> None:
     # the bfloat16 run below writes its own `latest` in the same directory
     float32_latest = os.path.join(WORK, "hisup_float32_latest.pt")
     shutil.copyfile(os.path.join(train["output_dir"], "checkpoints", "latest.pt"), float32_latest)
+    elapsed("phase_predict")
     pred = phase_predict(overrides)
     print(f"predict path: {pred['tiles_s']:.2f} tiles/s, device {statistics.median(pred['device_ms']):.2f} ms and "
           f"host stage {statistics.median(pred['host_ms']):.2f} ms per batch of {B} (medians), "
@@ -3574,6 +4014,7 @@ def main() -> None:
         print(f"HiSup predict path ({dtype}): {p['tiles_s']:.2f} tiles/s, device "
               f"{statistics.median(p['device_ms']):.2f} ms and host stage {statistics.median(p['host_ms']):.2f} ms "
               f"per batch of {B} (medians), IoU {p['results']['IoU']:.4f}, card {smi}", flush=True)
+    elapsed("phase_pretrained")
     grafts = phase_pretrained(overrides, p2p_overrides, float32_latest)
     print(f"pretrained and warm start (tensors loaded and kept at init): {json.dumps(grafts)}, card {smi}", flush=True)
     phase_entry()
@@ -3587,6 +4028,7 @@ def main() -> None:
           f"({ffl['acm']['aten_per_step']:.1f} aten calls, {ffl['acm']['kernels_per_step']:.1f} kernels); "
           f"IoU {ffl['results']['IoU']:.4f}; ground-truth IoU {ffl['oracle']['iou']:.4f}; peak "
           f"{ffl['peak_bytes'] / 2**30:.2f} GiB, card {smi}", flush=True)
+    elapsed("phase_ffl_training")
     ffl_train = phase_ffl_training(ffl_overrides, smi)
     p2p = phase_pix2poly(p2p_overrides)
     bt = p2p["batch_times"]
@@ -3596,6 +4038,7 @@ def main() -> None:
           f"host stage {med['host_ms']:.2f} ms; fixed-length decode {p2p['fixed']['tiles_s']:.2f} tiles/s, "
           f"{p2p['fixed']['ms_per_step']:.3f} ms per decode step; IoU {p2p['results']['IoU']:.4f}, card {smi}",
           flush=True)
+    elapsed("phase_p2p_train")
     trained = {dtype: phase_p2p_train(p2p_overrides, dtype) for dtype in ("float32", "bfloat16")}
     first = {dtype: t["losses"][0] for dtype, t in trained.items()}
     loss_err = {k: abs(first["bfloat16"][k] / first["float32"][k] - 1.0) for k in first["float32"]}
@@ -3616,6 +4059,7 @@ def main() -> None:
           f"{pbf['fixed']['ms_per_step']:.3f} ms per decode step, {pbf['fixed']['aten_per_step']:.1f} aten calls per "
           f"step (float32 {pbf['aten_per_step_f32']:.1f}); bench_torch {pbf['bench']['value']} tiles/s, "
           f"vs_baseline {pbf['bench']['vs_baseline']}, card {smi}", flush=True)
+    elapsed("phase_voxelizer")
     vox = phase_voxelizer(lidar_overrides("hisup_lidar"))
     lidar = phase_hisup_lidar_train(lidar_overrides("hisup_lidar"))
     print(f"hisup_lidar train path: train step {lidar['step_ms']:.1f} ms, val step {lidar['val_ms']:.1f} ms, val-IoU "
@@ -3627,11 +4071,13 @@ def main() -> None:
     fusion = phase_p2p_fusion_predict(lidar_overrides("p2p_fusion"))
     print(f"p2p_fusion predict path: {fusion['tiles_s']:.2f} tiles/s, encoder "
           f"{statistics.median(fusion['encoder_ms']):.2f} ms per batch of {B} (median), card {smi}", flush=True)
+    elapsed("phase_lidar_steps")
     steps = phase_lidar_steps()
     for experiment, t in steps.items():
         print(f"{experiment} ({t['dtype']}): train step {t['step_ms']:.1f} ms, peak {t['peak_bytes']} bytes "
               f"({t['peak_bytes'] / 2**30:.2f} GiB), afm launches {t['launches']}, card {smi}", flush=True)
     phase_ffl_lidar_demo()
+    elapsed("phase_device_cache")
     cached = phase_device_cache(ffl_overrides, p2p_overrides, smi)
     for dtype, t in cached["ffl"].items():
         print(f"ffl_image from the device cache ({dtype}): train step {t['step_ms']:.1f} ms, batcher "
@@ -3645,6 +4091,9 @@ def main() -> None:
           f"{hl['remat']['remat_ms']:.1f} ms at {hl['remat']['remat_peak'] / 2**30:.2f} GiB; hisup_fusion with remat "
           f"peak {cached['hisup_fusion']['peak_bytes'] / 2**30:.2f} GiB; p2p_image from the cache step "
           f"{cached['p2p']['step_ms']:.1f} ms; card {smi}", flush=True)
+    elapsed("phase_data_parallel")
+    ddp = phase_data_parallel(overrides, p2p_overrides, ffl_overrides, smi)
+    elapsed("the kernels line")
     afm_row["launches_by_path"] = {
         "hisup_train": launches["afm"], "hisup_predict": 0, "pix2poly_predict": 0,
         "pix2poly_train_float32": trained["float32"]["launches"],
@@ -3660,6 +4109,8 @@ def main() -> None:
         "ffl_train_cache_float32": cached["ffl"]["float32"]["launches"],
         "ffl_train_cache_bfloat16": cached["ffl"]["bfloat16"]["launches"],
         "pix2poly_train_cache": cached["p2p"]["launches"],
+        "hisup_train_ddp": ddp["hisup"]["launches"], "pix2poly_train_ddp": ddp["pix2poly"]["launches"],
+        "ffl_train_ddp": ddp["ffl"]["launches"],
     }
     print(f"smoke run: {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"kernels": [afm_row]}), flush=True)

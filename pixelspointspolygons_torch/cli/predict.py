@@ -7,6 +7,10 @@ Usage: python -m pixelspointspolygons_torch.cli.predict experiment=hisup_image \
 Runs on the card; `device=cpu` runs on the CPU instead. HiSup, Pix2Poly
 and FFL are ported, on images, LiDAR and both (`experiment=p2p_image`,
 `hisup_lidar`, `ffl_fusion`, ...).
+
+Under `P3_LAUNCH=N` each of N processes predicts its shard of the split;
+rank 0 writes the one prediction file of the whole split and every
+process evaluates it.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ import torch
 
 from ..config.engine import Config
 from ..predict.predictor import Predictor
-from ._common import compose_from_argv, format_results
+from ._common import compose_from_argv, format_results, print_line, process_group, run
 from .evaluate import evaluate
 
 
@@ -46,10 +50,11 @@ def predict_and_evaluate(cfg: Config, device: str | torch.device | None = None) 
 
 def main(argv: list[str] | None = None) -> dict:
     cfg, device = compose_from_argv(argv)
-    _, results = predict_and_evaluate(cfg, device)
-    print(format_results(results))
+    with process_group(device) as device:
+        _, results = predict_and_evaluate(cfg, device)
+    print_line(format_results(results))
     return results
 
 
 if __name__ == "__main__":
-    main()
+    run(main)

@@ -12,32 +12,34 @@ and FFL train on images, LiDAR and both (`experiment=hisup_lidar`,
 experiment.encoder.hrnet.checkpoint_file=...`, or the ViT's
 `experiment.encoder.pretrained=true experiment.encoder.checkpoint_file=...`)
 and warm starts (`init_weights_from=<run>/checkpoints/latest.pt`).
+
+`P3_LAUNCH=N python -m pixelspointspolygons_torch.cli.train ...` trains on
+N processes (NCCL, one per card; gloo with `device=cpu`), each on its
+shard of every global batch of N · `batch_size`. Prints the last epoch's
+metrics (global means).
 """
 
 from __future__ import annotations
 
-from ._common import compose_from_argv
+from ._common import compose_from_argv, print_line, process_group, run
 
 
 def main(argv: list[str] | None = None) -> dict:
     cfg, device = compose_from_argv(argv)
     name = cfg.experiment.model.name
     if name == "hisup":
-        from ..train.trainer_hisup import HiSupTrainer
-
-        trainer = HiSupTrainer(cfg, device=device)
+        from ..train.trainer_hisup import HiSupTrainer as trainer_cls
     elif name == "pix2poly":
-        from ..train.trainer_pix2poly import Pix2PolyTrainer
-
-        trainer = Pix2PolyTrainer(cfg, device=device)
+        from ..train.trainer_pix2poly import Pix2PolyTrainer as trainer_cls
     elif name == "ffl":
-        from ..train.trainer_ffl import FFLTrainer
-
-        trainer = FFLTrainer(cfg, device=device)
+        from ..train.trainer_ffl import FFLTrainer as trainer_cls
     else:
         raise ValueError(f"unknown model {name!r}")
-    return trainer.train()
+    with process_group(device) as device:
+        history = trainer_cls(cfg, device=device).train()
+    print_line(history)
+    return history
 
 
 if __name__ == "__main__":
-    main()
+    run(main)

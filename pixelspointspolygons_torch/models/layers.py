@@ -7,6 +7,10 @@
   it cannot stand in. Torch momentum 0.1 is flax momentum 0.9. Inside
   `running_stats_frozen(module)` a train-mode forward leaves the running
   statistics as they are (a recomputed forward, `train/hisup_step.py`).
+  Whenever a process group is initialised (`parallel.is_distributed`, also
+  at world size 1) a train-mode forward normalizes by the statistics of the
+  global batch, as JAX's BatchNorm under a mesh-sharded `jit` does
+  (`_SyncBatchNormFn`); without one the path is the local one.
 - `LayerNorm`: flax's eps is 1e-6 (torch's default 1e-5).
 - `MultiHeadAttention`: explicit q/k/v/o projections, logits divided by
   √Dh after the product, softmax in float32, masks as an additive −1e9
@@ -40,6 +44,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .. import parallel
 
 
 def cast_to(t: torch.Tensor | None, dtype: torch.dtype | None) -> torch.Tensor | None:
@@ -96,6 +102,57 @@ def resize_bilinear(x: torch.Tensor, size: int) -> torch.Tensor:
     return y.contiguous(memory_format=layout_of(x))
 
 
+def _synchronised() -> bool:
+    """Whether train-mode BatchNorms take global batch statistics."""
+    return parallel.is_distributed()
+
+
+class _SyncBatchNormFn(torch.autograd.Function):
+    """Train-mode batch normalization over every axis but 1 (NCHW maps or
+    (N, C) rows) with the statistics of the batch over all processes, in
+    few calls: its cost on the host is what the DDP step pays for it.
+
+    Forward: each process takes its count, mean and biased variance
+    (`torch.var_mean`, never E[x²] − E[x]²); one all-gather of the three
+    per-channel rows, combined by Chan's formula in float64, gives every
+    process the same global statistics, by which `F.batch_norm` normalizes.
+
+    Backward: torch's batch-norm backward from the global statistics takes
+    its means over the local rows. Its local sums Σg and Σg·x̂ (the bias and
+    weight gradients) are summed over processes in one all-reduce, and the
+    input gradient is moved from the local means to the global ones
+    (nothing moves in one process). The weight and bias gradients stay the
+    local sums, which DDP averages as it averages every other gradient.
+    Returns (output, mean, var)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        var, mean = torch.var_mean(x, [d for d in range(x.dim()) if d != 1], correction=0)
+        n = x.numel() // x.shape[1]
+        rows = torch.stack([torch.full_like(mean, n), mean, var]).double()
+        counts, means, variances = parallel.all_gather_stacked(rows, "batch_norm").unbind(1)
+        total = counts.sum(0)
+        share = counts / total
+        mean64 = (share * means).sum(0)
+        mean, var = mean64.to(x.dtype), (share * (variances + (means - mean64).square())).sum(0).to(x.dtype)
+        ctx.save_for_backward(x, weight, mean, torch.rsqrt(var + eps))
+        ctx.eps, ctx.n, ctx.total = eps, n, total.to(x.dtype)
+        ctx.mark_non_differentiable(mean, var)
+        return F.batch_norm(x, mean, var, weight, bias, False, 0.0, eps), mean, var
+
+    @staticmethod
+    def backward(ctx, g, _gm, _gv):
+        x, weight, mean, invstd = ctx.saved_tensors
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        grad, grad_weight, grad_bias = torch.ops.aten.native_batch_norm_backward(
+            g, x, weight, None, None, mean, invstd, True, ctx.eps, [True, True, True])
+        local = torch.stack([grad_bias, grad_weight])
+        shift, tilt = (local / ctx.n - parallel.all_reduce_sum(local.clone(), "batch_norm") / ctx.total) * (
+            weight * invstd)
+        grad.addcmul_(x - mean.view(shape), (tilt * invstd).view(shape)).add_(shift.view(shape))
+        return grad, grad_weight, grad_bias, None
+
+
 class BatchNorm(nn.Module):
     def __init__(self, num_features: int, momentum: float = 0.9, eps: float = 1e-5, dtype=None, device=None):
         super().__init__()
@@ -116,14 +173,23 @@ class BatchNorm(nn.Module):
             return cast_to(F.batch_norm(
                 x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps
             ), dt)
+        if _synchronised():
+            out, mean, var = _SyncBatchNormFn.apply(x, self.weight, self.bias, self.eps)
+            if self.update_running_stats:
+                self._update_running_stats(mean, var)
+            return cast_to(out, dt)
         out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         if not self.update_running_stats:
             return cast_to(out, dt)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=[d for d in range(x.ndim) if d != 1], unbiased=False)
-            self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
-            self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+        self._update_running_stats(mean, var)
         return cast_to(out, dt)
+
+    @torch.no_grad()
+    def _update_running_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
+        self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
 
 
 class _RowBatchNormFn(torch.autograd.Function):
@@ -158,20 +224,21 @@ class RowBatchNorm(BatchNorm):
     of a (N, C) input in one running float32 sum: at 4·10^5 rows its output
     is off by 1e-3, where `var_mean` and `Tensor.sum` (cascade sums on the
     CPU, tree reductions on the card) stay within 1e-6. The same memory as
-    `F.batch_norm`: the backward keeps only the input."""
+    `F.batch_norm`: the backward keeps only the input. Under a process
+    group it is `BatchNorm`'s synchronised path: its statistics are
+    `var_mean`'s, its backward's sums torch's batch-norm kernel's, which
+    at 4·10^5 rows on the CPU read 3e-5 from float64 in the weight
+    gradient (`Tensor.sum`: 1.2e-6) and 1e-6 in the input gradient."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
+        if not self.training or _synchronised():
             return super().forward(x)
         dt = self.compute_dtype
         if dt is not None:
             x = cast_to(x, widen(dt))
         out, mean, var = _RowBatchNormFn.apply(x, self.weight, self.bias, self.eps)
-        if not self.update_running_stats:
-            return cast_to(out, dt)
-        with torch.no_grad():
-            self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
-            self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+        if self.update_running_stats:
+            self._update_running_stats(mean, var)
         return cast_to(out, dt)
 
 

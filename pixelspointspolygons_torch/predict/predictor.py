@@ -24,6 +24,7 @@ from ..config.engine import Config
 from ..data.dataset import load_image_file, load_lidar_file
 from ..data.loader import device_prefetch
 from ..device import resolve_device, set_tf32
+from ..parallel import all_gather_objects, process_count, process_index, sync_processes
 from ..utils.checkpoint import CheckpointManager
 from ..utils.coco import save_annotations
 from ..utils.logger import make_logger
@@ -34,6 +35,11 @@ _COLORS = [
     (180, 119, 31), (14, 127, 255), (44, 160, 44), (40, 39, 214), (189, 103, 148),
     (75, 86, 140), (194, 119, 227), (127, 127, 127), (34, 189, 188), (207, 190, 23),
 ]
+
+
+def valid_image_ids(batch: dict) -> list[int]:
+    """The ids of a host batch's images, without the batch's padding."""
+    return [int(i) for i, v in zip(batch["image_id"], batch["sample_valid"]) if v]
 
 
 class Predictor:
@@ -75,15 +81,41 @@ class Predictor:
         if pending is not None:
             yield pending
 
-    def _write_predictions(self, predictions: list[dict], seconds: float, n_images: int) -> str:
-        """The COCO json of a split and, beside it, its seconds per image as
-        the reference stores them (predictor_pix2poly.py:52-58)."""
+    @staticmethod
+    def _gathered(predictions: list[dict], image_ids: list[int]) -> tuple[list[dict], int]:
+        """Every process's annotations and the count of images predicted.
+        Under a process group each process predicted its shard, the last
+        shards wrap-padded with the first images (`data/loader.py`): each
+        image's annotations are taken from the first process that predicted
+        it, so the split is there once. (The JAX package's processes each
+        write their own shard to the one file, ROADMAP 3.17.)"""
+        if process_count() == 1:
+            return predictions, len(image_ids)
+        merged, seen = [], set()
+        for ids, anns in all_gather_objects((image_ids, predictions)):
+            new = set(ids) - seen
+            merged.extend(a for a in anns if a["image_id"] in new)
+            seen |= new
+        return merged, len(seen)
+
+    def _write_predictions(self, predictions: list[dict], seconds: float, image_ids: list[int]) -> str:
+        """The COCO json of the split (every process's images, written once)
+        and, beside it, its seconds per image as the reference stores them
+        (predictor_pix2poly.py:52-58); `image_ids` are the images this
+        process predicted."""
+        return self._write_split(*self._gathered(predictions, image_ids), seconds)
+
+    def _write_split(self, predictions: list[dict], n_images: int, seconds: float) -> str:
+        """`_write_predictions` of annotations gathered already: rank 0
+        writes, the others wait until the files are there."""
         dt = seconds / max(n_images, 1)
         self.logger.info(f"prediction: {dt:.4f} [s/image] over {n_images} images")
         pred_file = self.cfg.evaluation.pred_file
-        save_annotations(predictions, pred_file)
-        with open(pred_file.replace(".json", "_time.json"), "w") as f:
-            json.dump({"prediction_time": dt, "num_images": n_images}, f)
+        if process_index() == 0:
+            save_annotations(predictions, pred_file)
+            with open(pred_file.replace(".json", "_time.json"), "w") as f:
+                json.dump({"prediction_time": dt, "num_images": n_images}, f)
+        sync_processes("p3_predictions_written")
         return pred_file
 
     # --- single-file inputs (predict_demo path) ---------------------------
@@ -139,7 +171,11 @@ class Predictor:
     def plot_prediction(self, image: Optional[np.ndarray], polygons: list, out_file: str) -> None:
         """Save an overlay png of predicted polygons (predictor.py:140-182):
         the image min-max normalised (white without one), y pointing down,
-        scaled up to about the 900 px of the JAX package's figure."""
+        scaled up to about the 900 px of the JAX package's figure. Under a
+        process group only rank 0 draws (every process predicted the same
+        tile)."""
+        if process_index() != 0:
+            return
         if image is not None:
             img = image[0] if image.ndim == 4 else image
             img = img - img.min()

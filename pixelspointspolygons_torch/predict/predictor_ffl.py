@@ -27,11 +27,12 @@ import torch
 
 from ..data.loader import INPUT_KEYS, build_loader, to_device
 from ..models.ffl import FFL, build_ffl
+from ..parallel import all_gather_objects, process_index
 from ..train.state import compute_dtype
 from ..utils.coco import generate_coco_ann, save_annotations
 from .ffl_inference import inference_with_patching
 from .ffl_polygonize import Polygonizer
-from .predictor import Predictor
+from .predictor import Predictor, valid_image_ids
 
 class FFLPredictor(Predictor):
     def __init__(self, cfg, device: str | torch.device | None = None, model: FFL | None = None):
@@ -142,7 +143,7 @@ class FFLPredictor(Predictor):
         predictions: dict[str, list] = {}
         self.batch_times = []
         self.failed_batches = 0
-        n_images = 0
+        image_ids: list[int] = []
         t0 = time.time()
         t_done = time.perf_counter()
         for handles, batch in self._in_flight(loader, INPUT_KEYS):
@@ -168,11 +169,17 @@ class FFLPredictor(Predictor):
                     for b, polys in enumerate(per_sample):
                         if batch["sample_valid"][b]:
                             anns.extend(generate_coco_ann(polys, int(batch["image_id"][b])))
-            n_images += int(np.sum(batch["sample_valid"]))
+            image_ids.extend(valid_image_ids(batch))
 
         pred_file = self.cfg.evaluation.pred_file
+        # every process's keys, in rank 0's order (a process whose batches
+        # all failed has none)
+        keys = list(dict.fromkeys(k for ks in all_gather_objects(list(predictions)) for k in ks))
+        predictions = {k: self._gathered(predictions.get(k, []), image_ids)[0] for k in keys}
+        n_images = self._gathered([], image_ids)[1]
         for key, anns in predictions.items():
-            save_annotations(anns, pred_file.replace(".json", f"_{key}.json"))
+            if process_index() == 0:
+                save_annotations(anns, pred_file.replace(".json", f"_{key}.json"))
         # canonical copy: acm.tol_<eval_tolerance> (the reference hardcodes
         # acm.tol_1, predictor_ffl.py:74-79)
         ev_tol = self.cfg.experiment.polygonization.acm_method.get("eval_tolerance", 1)
@@ -180,7 +187,7 @@ class FFLPredictor(Predictor):
         if canonical is None:
             acm_keys = [k for k in predictions if k.startswith("acm.")]
             canonical = predictions[acm_keys[0]] if acm_keys else next(iter(predictions.values()), [])
-        self._write_predictions(canonical or [], time.time() - t0, n_images)
+        self._write_split(canonical or [], n_images, time.time() - t0)
         self.logger.info(f"wrote predictions for {list(predictions)} to {os.path.dirname(pred_file)}")
         return pred_file
 

@@ -25,7 +25,7 @@ from ..models.hisup.model import HiSup, extract_junctions
 from ..train.state import compute_dtype
 from ..utils.coco import generate_coco_ann
 from .hisup_polygon import polygons_from_masks
-from .predictor import Predictor
+from .predictor import Predictor, valid_image_ids
 
 def batch_annotations(batch: dict, polys: list, scores: list) -> list[dict]:
     """COCO prediction dicts of one batch's polygons, padding samples left out."""
@@ -129,12 +129,12 @@ class HiSupPredictor(Predictor):
 
         predictions: list[dict] = []
         self.batch_times = []
-        n_images = 0
+        image_ids: list[int] = []
         t0 = time.time()
         t_done = time.perf_counter()
 
         def consume(handles, batch):
-            nonlocal n_images, t_done
+            nonlocal t_done
             arrays = self._fetch(handles)
             t = time.perf_counter()
             polys, scores = self._host_stage(arrays)
@@ -147,11 +147,11 @@ class HiSupPredictor(Predictor):
             })
             t_done = now
             predictions.extend(batch_annotations(batch, polys, scores))
-            n_images += int(np.sum(batch["sample_valid"]))
+            image_ids.extend(valid_image_ids(batch))
 
         for handles, batch in self._in_flight(loader, INPUT_KEYS):
             consume(handles, batch)
-        return self._write_predictions(predictions, time.time() - t0, n_images)
+        return self._write_predictions(predictions, time.time() - t0, image_ids)
 
     def predict_file(self, image_file=None, lidar_file=None, out_file="prediction.png"):
         """Polygons of one tile's image and/or LiDAR file, drawn over the

@@ -24,7 +24,7 @@ from ..data.loader import INPUT_KEYS, build_loader, to_device
 from ..models.pix2poly import Pix2Poly, Tokenizer, build_pix2poly, greedy_decode
 from ..train.state import compute_dtype
 from ..utils.coco import generate_coco_ann
-from .predictor import Predictor
+from .predictor import Predictor, valid_image_ids
 
 def scores_to_permutations(scores: np.ndarray) -> np.ndarray:
     """Hungarian-optimal hard permutation per sample (raw score maximization)."""
@@ -209,12 +209,12 @@ class Pix2PolyPredictor(Predictor):
 
         predictions: list[dict] = []
         self.batch_times = []
-        n_images = 0
+        image_ids: list[int] = []
         t0 = time.time()
         t_done = time.perf_counter()
 
         def consume(handles, batch):
-            nonlocal n_images, t_done
+            nonlocal t_done
             tokens, scores = self._fetch(handles)
             t = time.perf_counter()
             polys, _ = self.assemble(tokens, scores)
@@ -235,13 +235,13 @@ class Pix2PolyPredictor(Predictor):
             for b, image_polys in enumerate(polys):
                 if batch["sample_valid"][b]:
                     predictions.extend(generate_coco_ann(image_polys, int(batch["image_id"][b])))
-                    n_images += 1
+            image_ids.extend(valid_image_ids(batch))
 
         # one decode in flight: batch k's download and host assembly overlap
         # batch k+1's decode (JAX :203-211)
         for handles, batch in self._in_flight(loader, INPUT_KEYS):
             consume(handles, batch)
-        return self._write_predictions(predictions, time.time() - t0, n_images)
+        return self._write_predictions(predictions, time.time() - t0, image_ids)
 
     def predict_file(self, image_file=None, lidar_file=None, out_file="prediction.png"):
         """Polygons of one tile's image and/or LiDAR file, drawn over the

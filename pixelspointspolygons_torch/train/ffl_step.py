@@ -8,6 +8,16 @@ epoch's weights (and, with `normalize`, the running norms), then one Adam
 update and one schedule step. A val step runs the model in eval mode
 without gradients. Both return device tensors, so the host syncs once per
 epoch (`Trainer.summarize_deferred`).
+
+Under a process group the train step calls the state's DDP wrapper,
+built with `find_unused_parameters=False` (the seg and crossfield heads
+and every encoder parameter reach the loss) and `broadcast_buffers=False`
+(the BatchNorms take global statistics, so their running ones are the
+same on every process). Every term of the MultiLoss is a mean over pixels
+or images of equal shards, so DDP's average of the gradients is the
+gradient of JAX's global loss. With `loss.multi.normalize` the running
+norms are fed the epoch means that `Trainer.summarize_deferred` has
+already averaged over processes: global, as JAX's are.
 """
 
 from __future__ import annotations
@@ -28,7 +38,7 @@ def make_train_step(loss_fn, normalize: bool = False):
 
     def train_step(state: TrainState, batch: dict, weights: dict, norms: dict | None = None) -> dict:
         state.model.train()
-        outputs = state.model(model_inputs(batch))
+        outputs = state.train_module(model_inputs(batch))
         if normalize:
             total, losses = loss_fn(outputs, batch, weights, norms)
         else:

@@ -17,6 +17,8 @@ from typing import Callable
 import torch
 from torch import nn
 
+from .. import parallel
+
 
 def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
     """optax.linear_schedule."""
@@ -83,12 +85,31 @@ def make_scheduler(optimizer, schedule: Callable[[int], float], base_lr: float):
 
 @dataclass
 class TrainState:
-    """Model, optimizer and schedule, and the count of updates taken."""
+    """Model, optimizer and schedule, and the count of updates taken.
+
+    `model` is the bare module: checkpoints (no `module.` prefix, so a file
+    that 2 processes wrote loads into 1 and back), the predictor and the
+    weight bridge use it. Under a process group `wrap` puts
+    `DistributedDataParallel` around it (or around a module that calls it,
+    HiSup's recomputed forward) after the build, the grafts and any resume
+    or warm start; the train steps call `train_module`."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LRScheduler
     step: int = 0
+    ddp: nn.Module | None = None
+
+    def wrap(self, module: nn.Module | None = None) -> None:
+        """DDP around `module` (default: the model) when a process group is
+        initialised; nothing otherwise."""
+        if parallel.is_distributed():
+            self.ddp = parallel.wrap_model(self.model if module is None else module)
+
+    @property
+    def train_module(self) -> nn.Module:
+        """What a train step calls: the DDP wrapper, else the model."""
+        return self.model if self.ddp is None else self.ddp
 
     def state_dict(self) -> dict:
         return {

@@ -13,6 +13,14 @@ another run's checkpoint, as the JAX trainer does (trainer.py:91-121).
 held on the device (`data/device_cache.py`), with JAX's fallbacks: `auto`
 takes the host loader when the cache cannot serve the config, `true` only
 when the split would not fit; the val-IoU pass keeps the host loader.
+
+Under a process group (`parallel.init_distributed`, started by the CLIs)
+each process trains on its shard of every global batch (`batch_size` is
+per process): each trainer wraps its model in DDP after the build, the
+grafts and any resume or warm start (`TrainState.wrap`); the epoch
+metrics are means over every process's steps; the cache serves one
+process only, so `auto` takes the host loader and `true` raises; the
+checkpoints and the run log are rank 0's; `train` ends at a barrier.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from ..config.engine import Config
 from ..data.device_cache import CacheFitError
 from ..data.loader import device_prefetch
 from ..device import resolve_device, set_tf32
+from ..parallel import all_reduce_mean, sync_processes
 from ..utils.checkpoint import CheckpointManager, save_best_and_latest, smart_restore_params
 from ..utils.logger import make_logger
 from ..utils.seeding import seed_everything
@@ -131,6 +140,7 @@ class Trainer:
                 history["val_iou"] = val_iou
             self.run_logger.log(history, step=epoch)
         self.run_logger.finish()
+        sync_processes("p3_train_end")
         return history
 
     def maybe_resume(self) -> None:
@@ -170,11 +180,12 @@ class Trainer:
 
     @staticmethod
     def summarize_deferred(records: list[dict]) -> dict:
-        """Mean of each metric over an epoch's device-resident records, with
-        one device→host copy for the whole epoch."""
+        """Mean of each metric over an epoch's device-resident records and
+        over every process (each runs as many steps), with one all-reduce
+        and one device→host copy for the whole epoch."""
         if not records:
             return {}
         keys = list(records[0])
         table = torch.stack([torch.stack([r[k].float() for k in keys]) for r in records])
-        means = table.double().mean(dim=0).tolist()
+        means = all_reduce_mean(table.double().mean(dim=0)).tolist()
         return dict(zip(keys, means))

@@ -56,6 +56,7 @@ class FFLTrainer(Trainer):
         self.state = TrainState(model, optimizer, make_scheduler(optimizer, cosine_with_warmup(base_lr, total_steps),
                                                                  base_lr))
         self.maybe_resume()
+        self.state.wrap()
         self.logger.info(f"model has {num_params(model)/1e6:.2f}M params on {self.device}, "
                          f"computing in {model.compute_dtype}")
 

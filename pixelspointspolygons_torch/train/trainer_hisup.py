@@ -25,7 +25,7 @@ from ..parallel import all_gather_objects
 from ..predict.predictor_hisup import HiSupPredictor, batch_annotations
 from ..utils.coco import CocoIndex
 from ..utils.pretrained import apply_pretrained_encoder
-from .hisup_step import make_train_step, make_val_step
+from .hisup_step import make_train_step, make_val_step, train_module
 from .state import TrainState, compute_dtype, cosine_with_warmup, make_optimizer, make_scheduler, num_params
 from .trainer import Trainer
 
@@ -49,12 +49,14 @@ class HiSupTrainer(Trainer):
         optimizer = make_optimizer("adamw", model.parameters(), base_lr, weight_decay=float(m.weight_decay))
         self.state = TrainState(model, optimizer, make_scheduler(optimizer, schedule, base_lr))
         self.maybe_resume()
+        remat = bool(cfg.training.get("remat") or False)
+        self.state.wrap(train_module(model, remat))
         self.logger.info(f"model has {num_params(model)/1e6:.2f}M params on {self.device}, "
                          f"computing in {model.compute_dtype}")
 
         weights = {k: float(v) for k, v in m.loss_weights.items()}
         size = int(m.decoder.in_feature_size)
-        self._train_step = make_train_step(weights, size, remat=bool(cfg.training.get("remat") or False))
+        self._train_step = make_train_step(weights, size, remat=remat)
         self._val_step = make_val_step(weights, size)
 
         # the val IoU's predictor shares the model; as in the JAX trainer

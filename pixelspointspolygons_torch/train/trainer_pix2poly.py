@@ -56,6 +56,7 @@ class Pix2PolyTrainer(Trainer):
         optimizer = make_optimizer("adamw", model.parameters(), base_lr, weight_decay=float(m.weight_decay), b2=0.95)
         self.state = TrainState(model, optimizer, make_scheduler(optimizer, schedule, base_lr))
         self.maybe_resume()
+        self.state.wrap()
         self.logger.info(f"model has {num_params(model)/1e6:.2f}M params on {self.device}, "
                          f"computing in {model.compute_dtype}")
 
