@@ -477,6 +477,27 @@ DDP_TURNS = 4
 DDP_TINY_SIZE, DDP_TINY_ROWS = 32, 8
 DDP64_GRAD_TOL = 1e-9
 DRIFT_SIZE = 64
+# The remaining encoders (phase 23), float32 with TF32 off, at the widths
+# the config tree ships:
+# - FFL over UNet-ResNet101 and over ConvNeXt-V2-T at 224 px (decoder 256):
+#   phase 15's training path (TRAIN_STEPS and CNX_TRAIN_STEPS steps), its
+#   card-against-CPU step (FFL_LOSS_TOL, FFL_GRAD_TOL) and prediction of the
+#   first FFL_BF16_TEST_TILES test tiles from `latest`; ConvNeXt's one
+#   bfloat16 step from the first step's weights on the same 2 tiles against
+#   the float32 step on the card, per term within FFL_BF16_LOSS_TOL;
+# - Pix2Poly over DINOv2 ViT-S/14: a file in DINOv2's layout with the real
+#   `dinov2_vits14` grid of DINO_GRID x DINO_GRID positions, grafted by the
+#   trainer's set-up (every trunk tensor equal to the file's after the
+#   resampling), CNX_TRAIN_STEPS steps, the val figure, the 32-tile split
+#   predicted, and the card against the CPU on P2P_CPU_TILES tiles
+#   (P2P_REL_TOL, as phase 6);
+# - the ablation twins on the card: `cli.dino_v2_ablation` for each encoder
+#   in a model root of its own (ROADMAP 3.19: the two rows read one
+#   checkpoint path), `cli.image_res_ablation` with the 224 px tiles for
+#   both rows (the 512 row a seeded UNet-ResNet101 at 512, whose polygons
+#   land on the 512 grid: ROADMAP 3.18), `cli.csv_results_to_latex`.
+CNX_TRAIN_STEPS = 2
+DINO_GRID = 37
 
 
 def fail(msg: str) -> None:
@@ -1560,12 +1581,15 @@ def p2p_early_exit(model, inputs: dict, tokenizer) -> list[int]:
     return stops.tolist()
 
 
-def phase_p2p_train(overrides: list[str], dtype: str) -> dict:
+def phase_p2p_train(overrides: list[str], dtype: str, steps: int = TRAIN_STEPS, name: str = "pix2poly",
+                    after_setup=None, card_against_cpu: bool = True) -> dict:
     """Pix2Poly-image training at full width through the trainer that
-    `cli/train.py` builds, at `dtype`: 4 train + 1 val steps and the val-IoU
-    pass with the kernel counters set to 0 just before and read just after,
-    then the steady-state step, its parts and (float32) the card against
-    the CPU."""
+    `cli/train.py` builds, at `dtype`: `steps` train + 1 val steps and the
+    val-IoU pass with the kernel counters set to 0 just before and read just
+    after, then the steady-state step, its parts and (float32, with
+    `card_against_cpu`) the card against the CPU. `after_setup(trainer)`
+    runs between the trainer's set-up and its first step; `name` heads the
+    lines."""
     from pixelspointspolygons_torch.config import compose
     from pixelspointspolygons_torch.data.loader import device_prefetch
     from pixelspointspolygons_torch.ops.afm import afm_cuda
@@ -1575,6 +1599,11 @@ def phase_p2p_train(overrides: list[str], dtype: str) -> dict:
     trainer = Pix2PolyTrainer(cfg, device=CARD)
     iou_pass_s, step_losses = [], []
     record_steps(trainer, step_losses, iou_pass_s)
+    if after_setup is not None:
+        def set_up(run=trainer.setup):
+            run()
+            after_setup(trainer)
+        trainer.setup = set_up
     torch.cuda.reset_peak_memory_stats()
     afm_cuda.launches = 0
     t0 = time.perf_counter()
@@ -1585,27 +1614,27 @@ def phase_p2p_train(overrides: list[str], dtype: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     n_train, n_val = len(trainer.train_loader), len(trainer.val_loader)
     model = trainer.state.model
-    print(f"pix2poly train path ({dtype}): {n_train} train + {n_val} val steps and the val-IoU pass in {wall:.1f} s "
+    print(f"{name} train path ({dtype}): {n_train} train + {n_val} val steps and the val-IoU pass in {wall:.1f} s "
           f"(set-up included), peak memory {peak / 2**30:.2f} GiB; afm launches {launches}; model computes in "
           f"{model.compute_dtype}, parameters {next(model.parameters()).dtype}", flush=True)
-    print(f"pix2poly history ({dtype}): " + json.dumps(history), flush=True)
-    print(f"pix2poly step losses ({dtype}): " + json.dumps([{k: float(v) for k, v in m.items()} for m in step_losses]),
+    print(f"{name} history ({dtype}): " + json.dumps(history), flush=True)
+    print(f"{name} step losses ({dtype}): " + json.dumps([{k: float(v) for k, v in m.items()} for m in step_losses]),
           flush=True)
-    if (n_train, n_val) != (TRAIN_STEPS, VAL_STEPS) or len(step_losses) != n_train:
-        fail(f"pix2poly: expected {TRAIN_STEPS} train and {VAL_STEPS} val steps, got {n_train}, {n_val}, "
+    if (n_train, n_val) != (steps, VAL_STEPS) or len(step_losses) != n_train:
+        fail(f"{name}: expected {steps} train and {VAL_STEPS} val steps, got {n_train}, {n_val}, "
              f"{len(step_losses)}")
     if not all(np.isfinite(v) for k, v in history.items() if k != "epoch"):
-        fail(f"pix2poly ({dtype}): non-finite losses: {history}")
+        fail(f"{name} ({dtype}): non-finite losses: {history}")
     if launches:
         fail(f"the Pix2Poly train path launched the afm kernel {launches} times, expected 0")
     if model.compute_dtype != getattr(torch, dtype) or next(model.parameters()).dtype != torch.float32:
-        fail(f"pix2poly ({dtype}): the model computes in {model.compute_dtype}")
+        fail(f"{name} ({dtype}): the model computes in {model.compute_dtype}")
     if not trainer.manager.exists("latest") or not trainer.manager.exists("best_val_loss"):
         fail("the Pix2Poly trainer wrote no latest/best_val_loss checkpoint")
     val_iou = history.get("val_iou")
     if val_iou is None or not 0.0 <= val_iou <= 1.0 or len(iou_pass_s) != 1:
         fail(f"the Pix2Poly val-IoU pass gave no IoU in [0, 1]: {val_iou}")
-    print(f"pix2poly val-IoU pass ({dtype}): {n_val * B} val tiles decoded and scored in {iou_pass_s[0] * 1e3:.1f} ms "
+    print(f"{name} val-IoU pass ({dtype}): {n_val * B} val tiles decoded and scored in {iou_pass_s[0] * 1e3:.1f} ms "
           f"(wall), val IoU {val_iou:.4f}", flush=True)
 
     # steady state on the same batches (not part of the counted run)
@@ -1627,13 +1656,14 @@ def phase_p2p_train(overrides: list[str], dtype: str) -> dict:
     val_ms = (time.perf_counter() - t) * 1e3
     parts = [p2p_step_parts(trainer, batch) for batch in batches]
     breakdown = {k: statistics.median(p[k] for p in parts) for k in parts[0]}
-    print(f"pix2poly train step ({dtype}) {step_ms:.1f} ms (median of {len(times)}: {[round(x, 1) for x in times]}), "
+    print(f"{name} train step ({dtype}) {step_ms:.1f} ms (median of {len(times)}: {[round(x, 1) for x in times]}), "
           f"val step {val_ms:.1f} ms", flush=True)
-    print(f"pix2poly train step ({dtype}) by layer (ms, CUDA events, median of {len(parts)}): {json.dumps(breakdown)}",
+    print(f"{name} train step ({dtype}) by layer (ms, CUDA events, median of {len(parts)}): {json.dumps(breakdown)}",
           flush=True)
     out = {"step_ms": step_ms, "val_ms": val_ms, "peak_bytes": peak, "iou_pass_ms": iou_pass_s[0] * 1e3,
-           "val_iou": val_iou, "losses": losses, "breakdown": breakdown, "launches": launches}
-    if dtype == "float32":
+           "val_iou": val_iou, "losses": losses, "breakdown": breakdown, "launches": launches,
+           "output_dir": cfg.output_dir}
+    if dtype == "float32" and card_against_cpu:
         p2p_train_card_against_cpu(trainer, batches[0])
     return out
 
@@ -2328,20 +2358,23 @@ def ffl_demo(overrides: list[str]) -> float:
     return demo_s
 
 
-def phase_ffl_train(overrides: list[str], dtype: str) -> dict:
+def phase_ffl_train(overrides: list[str], dtype: str, steps: int = TRAIN_STEPS, name: str = "ffl",
+                    cold: bool = True, exact: bool = False) -> dict:
     """FFL-image training at full width through the trainer that
-    `cli/train.py` builds, at `dtype`: 4 train + 1 val steps and the val-IoU
-    pass with the kernel counters set to 0 just before and read just after
-    (the float32 run from an empty ground-truth cache, so its loader is
-    cold), then the steady-state step, its parts, one forward traced, and
-    the card against the CPU."""
+    `cli/train.py` builds, at `dtype`: `steps` train + 1 val steps and the
+    val-IoU pass with the kernel counters set to 0 just before and read
+    just after (with `cold`, the float32 run from an empty ground-truth
+    cache, so its loader is cold), then the steady-state step, its parts,
+    one forward traced, and the card against the CPU (`exact`: its
+    gradient against float64's). `name` heads its lines."""
     from pixelspointspolygons_torch.config import compose
     from pixelspointspolygons_torch.data.loader import device_prefetch
     from pixelspointspolygons_torch.ops.afm import afm_cuda
     from pixelspointspolygons_torch.train.trainer_ffl import FFL_BATCH_KEYS, FFLTrainer
 
     cfg = compose(overrides + [f"host.compute_dtype={dtype}"])
-    if dtype == "float32":
+    cold = cold and dtype == "float32"
+    if cold:
         shutil.rmtree(os.path.join(cfg.experiment.dataset.in_path, "ffl_cache_torch"), ignore_errors=True)
     trainer = FFLTrainer(cfg, device=CARD)
     iou_pass_s, step_losses, first, cold_ms = [], [], {}, []
@@ -2357,26 +2390,26 @@ def phase_ffl_train(overrides: list[str], dtype: str) -> dict:
     n_train, n_val = len(trainer.train_loader), len(trainer.val_loader)
     model = trainer.state.model
     losses = [{k: float(v) for k, v in m.items()} for m in step_losses]
-    print(f"ffl train path ({dtype}): {n_train} train + {n_val} val steps and the val-IoU pass in {wall:.1f} s "
+    print(f"{name} train path ({dtype}): {n_train} train + {n_val} val steps and the val-IoU pass in {wall:.1f} s "
           f"(set-up included), peak memory {peak / 2**30:.2f} GiB; afm launches {launches}; model computes in "
           f"{model.compute_dtype}, parameters {next(model.parameters()).dtype}", flush=True)
-    print(f"ffl history ({dtype}): " + json.dumps(history), flush=True)
-    print(f"ffl step losses ({dtype}), the first step's terms first: " + json.dumps(losses), flush=True)
-    if (n_train, n_val) != (TRAIN_STEPS, VAL_STEPS) or len(losses) != n_train:
-        fail(f"ffl: expected {TRAIN_STEPS} train and {VAL_STEPS} val steps, got {n_train}, {n_val}, {len(losses)}")
+    print(f"{name} history ({dtype}): " + json.dumps(history), flush=True)
+    print(f"{name} step losses ({dtype}), the first step's terms first: " + json.dumps(losses), flush=True)
+    if (n_train, n_val) != (steps, VAL_STEPS) or len(losses) != n_train:
+        fail(f"{name}: expected {steps} train and {VAL_STEPS} val steps, got {n_train}, {n_val}, {len(losses)}")
     if not all(np.isfinite(v) for k, v in history.items() if k != "epoch"):
-        fail(f"ffl ({dtype}): non-finite losses: {history}")
+        fail(f"{name} ({dtype}): non-finite losses: {history}")
     if launches:
-        fail(f"the FFL train path launched the afm kernel {launches} times, expected 0")
+        fail(f"the {name} train path launched the afm kernel {launches} times, expected 0")
     if model.compute_dtype != getattr(torch, dtype) or next(model.parameters()).dtype != torch.float32:
-        fail(f"ffl ({dtype}): the model computes in {model.compute_dtype}")
+        fail(f"{name} ({dtype}): the model computes in {model.compute_dtype}")
     if not trainer.manager.exists("latest") or not trainer.manager.exists("best_val_loss"):
         fail("the FFL trainer wrote no latest/best_val_loss checkpoint")
     val_iou = history.get("val_iou")
     if val_iou is None or not 0.0 <= val_iou <= 1.0 or len(iou_pass_s) != 1:
         fail(f"the FFL val-IoU pass gave no IoU in [0, 1]: {val_iou}")
     acm = trainer._predictor.polygonizer.stats
-    print(f"ffl val-IoU pass ({dtype}): {n_val * B} val tiles polygonized in {iou_pass_s[0] * 1e3:.1f} ms (wall), "
+    print(f"{name} val-IoU pass ({dtype}): {n_val * B} val tiles polygonized in {iou_pass_s[0] * 1e3:.1f} ms (wall), "
           f"val IoU {val_iou:.4f}; its ACM {acm['acm_ms']:.1f} ms ({acm['acm_steps']} steps, CUDA events) over "
           f"{acm['rings']} rings, {acm['vertices']} vertices, bucket {acm['bucket']}, {acm['dropped']} rings dropped; "
           f"contours {acm['contours_ms']:.1f} ms, post-processing {acm['post_ms']:.1f} ms (host)", flush=True)
@@ -2402,21 +2435,21 @@ def phase_ffl_train(overrides: list[str], dtype: str) -> dict:
     val_ms = (time.perf_counter() - t) * 1e3
     parts = [ffl_step_parts(trainer, batch, weights) for batch in batches]
     breakdown = {k: statistics.median(p[k] for p in parts) for k in parts[0]}
-    cold = statistics.median(cold_ms) if dtype == "float32" else None
-    print(f"ffl train step ({dtype}) {step_ms:.1f} ms (median of {len(times)}: {[round(x, 1) for x in times]}), "
+    cold = statistics.median(cold_ms) if cold else None
+    print(f"{name} train step ({dtype}) {step_ms:.1f} ms (median of {len(times)}: {[round(x, 1) for x in times]}), "
           f"val step {val_ms:.1f} ms; host loader per batch of {B}: "
           + (f"cold {cold:.1f} ms (the ground truth computed; median of the run's {len(cold_ms)}: "
              f"{[round(x, 1) for x in cold_ms]}), " if cold is not None else "")
           + f"warm {warm_ms:.1f} ms (from the cache)", flush=True)
-    print(f"ffl train step ({dtype}) by layer (ms, CUDA events, median of {len(parts)}): {json.dumps(breakdown)}",
+    print(f"{name} train step ({dtype}) by layer (ms, CUDA events, median of {len(parts)}): {json.dumps(breakdown)}",
           flush=True)
-    profile_forward(trainer, batches[0]["images"], f"ffl {dtype}")
+    profile_forward(trainer, batches[0]["images"], f"{name} {dtype}")
     if dtype == "float32":
-        ffl_train_card_against_cpu(cfg, first)
+        card_losses = ffl_train_card_against_cpu(cfg, first, name, exact)
     else:
         ffl_bf16_card_against_cpu(cfg, first)
-    return {"step_ms": step_ms, "val_ms": val_ms, "peak_bytes": peak, "iou_pass_ms": iou_pass_s[0] * 1e3,
-            "val_iou": val_iou, "losses": losses, "breakdown": breakdown, "launches": launches,
+    return {"first": first, "card_losses": card_losses if dtype == "float32" else None, "step_ms": step_ms,
+            "val_ms": val_ms, "peak_bytes": peak, "iou_pass_ms": iou_pass_s[0] * 1e3, "val_iou": val_iou, "losses": losses, "breakdown": breakdown, "launches": launches,
             "loader_cold_ms": cold, "loader_warm_ms": warm_ms, "val_acm": dict(acm)}
 
 
@@ -2444,11 +2477,17 @@ def ffl_step_parts(trainer, batch: dict, weights: dict) -> dict:
     return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(("forward", "losses", "backward", "optimizer"))}
 
 
-def ffl_train_card_against_cpu(cfg, first: dict) -> None:
+def ffl_train_card_against_cpu(cfg, first: dict, name: str = "ffl", exact: bool = False) -> dict:
     """One float32 train step on HISUP_BF16_CPU_TILES tiles of the first
     batch from the trainer's initial weights, on the card and on the CPU
     with fresh Adam states: the losses and the gradients (the CPU path is
-    held to the JAX package by tests/test_torch_train_ffl.py)."""
+    held to the JAX package by tests/test_torch_train_ffl.py). With
+    `exact`, the gradients are held against the same step in float64 on
+    the CPU instead: the card's no farther from it than
+    DDP_EXACT_FACTOR times the CPU's float32, plus DDP_EXACT_FLOOR (a deep
+    trunk of train-mode BatchNorms on 2 tiles makes either float32 gradient
+    stray from the exact one, as HiSup's does: ROADMAP 3.16). Returns the
+    card's losses."""
     from pixelspointspolygons_torch.models.ffl import build_ffl
     from pixelspointspolygons_torch.models.ffl.losses import make_ffl_loss
     from pixelspointspolygons_torch.train.ffl_step import make_train_step
@@ -2458,11 +2497,15 @@ def ffl_train_card_against_cpu(cfg, first: dict) -> None:
     loss_fn, weights_for_epoch = make_ffl_loss(cfg)
     step = make_train_step(loss_fn)
 
-    def state_on(device):
-        model = build_ffl(cfg, device=device)
+    def state_on(device, dtype=torch.float32):
+        model = build_ffl(cfg, device=device, dtype=dtype)
         model.load_state_dict(first["state"])
+        model.to(dtype)
         opt = make_optimizer("adam", model.parameters(), lr)
         return TrainState(model, opt, make_scheduler(opt, lambda n: lr, lr))
+
+    def grads(state):
+        return {n: p.grad.detach().cpu().double() for n, p in state.model.named_parameters()}
 
     card, cpu = state_on(CARD), state_on(torch.device("cpu"))
     got = step(card, {k: v.to(CARD) for k, v in first["batch"].items()}, weights_for_epoch(0))
@@ -2470,15 +2513,26 @@ def ffl_train_card_against_cpu(cfg, first: dict) -> None:
     want = step(cpu, first["batch"], weights_for_epoch(0))
     cpu_s = time.perf_counter() - t
     loss_err = {k: abs(float(got[k]) / float(want[k]) - 1.0) for k in want}
-    g_card = {n: p.grad.detach().cpu().double() for n, p in card.model.named_parameters()}
-    g_cpu = {n: p.grad.detach().double() for n, p in cpu.model.named_parameters()}
-    grad_err = (sum(float(((g_card[k] - g_cpu[k]) ** 2).sum()) for k in g_cpu)
-                / sum(float((g_cpu[k] ** 2).sum()) for k in g_cpu)) ** 0.5
-    print(f"ffl train step card vs CPU on {len(first['batch']['images'])} tiles from the initial weights (float32; "
+    g_card, g_cpu = grads(card), grads(cpu)
+    grad_err = grad_rel_l2(g_card, g_cpu)
+    print(f"{name} train step card vs CPU on {len(first['batch']['images'])} tiles from the initial weights (float32; "
           f"CPU step {cpu_s:.1f} s): losses {({k: round(float(v), 6) for k, v in want.items()})}, rel err "
-          f"{loss_err} (tol {FFL_LOSS_TOL}); gradients rel L2 {grad_err:.3g} (tol {FFL_GRAD_TOL})", flush=True)
-    if not all(e <= FFL_LOSS_TOL for e in loss_err.values()) or not grad_err <= FFL_GRAD_TOL:
-        fail(f"the FFL train step differs between card and CPU: losses {loss_err}, gradients {grad_err}")
+          f"{loss_err} (tol {FFL_LOSS_TOL}); gradients rel L2 {grad_err:.3g}"
+          + ("" if exact else f" (tol {FFL_GRAD_TOL})"), flush=True)
+    grads_ok = grad_err <= FFL_GRAD_TOL
+    if exact:
+        ref = state_on(torch.device("cpu"), torch.float64)
+        step(ref, {k: v.double() if v.is_floating_point() else v for k, v in first["batch"].items()},
+             weights_for_epoch(0))
+        g_exact = grads(ref)
+        card_err, cpu_err = grad_rel_l2(g_card, g_exact), grad_rel_l2(g_cpu, g_exact)
+        tol = DDP_EXACT_FACTOR * cpu_err + DDP_EXACT_FLOOR
+        print(f"{name} train step gradients against float64 on the CPU, relative L2: card {card_err:.3g}, CPU "
+              f"float32 {cpu_err:.3g} (tol {tol:.3g})", flush=True)
+        grads_ok = card_err <= tol
+    if not all(e <= FFL_LOSS_TOL for e in loss_err.values()) or not grads_ok:
+        fail(f"the {name} train step differs between card and CPU: losses {loss_err}, gradients {grad_err}")
+    return {k: float(v) for k, v in got.items()}
 
 
 def ffl_bf16_card_against_cpu(cfg, first: dict) -> None:
@@ -2514,16 +2568,16 @@ def ffl_bf16_card_against_cpu(cfg, first: dict) -> None:
         fail(f"bfloat16 FFL on the card differs from the CPU: {apart}")
 
 
-def phase_ffl_predict_bf16(overrides: list[str]) -> dict:
-    """FFL prediction at bfloat16 from the bfloat16 training's `latest`,
-    through the functions `cli/predict.py::main` calls, on the first
-    FFL_BF16_TEST_TILES test tiles."""
+def phase_ffl_predict_tiles(overrides: list[str], dtype: str = "bfloat16", name: str = "ffl") -> dict:
+    """FFL prediction at `dtype` (bfloat16 from the bfloat16 training's
+    `latest`), through the functions `cli/predict.py::main` calls, on the
+    first FFL_BF16_TEST_TILES test tiles."""
     from pixelspointspolygons_torch.cli.evaluate import evaluate
     from pixelspointspolygons_torch.cli.predict import get_predictor
     from pixelspointspolygons_torch.config import compose
     from pixelspointspolygons_torch.ops.afm import afm_cuda
 
-    cfg = compose(overrides + ["host.compute_dtype=bfloat16", "evaluation=test", "checkpoint=latest",
+    cfg = compose(overrides + [f"host.compute_dtype={dtype}", "evaluation=test", "checkpoint=latest",
                                f"run_type.test_subset={FFL_BF16_TEST_TILES}"])
     afm_cuda.launches = 0
     t0 = time.perf_counter()
@@ -2535,15 +2589,15 @@ def phase_ffl_predict_bf16(overrides: list[str]) -> dict:
     launches = afm_cuda.launches
     with open(pred_file.replace(".json", "_time.json")) as f:
         timing = json.load(f)
-    if predictor.model.compute_dtype != torch.bfloat16 or predictor.map_dtype != torch.float16:
-        fail(f"FFL prediction at bfloat16: the model computes in {predictor.model.compute_dtype}")
+    if predictor.model.compute_dtype != getattr(torch, dtype) or predictor.map_dtype != torch.float16:
+        fail(f"{name} prediction at {dtype}: the model computes in {predictor.model.compute_dtype}")
     if launches or predictor.failed_batches or timing["num_images"] != FFL_BF16_TEST_TILES:
-        fail(f"FFL prediction at bfloat16: {launches} afm launches, {predictor.failed_batches} failed batches, "
+        fail(f"{name} prediction at {dtype}: {launches} afm launches, {predictor.failed_batches} failed batches, "
              f"{timing['num_images']} tiles")
     if not all(np.isfinite(results.get(k, np.nan)) for k in ("IoU", "C-IoU")):
-        fail(f"FFL prediction at bfloat16: non-finite metrics {results}")
+        fail(f"{name} prediction at {dtype}: non-finite metrics {results}")
     tiles_s = 1.0 / timing["prediction_time"]
-    print(f"ffl predict path (bfloat16): {timing['num_images']} tiles in {len(predictor.batch_times)} batches of {B}, "
+    print(f"{name} predict path ({dtype}): {timing['num_images']} tiles in {len(predictor.batch_times)} batches of {B}, "
           f"{tiles_s:.2f} tiles/s (the predictor's own s/tile over its loop); set-up, loop, files and evaluation "
           f"{wall:.2f} s; afm launches {launches}; failed batches {predictor.failed_batches}; IoU "
           f"{results['IoU']:.4f}", flush=True)
@@ -2711,7 +2765,7 @@ def phase_ffl_training(overrides: list[str], smi: str) -> dict:
               f"pass {t['iou_pass_ms']:.1f} ms (val IoU {t['val_iou']:.4f}), peak {t['peak_bytes']} bytes, loader "
               f"cold {t['loader_cold_ms']} and warm {t['loader_warm_ms']:.1f} ms per batch, by layer "
               f"{json.dumps({k: round(v, 2) for k, v in t['breakdown'].items()})}, card {smi}", flush=True)
-    pred = phase_ffl_predict_bf16(overrides)
+    pred = phase_ffl_predict_tiles(overrides)
     bt = pred["batch_times"]
     med = {k: statistics.median(t[k] for t in bt) for k in ("device_ms", "contours_ms", "acm_ms", "post_ms")}
     print(f"ffl predict path (bfloat16): {pred['tiles_s']:.2f} tiles/s; per batch of {B} (medians): forward "
@@ -3967,6 +4021,236 @@ def phase_data_parallel(overrides: list[str], p2p_overrides: list[str], ffl_over
     return {"hisup": hisup, **others, "gloo": gloo, "drift": drift}
 
 
+# --- the remaining encoders and the ablation twins (phase 23) -------------------
+
+
+def ffl_bf16_step_losses(cfg, first: dict) -> dict:
+    """One bfloat16 FFL train step on the card from the first step's weights
+    on its HISUP_BF16_CPU_TILES tiles (as `ffl_train_card_against_cpu`'s
+    float32 step)."""
+    from pixelspointspolygons_torch.models.ffl import build_ffl
+    from pixelspointspolygons_torch.models.ffl.losses import make_ffl_loss
+    from pixelspointspolygons_torch.train.ffl_step import make_train_step
+    from pixelspointspolygons_torch.train.state import TrainState, make_optimizer, make_scheduler
+
+    lr = float(cfg.experiment.model.learning_rate)
+    loss_fn, weights_for_epoch = make_ffl_loss(cfg)
+    model = build_ffl(cfg, device=CARD, dtype=torch.bfloat16)
+    model.load_state_dict(first["state"])
+    opt = make_optimizer("adam", model.parameters(), lr)
+    state = TrainState(model, opt, make_scheduler(opt, lambda n: lr, lr))
+    got = make_train_step(loss_fn)(state, {k: v.to(CARD) for k, v in first["batch"].items()}, weights_for_epoch(0))
+    return {k: float(v) for k, v in got.items()}
+
+
+def p2p_predict_split(overrides: list[str], name: str) -> dict:
+    """The test split predicted from `latest` and evaluated through the
+    functions `cli/predict.py::main` calls, with the kernel counters set to
+    0 just before and read just after."""
+    from pixelspointspolygons_torch.cli.evaluate import evaluate
+    from pixelspointspolygons_torch.cli.predict import get_predictor
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.ops.afm import afm_cuda
+
+    cfg = compose(overrides + ["evaluation=test", "checkpoint=latest"])
+    afm_cuda.launches = 0
+    t0 = time.perf_counter()
+    predictor = get_predictor(cfg, CARD)
+    pred_file = predictor.predict_dataset(cfg.evaluation.split)
+    torch.cuda.synchronize()
+    results = evaluate(cfg, pred_file)
+    wall = time.perf_counter() - t0
+    launches = afm_cuda.launches
+    with open(pred_file.replace(".json", "_time.json")) as f:
+        timing = json.load(f)
+    if launches or timing["num_images"] != TEST_TILES or not np.isfinite(results.get("IoU", np.nan)):
+        fail(f"{name} prediction: {launches} afm launches, {timing['num_images']} tiles, metrics {results}")
+    tiles_s = 1.0 / timing["prediction_time"]
+    times = predictor.batch_times
+    print(f"{name} predict path: {timing['num_images']} tiles in {len(times)} batches of {B}, {tiles_s:.2f} tiles/s "
+          f"(the predictor's own s/tile over its loop); set-up, loop, file and evaluation {wall:.2f} s; afm launches "
+          f"{launches}; IoU {results['IoU']:.4f}", flush=True)
+    for i, t in enumerate(times):
+        print(f"  batch {i}: encoder {t['encoder_ms']:.2f} ms, decode loop {t['decode_ms']:.2f} ms ({t['steps']} steps), "
+              f"ScoreNets {t['scorenet_ms']:.2f} ms (CUDA events); decode loop host {t['decode_host_ms']:.2f} ms; "
+              f"wall {t['wall_ms']:.2f} ms", flush=True)
+    return {"tiles_s": tiles_s, "batch_times": times, "results": results, "launches": launches,
+            "predictor": predictor, "cfg": cfg}
+
+
+def phase_dinov2(overrides: list[str], smi: str) -> dict:
+    """Pix2Poly over DINOv2 ViT-S/14 at full width: a seeded file in
+    DINOv2's layout grafted by the trainer's set-up, CNX_TRAIN_STEPS steps
+    with the val figure, the split predicted, the card against the CPU."""
+    from pixelspointspolygons_torch.data.loader import build_loader, to_device
+    from pixelspointspolygons_torch.models.pix2poly import Tokenizer
+    from pixelspointspolygons_torch.utils.torch_port import interpolate_pos_embed, port_dinov2_vit
+
+    dino_file = os.path.join(WORK, "dinov2_vits14.pth")
+    torch.save({"model": timm_vit_state(384, 12, 14, DINO_GRID, seed=PRETRAINED_SEED, dinov2=True)}, dino_file)
+    overrides = overrides + ["experiment.encoder.pretrained=true", f"experiment.encoder.checkpoint_file={dino_file}"]
+    graft = {}
+
+    def check_graft(trainer):
+        trunk = trainer.state.model.encoder.vit
+        values = port_dinov2_vit(torch.load(dino_file, weights_only=True)["model"])
+        n_tokens = trunk.state_dict()["pos_embed"].shape[1]
+        values["pos_embed"] = interpolate_pos_embed(values["pos_embed"], n_tokens)
+        graft.update(loaded=len(values), trunk=len(trunk.state_dict()), differ=grafted_equal_file(trunk, values),
+                     tokens=(DINO_GRID ** 2 + 1, n_tokens))
+
+    t = phase_p2p_train(overrides, "float32", steps=CNX_TRAIN_STEPS, name="pix2poly vit_dinov2",
+                        after_setup=check_graft, card_against_cpu=False)
+    print(f"pix2poly vit_dinov2 graft (DINOv2 layout, pos_embed {graft['tokens'][0]} -> {graft['tokens'][1]} tokens): "
+          f"{graft['loaded']} of the trunk's {graft['trunk']} tensors loaded, {graft['differ']} differ from the file "
+          f"on the card", flush=True)
+    if graft["differ"] or graft["loaded"] != graft["trunk"]:
+        fail(f"the DINOv2 graft: {graft}")
+    import cv2
+
+    figure = os.path.join(t["output_dir"], "runs", "images", "val_prediction_0.png")
+    img = cv2.imread(figure)
+    print(f"pix2poly vit_dinov2 val figure {figure}: {None if img is None else img.shape}, pixel std "
+          f"{None if img is None else round(float(img.std()), 2)}", flush=True)
+    if img is None or not img.std() > 0:
+        fail(f"the Pix2Poly trainer logged no val figure at {figure}")
+    pred = p2p_predict_split(overrides, "pix2poly vit_dinov2")
+    tokenizer = Tokenizer(pred["cfg"])
+    batch = next(iter(build_loader(pred["cfg"], "test", tokenizer=tokenizer, eval_mode=True)))
+    few = {"images": to_device(batch, CARD, ("images",))["images"][:P2P_CPU_TILES]}
+    p2p_card_against_cpu(pred["predictor"].model, few, tokenizer, "vit_dinov2 after its steps", P2P_REL_TOL)
+    print(f"pix2poly vit_dinov2: train step {t['step_ms']:.1f} ms, peak {t['peak_bytes'] / 2**30:.2f} GiB, val IoU "
+          f"{t['val_iou']:.4f}; predict {pred['tiles_s']:.2f} tiles/s, encoder "
+          f"{statistics.median(b['encoder_ms'] for b in pred['batch_times']):.2f} ms and decode loop "
+          f"{statistics.median(b['decode_ms'] for b in pred['batch_times']):.2f} ms per batch of {B} (medians); "
+          f"card {smi}", flush=True)
+    latest = os.path.join(t["output_dir"], "checkpoints", "latest.pt")
+    return {"train": t, "predict": {k: v for k, v in pred.items() if k not in ("predictor", "cfg")}, "latest": latest}
+
+
+def ablation_overrides(root: str) -> list[str]:
+    """The smoke split of the other phases for an ablation twin, whose runs
+    name their experiments, under the model root `root`."""
+    return [o for o in smoke_overrides(TRAIN_STEPS * B) if not o.startswith("experiment=")] + [
+        f"host.model_root={root}"]
+
+
+def as_best_val_iou(cfg, checkpoint: str | None = None, model=None) -> None:
+    """`checkpoint` (a trainer's `.pt`) or `model`'s weights written as the
+    `best_val_iou` checkpoint of `cfg`'s output directory."""
+    ckpt_dir = os.path.join(cfg.output_dir, "checkpoints")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    if checkpoint is not None:
+        shutil.copyfile(checkpoint, os.path.join(ckpt_dir, "best_val_iou.pt"))
+    else:
+        torch.save({"model": model.state_dict(), "epoch": 0, "cfg": cfg.to_dict()},
+                   os.path.join(ckpt_dir, "best_val_iou.pt"))
+
+
+def phase_ablations(p2p_vit_latest: str, dino_latest: str, ffl_vit_latest: str) -> dict:
+    """The ablation twins and the paper table on the card, with the counters
+    set to 0 just before and read just after (0 AFM launches)."""
+    from pixelspointspolygons_torch.cli import csv_results_to_latex, dino_v2_ablation, image_res_ablation
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.models.ffl import build_ffl
+    from pixelspointspolygons_torch.ops.afm import afm_cuda
+
+    t0 = time.perf_counter()
+    afm_cuda.launches = 0
+    dino_csvs = []
+    for enc, latest in (("vit", p2p_vit_latest), ("vit_dinov2", dino_latest)):
+        root = os.path.join(WORK, f"ablation_{enc}")
+        as_best_val_iou(compose(["experiment=p2p_image", f"encoder={enc}"] + ablation_overrides(root)), latest)
+        encoders, dino_v2_ablation.ENCODERS = dino_v2_ablation.ENCODERS, [enc]
+        try:
+            with contextlib.chdir(root):
+                df = dino_v2_ablation.main(ablation_overrides(root))
+        finally:
+            dino_v2_ablation.ENCODERS = encoders
+        if list(df.get("encoder", [])) != [enc]:
+            fail(f"cli.dino_v2_ablation gave no row for {enc}: {df}")
+        dino_csvs.append(os.path.join(root, "dino_v2_ablation.csv"))
+
+    root = os.path.join(WORK, "ablation_res")
+    res_over = ablation_overrides(root) + ["experiment.dataset.size=224"]
+    rows = [compose(["experiment=ffl_image", "evaluation=test", "checkpoint=best_val_iou", *extra] + res_over)
+            for _, extra in image_res_ablation.CONFIGS]
+    as_best_val_iou(rows[0], ffl_vit_latest)
+    unet512 = build_ffl(rows[1], device=CARD, generator=torch.Generator(device=CARD).manual_seed(FFL_SEED))
+    as_best_val_iou(rows[1], model=unet512)
+    del unet512
+    with contextlib.chdir(root):
+        df = image_res_ablation.main(res_over)
+    if list(df.get("in_size", [])) != [224, 512]:
+        fail(f"cli.image_res_ablation did not run both rows: {df}")
+    with open(rows[1].evaluation.pred_file) as f:
+        far = max((max(a["segmentation"][0][0::2] + [0]) for a in json.load(f)), default=0.0)
+    print(f"image_res_ablation, the 512 row on 224 px tiles (ROADMAP 3.18): the model's maps are "
+          f"{rows[1].experiment.model.decoder.in_feature_size} px and its polygons reach x = {far:.1f}", flush=True)
+    launches = afm_cuda.launches
+    tables = {
+        "dino_v2": csv_results_to_latex.main(dino_csvs + ["type=all", "caption=DINOv2 ablation (smoke run)"]),
+        "image_res": csv_results_to_latex.main([os.path.join(root, "image_res_ablation.csv"), "type=resolution",
+                                                "caption=Image resolution ablation (smoke run)"]),
+    }
+    wall = time.perf_counter() - t0
+    print(f"ablation twins and tables in {wall:.1f} s; afm launches {launches}", flush=True)
+    if launches or not all(tables.values()):
+        fail(f"the ablation twins: {launches} afm launches, tables {list(tables)}")
+    return {"launches": launches, "wall_s": wall, "far_x_512": far}
+
+
+def phase_remaining_encoders(smi: str) -> dict:
+    """Phase 23: FFL over UNet-ResNet101 and ConvNeXt-V2-T, Pix2Poly over
+    DINOv2 ViT-S/14, each in a model root of its own, then the ablation
+    twins on the card."""
+    t0 = time.perf_counter()
+    out = {}
+    ffl = smoke_overrides(num_train=TRAIN_STEPS * B, experiment="ffl_image")
+    for enc, steps in (("unetresnet101", TRAIN_STEPS), ("convnext", CNX_TRAIN_STEPS)):
+        over = ffl + [f"encoder={enc}", f"experiment.encoder.in_size={S}", f"run_type.train_subset={steps * B}",
+                      f"host.model_root={os.path.join(WORK, 'outputs_' + enc)}"]
+        name = f"ffl {enc}"
+        t = phase_ffl_train(over, "float32", steps=steps, name=name, cold=False, exact=True)
+        pred = phase_ffl_predict_tiles(over, "float32", name=name)
+        out[enc] = {"train": t, "predict": pred}
+        print(f"{name}: train step {t['step_ms']:.1f} ms, peak {t['peak_bytes'] / 2**30:.2f} GiB, val IoU "
+              f"{t['val_iou']:.4f}, by layer {json.dumps({k: round(v, 2) for k, v in t['breakdown'].items()})}; predict "
+              f"{pred['tiles_s']:.2f} tiles/s, forward "
+              f"{statistics.median(b['device_ms'] for b in pred['batch_times']):.2f} ms per batch of {B} (median); "
+              f"card {smi}", flush=True)
+        if enc == "convnext":
+            from pixelspointspolygons_torch.config import compose
+
+            bf16 = ffl_bf16_step_losses(compose(over), t["first"])
+            f32 = t["card_losses"]
+            err = {k: abs(bf16[k] / f32[k] - 1.0) for k in f32}
+            print(f"{name}: one bfloat16 step from the first step's weights on its {HISUP_BF16_CPU_TILES} tiles "
+                  f"{bf16}, float32 {f32}; rel diff {err} (tol {FFL_BF16_LOSS_TOL})", flush=True)
+            if set(err) != set(FFL_BF16_LOSS_TOL) or any(e > FFL_BF16_LOSS_TOL[k] for k, e in err.items()):
+                fail(f"the bfloat16 ConvNeXt FFL step's losses differ from float32's by {err}")
+            out[enc]["bf16_err"] = err
+        t.pop("first")
+        gc.collect()
+        torch.cuda.empty_cache()
+    p2p = smoke_overrides(num_train=TRAIN_STEPS * B, experiment="p2p_image") + [
+        "encoder=vit_dinov2", f"run_type.train_subset={CNX_TRAIN_STEPS * B}",
+        f"host.model_root={os.path.join(WORK, 'outputs_vit_dinov2')}"]
+    out["vit_dinov2"] = phase_dinov2(p2p, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    from pixelspointspolygons_torch.config import compose
+
+    p2p_vit = compose(smoke_overrides(TRAIN_STEPS * B, "p2p_image"))
+    ffl_vit = compose(ffl)
+    out["ablations"] = phase_ablations(os.path.join(p2p_vit.output_dir, "checkpoints", "latest.pt"),
+                                       out["vit_dinov2"]["latest"],
+                                       os.path.join(ffl_vit.output_dir, "checkpoints", "latest.pt"))
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"phase 23 (the remaining encoders and the ablation twins) in {out['wall_s']:.1f} s; card {smi}", flush=True)
+    return out
+
+
 def elapsed(what: str) -> None:
     print(f"elapsed before {what}: {time.perf_counter() - T0:.1f} s", flush=True)
 
@@ -4093,6 +4377,8 @@ def main() -> None:
           f"{cached['p2p']['step_ms']:.1f} ms; card {smi}", flush=True)
     elapsed("phase_data_parallel")
     ddp = phase_data_parallel(overrides, p2p_overrides, ffl_overrides, smi)
+    elapsed("phase_remaining_encoders")
+    rest = phase_remaining_encoders(smi)
     elapsed("the kernels line")
     afm_row["launches_by_path"] = {
         "hisup_train": launches["afm"], "hisup_predict": 0, "pix2poly_predict": 0,
@@ -4111,6 +4397,10 @@ def main() -> None:
         "pix2poly_train_cache": cached["p2p"]["launches"],
         "hisup_train_ddp": ddp["hisup"]["launches"], "pix2poly_train_ddp": ddp["pix2poly"]["launches"],
         "ffl_train_ddp": ddp["ffl"]["launches"],
+        **{f"ffl_{e}_{p}": rest[e][p]["launches"] for e in ("unetresnet101", "convnext") for p in ("train", "predict")},
+        "pix2poly_vit_dinov2_train": rest["vit_dinov2"]["train"]["launches"],
+        "pix2poly_vit_dinov2_predict": rest["vit_dinov2"]["predict"]["launches"],
+        "ablation_twins": rest["ablations"]["launches"],
     }
     print(f"smoke run: {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"kernels": [afm_row]}), flush=True)

@@ -22,7 +22,9 @@ from .. import parallel
 from ..config.engine import Config, compose
 
 
-def compose_from_argv(argv: list[str] | None = None) -> tuple[Config, str | None]:
+def split_device(argv: list[str] | None = None) -> tuple[list[str], str | None]:
+    """(the config overrides, the `device=` value or None) of `argv`
+    (default `sys.argv[1:]`)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     device = None
     overrides = []
@@ -31,6 +33,11 @@ def compose_from_argv(argv: list[str] | None = None) -> tuple[Config, str | None
             device = a.split("=", 1)[1]
         else:
             overrides.append(a)
+    return overrides, device
+
+
+def compose_from_argv(argv: list[str] | None = None) -> tuple[Config, str | None]:
+    overrides, device = split_device(argv)
     return compose(overrides), device
 
 

@@ -4,7 +4,9 @@ pixelspointspolygons_tpu/eval/evaluator.py (reference eval/evaluator.py:30-273).
 Loads GT + prediction COCO jsons, dispatches on cfg.evaluation.modes
 (iou / subset_iou / coco / boundary-coco / polis / hausdorff / chamfer /
 mta / topdig / juncs / ldof / stats), returns a flat metric dict and writes
-the CSV the entry points expect, with the stdlib `csv` module. `ldof`
+the CSV the entry points expect, with the stdlib `csv` module; the paper
+tables of several experiments (`to_latex_table`, JAX :116-236) read a
+pandas DataFrame or CSV as JAX's do and give the same string. `ldof`
 (external binary) is skipped with a warning when no executable is
 configured, matching evaluator.py:240-246.
 """
@@ -114,11 +116,127 @@ class Evaluator:
             "\\end{tabular}\n\\end{table}\n"
         )
 
-    def to_latex_table(self, *args, **kwargs) -> str:
-        """The multi-experiment paper tables of the ablation scripts."""
-        raise NotImplementedError(
-            "multi-experiment LaTeX tables: ROADMAP 'Port queue' item 'Remaining encoders and CLI'"
-        )
+    # paper-grade multi-experiment tables (reference evaluator.py:405-539)
+    TABLE_COLUMNS = {
+        "modality": ["polis", "chamfer", "hausdorff", "mta", "AP", "AR10", "IoU",
+                     "NR", "prediction_time", "num_params"],
+        "density": ["polis", "chamfer", "hausdorff", "mta", "AP", "AR10", "IoU",
+                    "C-IoU", "NR", "norm_line_dofs"],
+        "resolution": ["polis", "chamfer", "hausdorff", "mta", "AP", "AR10", "IoU",
+                       "C-IoU", "NR", "norm_line_dofs"],
+        "all": ["polis", "chamfer", "hausdorff", "mta", "AP", "AR10", "IoU",
+                "C-IoU", "NR", "norm_line_dofs"],
+    }
+    LOWER_IS_BETTER = {"polis", "chamfer", "hausdorff", "mta", "prediction_time",
+                       "num_params", "norm_line_dofs"}
+    METRIC_TEX = {
+        "polis": r"POLIS$\downarrow$", "chamfer": r"CD$\downarrow$",
+        "hausdorff": r"HD$\downarrow$", "mta": r"MTA$\downarrow$",
+        "AP": r"AP$\uparrow$", "AR10": r"AR$_{10}\uparrow$",
+        "IoU": r"IoU$\uparrow$", "C-IoU": r"C-IoU$\uparrow$",
+        "NR": r"NR$\uparrow$", "norm_line_dofs": r"DoF$\downarrow$",
+        "prediction_time": r"$t$ [s/img]$\downarrow$",
+        "num_params": r"\#P [M]$\downarrow$",
+    }
+
+    @staticmethod
+    def _split_experiment(name: str) -> tuple[str, str]:
+        """'p2p_fusion' → ('Pix2Poly', 'fusion') etc."""
+        base = str(name).split("/")[0]
+        model_map = {"p2p": "Pix2Poly", "pix2poly": "Pix2Poly",
+                     "hisup": "HiSup", "ffl": "FFL"}
+        parts = base.split("_", 1)
+        model = model_map.get(parts[0].lower(), parts[0])
+        modality = parts[1] if len(parts) > 1 else ""
+        return model, modality
+
+    def to_latex_table(
+        self,
+        df=None,
+        csv_file: Optional[str] = None,
+        table_type: str = "modality",
+        caption: str = "Results",
+        label: str = "tab:results",
+        outfile: Optional[str] = None,
+    ) -> str:
+        """Multi-experiment LaTeX table with best / second-best highlighting,
+        one row per experiment (the ablation drivers' CSVs feed this;
+        reference paper tables: evaluator.py:405-539)."""
+        import pandas as pd
+
+        if df is None:
+            if csv_file is None:
+                raise ValueError("need df or csv_file")
+            df = pd.read_csv(csv_file)
+        name_col = "experiment" if "experiment" in df.columns else df.columns[0]
+        cols = [c for c in self.TABLE_COLUMNS.get(table_type, []) if c in df.columns]
+        if not cols:  # fall back to whatever numeric columns exist
+            cols = list(df.select_dtypes("number").columns)
+
+        best, second = {}, {}
+        for c in cols:
+            vals = pd.to_numeric(df[c], errors="coerce").dropna()
+            if len(vals) == 0:
+                continue
+            ranked = vals.sort_values(ascending=c in self.LOWER_IS_BETTER)
+            best[c] = float(ranked.iloc[0])
+            if len(ranked.unique()) > 1:
+                second[c] = float(ranked[ranked != ranked.iloc[0]].iloc[0])
+
+        two_name_cols = table_type == "modality"
+        header = ([r"\textbf{Model}", r"\textbf{Modality}"] if two_name_cols
+                  else [r"\textbf{Experiment}"])
+        header += [self.METRIC_TEX.get(c, c.replace("_", r"\_")) for c in cols]
+        align = "@{}" + "l" * (2 if two_name_cols else 1) + "|" + "c" * len(cols) + "@{}"
+
+        lines = [
+            r"\begin{table}[]",
+            r"\setlength{\tabcolsep}{2pt}",
+            r"\centering",
+            r"\resizebox{\textwidth}{!}{",
+            r"\begin{tabular}{" + align + "}",
+            r"\toprule",
+            " & ".join(header) + r" \\",
+            r"\midrule",
+        ]
+        prev_model = None
+        for _, row in df.iterrows():
+            if two_name_cols:
+                model, modality = self._split_experiment(row[name_col])
+                if prev_model is not None and model != prev_model:
+                    lines.append(r"\midrule")
+                cells = [model if model != prev_model else "", modality]
+                prev_model = model
+            else:
+                cells = [str(row[name_col]).replace("_", r"\_")]
+            for c in cols:
+                v = row[c]
+                try:
+                    fv = float(v)
+                except (TypeError, ValueError):
+                    cells.append(str(v))
+                    continue
+                s = f"{int(fv)}" if abs(fv) >= 100 else f"{fv:.3g}"
+                if c in best and fv == best[c]:
+                    s = r"\cellcolor{blue!25} " + s
+                elif c in second and fv == second[c]:
+                    s = r"\cellcolor{blue!10} " + s
+                cells.append(s)
+            lines.append(" & ".join(cells) + r" \\")
+        lines += [
+            r"\bottomrule",
+            r"\end{tabular}",
+            r"}",
+            r"\caption{" + caption + "}",
+            r"\label{" + label + "}",
+            r"\end{table}",
+        ]
+        tex = "\n".join(lines)
+        if outfile:
+            with open(outfile, "w") as f:
+                f.write(tex)
+            self.logger.info(f"wrote {outfile}")
+        return tex
 
     def to_csv(self, results: dict, out_file: Optional[str] = None) -> str:
         """One row: `experiment`, then the metrics in the dict's order (the

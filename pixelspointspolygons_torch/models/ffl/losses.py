@@ -63,6 +63,12 @@ def dice_loss(pred: torch.Tensor, gt: torch.Tensor, eps: float = 1e-6) -> torch.
 def seg_loss(outputs, batch, *, bce_coef, dice_coef, seg_type, gt_channels, use_weights):
     pred = _wide(outputs["seg"])  # (B, Cs, H, W)
     gt = batch["gt_polygons_image"][:, gt_channels]
+    if pred.shape[-2:] != gt.shape[-2:]:
+        # JAX's first product of the two fails here too (ROADMAP 3.18): the
+        # model's maps are decoder.in_feature_size (encoder.in_size) wide, the
+        # ground truth is the tile's size, and nothing resizes either
+        raise ValueError(f"FFL seg maps of {tuple(pred.shape[-2:])} against ground truth of "
+                         f"{tuple(gt.shape[-2:])}: encoder.in_size must be the tiles' size")
     w = batch.get("seg_loss_weights")
     d = dice_loss(pred, gt).mean()
     if seg_type == "bool":

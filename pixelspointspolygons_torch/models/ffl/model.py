@@ -7,11 +7,14 @@ over a dense encoder map — port of pixelspointspolygons_tpu/models/ffl/model.p
 - crossfield head: the features ⊕ the detached seg → Conv3×3 + BatchNorm +
   ReLU + Conv1×1 → 2·tanh, the 4 real channels of (c0, c2) in [-2, 2];
 - encoders (JAX :33-67, :108-164): `vit_cnn` (`models/vit.py::ViTCNNEncoder`),
-  `hrnet` (`models/hrnet.py::HRNetEncoder`, whose 1/4-resolution map is
-  resized bilinearly up to out_size as in JAX :84-89), and the LiDAR and
-  fusion encoders `pointpillars_vit_cnn`, `early_fusion_vit_cnn` and
-  `pointpillars` (HiSup's, `models/hisup/factory.py::ENCODERS`);
-  `unetresnet101`/`convnext` raise naming their ROADMAP item.
+  `hrnet` (`models/hrnet.py::HRNetEncoder`) and `convnext`
+  (`models/convnext.py::ConvNeXtEncoder`), whose 1/4-resolution maps are
+  resized bilinearly up to out_size as in JAX :84-89, `unetresnet101`
+  (`unetresnet.py::UNetResNetEncoder`, at the input's resolution), and the
+  LiDAR and fusion encoders `pointpillars_vit_cnn`, `early_fusion_vit_cnn`
+  and `pointpillars` (HiSup's, `models/hisup/factory.py::ENCODERS`). As in
+  JAX, `unetresnet101` and `convnext` take only `in_size` from the config
+  and keep their own defaults (ResNet101, ConvNeXt-V2-T).
 
 Outputs are NCHW: "seg" (B, Cs, H, W), "crossfield" (B, 4, H, W). Module
 names are the flax names (seg_conv, seg_bn, seg_out, cf_conv, cf_bn, cf_out;
@@ -25,14 +28,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..hisup.factory import ENCODERS, lidar_kwargs, vit_kwargs
+from ..convnext import ConvNeXtEncoder
+from ..hisup.factory import ENCODERS as HISUP_ENCODERS
+from ..hisup.factory import lidar_kwargs, vit_kwargs
 from ..layers import BatchNorm, Conv2d, encode_modalities, init_flax_defaults, resize_bilinear
+from .unetresnet import UNetResNetEncoder
 
-# encoder name -> ROADMAP item that ports it
-_DEFERRED = {
-    "unetresnet101": "'Remaining encoders and CLI'",
-    "convnext": "'Remaining encoders and CLI'",
-}
+ENCODERS = {**HISUP_ENCODERS, "unetresnet101": UNetResNetEncoder, "convnext": ConvNeXtEncoder}
 
 
 class FFL(nn.Module):
@@ -79,10 +81,8 @@ def encoder_config(cfg) -> dict:
     if name == "pointpillars":
         return {"name": name, **lidar_kwargs(enc), "out_size": out_size,
                 "out_channels": tuple(int(c) for c in cfg.experiment.model.point_pillars.out_channels)}
-    if name == "hrnet":
+    if name in ("hrnet", "unetresnet101", "convnext"):
         return {"name": name, "in_size": int(enc.in_size)}
-    if name in _DEFERRED:
-        raise NotImplementedError(f"FFL encoder {name!r}: ROADMAP 'Port queue' item {_DEFERRED[name]}")
     raise ValueError(f"unknown encoder {name!r} for ffl")
 
 

@@ -301,6 +301,38 @@ class Conv1d(_CastConv, nn.Conv1d):
     pass
 
 
+def same_pads(sizes, kernel, stride) -> list[int]:
+    """`F.pad`'s list (last axis first) for flax's and lax's "SAME" padding
+    of an NCHW map (`lax.padtype_to_pads`): ceil(n / s) outputs, total =
+    max((out - 1)·s + k - n, 0), the odd pixel after. At stride 2 on an
+    even size that is (0, 1), which torch's symmetric `padding=` cannot
+    give: it samples another grid."""
+    pads = []
+    for n, k, s in reversed(list(zip(sizes, kernel, stride))):
+        total = max((-(-n // s) - 1) * s + k - n, 0)
+        pads += [total // 2, total - total // 2]
+    return pads
+
+
+class SameConv2d(Conv2d):
+    """flax `nn.Conv(padding="SAME")` at any stride and size (`same_pads`);
+    symmetric pads go to the convolution itself, others to `F.pad` first."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        wl, wh, hl, hh = same_pads(x.shape[2:], self.kernel_size, self.stride)
+        dt = self.compute_dtype
+        x, w, b = cast_to(x, dt), cast_to(self.weight, dt), cast_to(self.bias, dt)
+        if (wl, hl) == (wh, hh):
+            return F.conv2d(x, w, b, self.stride, (hl, wl), self.dilation, self.groups)
+        return F.conv2d(F.pad(x, [wl, wh, hl, hh]), w, b, self.stride, 0, self.dilation, self.groups)
+
+
+def max_pool_same(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
+    """`nn.max_pool(x, (k, k), (stride, stride), padding="SAME")` of an NCHW
+    map: padded with -inf by `same_pads`."""
+    return F.max_pool2d(F.pad(x, same_pads(x.shape[2:], (k, k), (stride, stride)), value=float("-inf")), k, stride)
+
+
 class Dense(nn.Linear):
     """flax `nn.Dense(dtype=dtype)`: input, kernel and bias cast to `dtype`,
     the output in it. (`dtype` is the compute dtype, not `nn.Linear`'s

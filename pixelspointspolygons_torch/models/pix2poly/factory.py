@@ -1,7 +1,6 @@
 """Config → Pix2Poly model (port of
 pixelspointspolygons_tpu/models/pix2poly/factory.py: the `vit`,
-`pointpillars_vit` and `early_fusion_vit` branches; `vit_dinov2` waits for
-its item of the port)."""
+`vit_dinov2`, `pointpillars_vit` and `early_fusion_vit` branches)."""
 
 from __future__ import annotations
 
@@ -10,12 +9,6 @@ import torch
 from ..layers import init_flax_defaults
 from .model import Pix2Poly
 from .tokenizer import Tokenizer
-
-# encoder name -> ROADMAP item that ports it
-_DEFERRED = {
-    "vit_dinov2": "'Remaining encoders and CLI'",
-}
-
 
 def encoder_config(cfg) -> dict:
     enc = cfg.experiment.encoder
@@ -29,6 +22,9 @@ def encoder_config(cfg) -> dict:
     )
     if name == "vit":
         return {"name": "vit", **vit_kw}
+    if name == "vit_dinov2":
+        # the DINOv2 ViT-S/14 trunk: the ViT with LayerScale (JAX :27-30)
+        return {"name": "vit", **vit_kw, "layer_scale": True}
     if name in ("pointpillars_vit", "early_fusion_vit"):
         return {
             "name": name,
@@ -39,8 +35,6 @@ def encoder_config(cfg) -> dict:
             "height": float(enc.in_height),
             "max_points_per_voxel": int(enc.max_num_points_per_voxel),
         }
-    if name in _DEFERRED:
-        raise NotImplementedError(f"Pix2Poly encoder {name!r}: ROADMAP 'Port queue' item {_DEFERRED[name]}")
     raise ValueError(f"unknown encoder {name!r} for pix2poly")
 
 

@@ -38,7 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.voxelize import assign_pillars, grid_shape, masked_segment_max, cell_offsets
-from .layers import BatchNorm, Conv2d, Dense, RowBatchNorm, adaptive_avg_pool1d, cast_to, resize_bilinear
+from .layers import BatchNorm, Dense, RowBatchNorm, SameConv2d, adaptive_avg_pool1d, cast_to, resize_bilinear
 from .vit import ViTBackbone
 
 PFN_IN_CHANNELS = 8  # [x, y, z, x-xc, y-yc, z-zc, x-xp, y-yp]
@@ -112,19 +112,6 @@ class PointPillarsViTEncoder(nn.Module):
         B, ny, nx, C = canvas.shape
         x = self.vit(tokens=canvas.reshape(B, ny * nx, C))[:, 1:]
         return adaptive_avg_pool1d(x, self.out_dim)
-
-
-class SameConv2d(Conv2d):
-    """flax `nn.Conv(padding="SAME")` at any stride: the padding that keeps
-    ceil(size / stride) outputs, its odd pixel after (torch's `padding=`
-    pads both sides alike, which samples another grid at stride 2)."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        pads = []
-        for size, k, s in reversed(list(zip(x.shape[2:], self.kernel_size, self.stride))):
-            total = max((-(-size // s) - 1) * s + k - size, 0)
-            pads += [total // 2, total - total // 2]
-        return super().forward(F.pad(x, pads))
 
 
 class PointPillarsDenseEncoder(nn.Module):

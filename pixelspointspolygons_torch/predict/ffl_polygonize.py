@@ -454,6 +454,17 @@ def mean_prob_in_ring(ring: np.ndarray, prob: np.ndarray) -> float:
     return float(prob[mask > 0].mean())
 
 
+def c0c2_to_uv_numpy(c0c2: np.ndarray):
+    """(4, H, W) → complex (u, v) maps (math_utils.compute_crossfield_uv;
+    JAX :445-452); `utils/visualization.py::plot_crossfield` draws them."""
+    c0 = c0c2[0] + 1j * c0c2[1]
+    c2 = c0c2[2] + 1j * c0c2[3]
+    disc = np.sqrt(c2**2 - 4 * c0 + 0j)
+    u2 = -(c2 + disc) / 2
+    v2 = -(c2 - disc) / 2
+    return np.sqrt(u2), np.sqrt(v2)
+
+
 class _LazyUVMap:
     """Behaves like one of the (H, W) complex u/v maps for the fancy-indexed
     reads corner detection performs (`u[ij[:,0], ij[:,1]]`, `.shape`), but

@@ -28,13 +28,9 @@ from ..parallel import all_gather_objects, process_count, process_index, sync_pr
 from ..utils.checkpoint import CheckpointManager
 from ..utils.coco import save_annotations
 from ..utils.logger import make_logger
+from ..utils.visualization import prediction_figure
 
 _PLOT_SIZE = 900  # px: the JAX package's 6-inch figure at 150 dpi
-# matplotlib's default colour cycle (tab10), as BGR
-_COLORS = [
-    (180, 119, 31), (14, 127, 255), (44, 160, 44), (40, 39, 214), (189, 103, 148),
-    (75, 86, 140), (194, 119, 227), (127, 127, 127), (34, 189, 188), (207, 190, 23),
-]
 
 
 def valid_image_ids(batch: dict) -> list[int]:
@@ -176,27 +172,9 @@ class Predictor:
         tile)."""
         if process_index() != 0:
             return
-        if image is not None:
-            img = image[0] if image.ndim == 4 else image
-            img = img - img.min()
-            img = img / max(img.max(), 1e-6)
-            base = np.ascontiguousarray((img * 255).round().astype(np.uint8)[..., ::-1])
-        else:
-            side = int(self.cfg.experiment.encoder.in_size)
-            base = np.full((side, side, 3), 255, np.uint8)
-        scale = max(_PLOT_SIZE // max(base.shape[:2]), 1)
-        canvas = cv2.resize(base, None, fx=scale, fy=scale, interpolation=cv2.INTER_NEAREST)
-        for k, poly in enumerate(polygons):
-            p = np.asarray(poly, np.float64)
-            if len(p) < 2:
-                continue
-            color = _COLORS[k % len(_COLORS)]
-            # 4 fractional bits: vertices keep their sub-pixel position
-            pts = np.round(p * scale * 16).astype(np.int32)
-            cv2.polylines(canvas, [pts], True, color, 2, cv2.LINE_AA, shift=4)
-            for q in pts:
-                cv2.circle(canvas, (int(q[0]), int(q[1])), 4 * 16, color, -1, cv2.LINE_AA, shift=4)
+        img = None if image is None else (image[0] if image.ndim == 4 else image)
+        figure = prediction_figure(img, polygons, _PLOT_SIZE, extent=int(self.cfg.experiment.encoder.in_size))
         os.makedirs(os.path.dirname(os.path.abspath(out_file)), exist_ok=True)
-        if not cv2.imwrite(out_file, canvas):
+        if not cv2.imwrite(out_file, figure[..., ::-1]):
             raise OSError(f"could not write {out_file}")
         self.logger.info(f"wrote {out_file}")

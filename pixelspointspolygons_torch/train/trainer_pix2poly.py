@@ -8,14 +8,15 @@
   or coming from the device cache (`training.device_cache`);
 - every `val_every` epochs the val split greedy-decoded (early exit, raw
   scores), assembled into polygons and scored, at the model's compute
-  dtype, through a predictor that shares the model.
+  dtype, through a predictor that shares the model, and the last val
+  batch's first prediction drawn over its image for the run logger
+  (`val_prediction_<epoch>.png`; a figure that fails is logged and never
+  stops training, JAX :168-195).
 
 The model computes in `host.compute_dtype` (float32 or bfloat16) with
 float32 parameters. A configured ViT checkpoint (`encoder.vit.pretrained`
 with a `checkpoint_file`) is grafted in right after the model is built
-(`utils/pretrained.py`), before a resume or warm start. The JAX trainer's
-val-prediction figure (matplotlib) is ROADMAP 'Port queue' item 'Val
-visualization'.
+(`utils/pretrained.py`), before a resume or warm start.
 """
 
 from __future__ import annotations
@@ -86,4 +87,20 @@ class Pix2PolyTrainer(Trainer):
         gt = CocoIndex(self.cfg.experiment.dataset.annotations["val"])
         results = compute_iou_ciou(gt, gt.load_res(gathered))
         self.logger.info(f"epoch {epoch} val IoU={results['IoU']:.4f} C-IoU={results['C-IoU']:.4f}")
+        self._log_val_visualization(epoch, polys, batch)
         return float(results["IoU"])
+
+    def _log_val_visualization(self, epoch: int, polys, batch) -> None:
+        """The first tile of the last val batch with its predicted polygons,
+        through the run logger (the reference pushes it to wandb,
+        trainer_pix2poly.py:96-179)."""
+        if not getattr(self, "run_logger", None) or not self.run_logger.enabled:
+            return
+        try:
+            from ..utils.visualization import prediction_figure
+
+            image = batch.get("images")
+            figure = prediction_figure(None if image is None else image[0], polys[0])
+            self.run_logger.log_image("val_prediction", figure, step=epoch)
+        except Exception as e:  # a figure must never stop training
+            self.logger.debug(f"val visualization failed: {e}")

@@ -4,18 +4,19 @@ Takes the JAX package's `params` and `batch_stats` as nested dicts of numpy
 arrays (`jax.device_get` of a TrainState, or an orbax payload already read
 by the JAX package) and returns the tensors the port's modules hold:
 
-- conv kernels HWIO → OIHW; ECA's 1-D conv (k, 1, 1) → (1, 1, k); dense
+- conv kernels HWIO → OIHW (a depthwise (k, k, 1, C) → (C, 1, k, k)); ECA's 1-D conv (k, 1, 1) → (1, 1, k); dense
   kernels (in, out) → `Linear` weights (out, in);
 - BatchNorm `scale`/`bias`/`mean`/`var` → `weight`/`bias`/`running_mean`/
   `running_var`; LayerNorm `scale`/`bias` → `weight`/`bias`; `Embed`'s
   `embedding` → `weight`;
 - raw parameters (ViT `cls_token`/`pos_embed`/`ls1`/`ls2`, the decoder's
-  `decoder_pos_embed`/`encoder_pos_embed`, Pix2Poly's scalar `bin_score`)
-  keep their names;
+  `decoder_pos_embed`/`encoder_pos_embed`, Pix2Poly's scalar `bin_score`,
+  GRN's (1, 1, 1, C) `gamma`/`beta`) keep their names and shapes;
 - flax auto-names map to the port's module names: `Conv_i` → `conv{i}`,
   `BatchNorm_i` → `bn{i}`, `Dense_i` → `dense{i}`, `LayerNorm_i` → `ln{i}`,
   `MultiHeadAttention_0` → `attn`, `MlpBlock_0` → `mlp`,
-  `PillarFeatureNet_0` → `pfn` (its bias-free `Dense_i` → `dense{i}`); in
+  `PillarFeatureNet_0` → `pfn` (its bias-free `Dense_i` → `dense{i}`),
+  `ConvNeXtBlock_k` and `Bottleneck_k` → `block{k}`, `GRN_i` → `grn{i}`; in
   ECA (`a2m_att`, `a2j_att`) `Conv_0` → `conv1d`, `Conv_1` → `proj`,
   `BatchNorm_0` → `bn`. Explicit flax names (HRNet's, the decoder's, the
   LiDAR and fusion encoders' `pillar_canvas`, `pp_vit`, `fusion_vit`, `vit`,
@@ -33,9 +34,11 @@ import numpy as np
 import torch
 
 _ECA_NAMES = {"Conv_0": "conv1d", "Conv_1": "proj", "BatchNorm_0": "bn"}
-_AUTO_PREFIXES = {"Conv_": "conv", "BatchNorm_": "bn", "Dense_": "dense", "LayerNorm_": "ln"}
+_AUTO_PREFIXES = {"Conv_": "conv", "BatchNorm_": "bn", "Dense_": "dense", "LayerNorm_": "ln",
+                  "ConvNeXtBlock_": "block", "Bottleneck_": "block", "GRN_": "grn"}
 _AUTO_NAMES = {"MultiHeadAttention_0": "attn", "MlpBlock_0": "mlp", "PillarFeatureNet_0": "pfn"}
-_RAW_PARAMS = frozenset({"cls_token", "pos_embed", "ls1", "ls2", "decoder_pos_embed", "encoder_pos_embed", "bin_score"})
+_RAW_PARAMS = frozenset({"cls_token", "pos_embed", "ls1", "ls2", "decoder_pos_embed", "encoder_pos_embed", "bin_score",
+                         "gamma", "beta"})
 
 
 def _leaves(tree: Any, path: tuple = ()) -> Iterator[tuple[tuple, Any]]:

@@ -108,6 +108,27 @@ def port_timm_vit(state_dict: Mapping[str, Any], depth: int = 12) -> dict[str, n
     return out
 
 
+def load_pretrained_vit(checkpoint_file: str, depth: int = 12) -> dict[str, np.ndarray]:
+    """A torch `.pth` of a timm ViT (its state_dict, or one nested under
+    `state_dict`, then under `model`) ported by `port_timm_vit` (JAX
+    :133-142). The file is read with `weights_only=True`, and only a
+    payload that this refuses is unpickled in full, as JAX reads every
+    file."""
+    import pickle
+
+    import torch
+
+    try:
+        payload = torch.load(checkpoint_file, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:
+        payload = torch.load(checkpoint_file, map_location="cpu", weights_only=False)
+    if isinstance(payload, dict) and "state_dict" in payload:
+        payload = payload["state_dict"]
+    if isinstance(payload, dict) and "model" in payload and isinstance(payload["model"], dict):
+        payload = payload["model"]
+    return port_timm_vit(payload, depth=depth)
+
+
 def port_dinov2_vit(state_dict: Mapping[str, Any], depth: int = 12) -> dict[str, np.ndarray]:
     """A DINOv2 ViT state_dict: timm's layout plus the per-block LayerScale
     gammas (`blocks.i.ls1.gamma`, `ls2.gamma`)."""

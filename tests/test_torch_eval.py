@@ -276,10 +276,46 @@ def test_load_res_and_coco_helpers_match_jax():
     assert port_gt.load_imgs(2) == jax_gt.load_imgs(2) and port_gt.load_imgs([1, 3]) == jax_gt.load_imgs([1, 3])
 
 
-def test_to_latex_table_waits_for_its_roadmap_item(tmp_path):
-    cfg, _ = _cfgs(tmp_path, ["iou"])
-    with pytest.raises(NotImplementedError, match="ROADMAP 'Port queue' item 'Remaining encoders and CLI'"):
-        Evaluator(cfg).to_latex_table(csv_file="results.csv")
+_METRICS = ["polis", "chamfer", "hausdorff", "mta", "AP", "AR10", "IoU", "C-IoU", "NR", "norm_line_dofs",
+            "prediction_time", "num_params"]
+
+
+def _results_table(table_type: str):
+    """Rows as the ablation drivers write them: an experiment column (the
+    density ablation's first column is its point cap), ties for the best
+    and the second-best value, a value of 100 or more, and a missing one."""
+    import pandas as pd
+
+    r = np.random.RandomState(len(table_type))
+    names = ["p2p_image", "p2p_fusion", "hisup_image", "hisup_lidar", "ffl_image", "ffl_fusion/run2"]
+    rows = []
+    for i, name in enumerate(names):
+        row = {"max_num_points_per_voxel": 4 * 2 ** i} if table_type == "density" else {"experiment": name}
+        row.update({m: round(float(r.uniform(0.05, 3.0)), 4) for m in _METRICS})
+        rows.append(row)
+    rows[1]["IoU"] = rows[0]["IoU"] = max(row["IoU"] for row in rows)
+    rows[2]["num_params"] = 123.456
+    rows[3]["polis"] = float("nan")
+    return pd.DataFrame(rows)
+
+
+@pytest.mark.parametrize("table_type", ["modality", "density", "resolution", "all"])
+def test_to_latex_table_matches_jax(table_type, tmp_path):
+    """The paper table of several experiments equals JAX's byte for byte,
+    from a DataFrame and from a CSV (which `outfile` also writes); the one
+    row table of `to_latex` too."""
+    cfg, jcfg = _cfgs(tmp_path, ["iou"])
+    df = _results_table(table_type)
+    csv_file = str(tmp_path / "results.csv")
+    df.to_csv(csv_file, index=False)
+    kw = dict(table_type=table_type, caption=f"{table_type} ablation", label=f"tab:{table_type}")
+    want = JaxEvaluator(jcfg).to_latex_table(df.copy(), **kw)
+    assert Evaluator(cfg).to_latex_table(df.copy(), **kw) == want
+    out = str(tmp_path / "table.tex")
+    assert Evaluator(cfg).to_latex_table(csv_file=csv_file, outfile=out, **kw) == want
+    with open(out) as f:
+        assert f.read() == want
+    assert r"\cellcolor{blue!25}" in want and r"\cellcolor{blue!10}" in want
     tex = Evaluator(cfg).to_latex({"IoU": 0.5, "num_images": 3})
     assert tex == JaxEvaluator(jax_compose(["experiment=hisup_image"])).to_latex({"IoU": 0.5, "num_images": 3})
 

@@ -1,7 +1,8 @@
 """The port's FFL model side against the JAX package on the CPU: the
 crossfield ops, `bilinear_interpolate`, `ViTCNNEncoder`, HiSup with the
 `vit_cnn` encoder and `FFL` (`vit_cnn` and `hrnet` encoders), with weights
-bridged from the flax tree, and the refusals of what is not ported.
+bridged from the flax tree (FFL over `convnext` and `unetresnet101`:
+tests/test_torch_encoders.py).
 
 Tolerances and why (float32 throughout):
 - crossfield ops: XLA's CPU backend computes a complex product's real part
@@ -267,20 +268,6 @@ def test_lidar_and_fusion_encoders_build_and_run(encoder, experiment):
     size = int(cfg.experiment.model.decoder.in_feature_size)
     assert out["seg"].shape == (2, 1, size, size) and out["crossfield"].shape == (2, 4, size, size)
     assert torch.isfinite(out["seg"]).all() and float(out["crossfield"].abs().max()) <= 2.0
-
-
-@pytest.mark.parametrize(
-    "encoder,item",
-    [
-        ("unetresnet101", "Remaining encoders and CLI"),
-        ("convnext", "Remaining encoders and CLI"),
-    ],
-)
-def test_encoders_not_ported_raise(encoder, item):
-    cfg = copy.deepcopy(compose(["experiment=ffl_image", "dataset=synthetic"]))
-    cfg.experiment.encoder.name = encoder
-    with pytest.raises(NotImplementedError, match=f"ROADMAP 'Port queue' item '{item}'"):
-        build_ffl(cfg)
 
 
 def test_options_not_ported_raise():

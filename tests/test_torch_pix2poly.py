@@ -379,14 +379,6 @@ def test_build_pix2poly_matches_the_flax_tree():
     assert float(sd["decoder.layer0.norm1.weight"].min()) == 1.0
 
 
-@pytest.mark.parametrize("encoder,item", [("vit_dinov2", "Remaining encoders and CLI")])
-def test_other_encoders_not_ported(encoder, item):
-    cfg = compose(["experiment=p2p_image", "run_type=debug"])
-    cfg.experiment.encoder.name = encoder
-    with pytest.raises(NotImplementedError, match=f"ROADMAP 'Port queue' item '{item}'"):
-        build_pix2poly(cfg)
-
-
 @pytest.mark.parametrize("experiment", ["p2p_lidar", "p2p_fusion"])
 def test_lidar_and_fusion_encoders_build_and_run(experiment):
     """`pointpillars_vit` and `early_fusion_vit` (the full-width trunk at a
