@@ -61,9 +61,10 @@ fails:
   9. Pix2Poly prediction at bfloat16 of the 32-tile test split from that
      training's `latest`, with the counters set to 0 just before and read
      just after, timed per batch as in 6; on 2 tiles the card's bfloat16
-     against the CPU's (encoder tokens, decode tokens outside near-ties,
-     teacher-forced logits, raw scores), for the model and for the varied
-     copy (unsharpened) of 6's seeded random model, whose tokens vary;
+     against the CPU's (encoder tokens, the first 128 decode steps' tokens
+     outside near-ties, teacher-forced logits, raw scores), for the model
+     and, on 4 tiles, for the varied copy (unsharpened) of 6's seeded
+     random model, whose tokens vary;
      the bfloat16 fixed-length decode of `bench.py` cut at its stages and
      one step profiled, with the same step of the float32 model of the
      same weights (a bfloat16 step must make no more aten calls: the
@@ -174,20 +175,37 @@ fails:
      of a batch against the one-process step on the whole batch on the
      card; ROADMAP 3.16's float32 gradient against float64 on the card
      and the CPU.
-They run in the order 1-5, 10-15, 6-9, 16-22. The line before the last is the
+ 23. the remaining encoders at full width, each in a model root of its own:
+     FFL over UNet-ResNet101 and ConvNeXt-V2-T (training, a step on the
+     card against the CPU and float64, 16 test tiles predicted), Pix2Poly
+     over DINOv2 ViT-S/14 grafted from a seeded file (training, the val
+     figure, the split predicted, the card against the CPU), then the
+     DINOv2 and image-resolution ablation twins and their LaTeX tables;
+ 24. the last script twins, each through its `main`: `cli.postprocess_oracle`
+     (every family's post-processing on the ground truth's outputs, on the
+     card and the CPU, each row above its quality floor),
+     `cli.measure_predict_e2e` over phase 6's seeded Pix2Poly-image (its
+     JSON line), `cli.profile train` and `generate` (each trace's size,
+     its export's seconds and the decode's kernels in it),
+     `cli.gather_pretrained_models` over the earlier phases' checkpoints
+     and `cli.droplidar50_ablation` over phase 18's seeded fusion model.
+They run in the order 1-5, 10-15, 6-9, 16-24. The line before the last is the
 card's name and power limit, the one before it a JSON object with every
 kernel's numbers; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import importlib
 import json
 import math
+import mmap
 import multiprocessing
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -220,10 +238,12 @@ AFM_OPS_PER_PAIR_UNSHARED = 18
 B, L, S = 16, 256, 224
 TRAIN_STEPS, VAL_STEPS = 4, 1
 TEST_TILES = 32  # 2 batches: the predictor's one batch in flight runs
-# the card's probability maps against the CPU's: the training phase holds
-# the raw outputs to 1e-3 of their range, and a softmax or sigmoid moves
-# by less than its input does
+# the card's probability maps against the CPU's, on MAP_TILES tiles of a test
+# batch (the CPU's full-width HRNet forward takes about 2 s a tile): the
+# training phase holds the raw outputs to 1e-3 of their range, and a softmax
+# or sigmoid moves by less than its input does
 MAP_TOL = 1e-3
+MAP_TILES = 4
 # polygonizing the ground truth's own masks and corners gives it back up to
 # merged touching buildings (tiles of row houses), so its IoU stays below 1
 ORACLE_MIN_IOU = 0.95
@@ -267,10 +287,15 @@ P2P_BF16_LOSS_TOL = 5e-2
 # runs on `p2p_chain`'s copy of the seeded random model on
 # P2P_BF16_CHAIN_TILES tiles, which must compare at least
 # P2P_BF16_MIN_DECODE decode positions and P2P_BF16_MIN_DISTINCT tokens.
+# Both compare the first P2P_BF16_CHECK_STEPS decode steps: the CPU's
+# bfloat16 decode is the script's costliest comparison (97.6 s for all 385
+# steps on 2 + 8 tiles on the card's host, PERF.md); 4 tiles of 128 steps
+# still give 512 positions, and the 8 tiles' 385 steps gave 151 tokens.
 P2P_BF16_REL_L2 = 5e-2
 P2P_BF16_NEAR_TIE_ULPS = 8
-P2P_BF16_SUBLAYER, P2P_BF16_CHAIN_TILES = 0.5, 8
+P2P_BF16_SUBLAYER, P2P_BF16_CHAIN_TILES = 0.5, 4
 P2P_BF16_MIN_DECODE, P2P_BF16_MIN_DISTINCT = 100, 10
+P2P_BF16_CHECK_STEPS = 128
 # the pretrained-encoder files are drawn from this seed
 PRETRAINED_SEED = 3
 # HiSup at bfloat16: the first train step's losses against float32's from
@@ -498,6 +523,35 @@ DRIFT_SIZE = 64
 #   land on the 512 grid: ROADMAP 3.18), `cli.csv_results_to_latex`.
 CNX_TRAIN_STEPS = 2
 DINO_GRID = 37
+# The last script twins (phase 24), each through its `main` on the card:
+# - `cli.postprocess_oracle`: each row held to tests/test_postprocess_quality.py's
+#   floors (IoU, C-IoU, NR), which the JAX script's rows clear on the CPU;
+#   the same command with `device=cpu`: the HiSup and Pix2Poly rows (host
+#   code) equal, the FFL rows within ORACLE_CPU_TOL (the ACM and ASM are
+#   chaotic at the ulp level, ROADMAP 3.9 and 3.10; the bound of
+#   tests/test_torch_script_twins.py, the twin against JAX on the CPU);
+# - `cli.measure_predict_e2e` over phase 6's seeded Pix2Poly-image (all 385
+#   decode steps: a random model emits no EOS): the split's TEST_TILES
+#   tiles, every pass writing the same set of image ids;
+# - `cli.profile train` and `generate`: the greedy decode takes one argmax a
+#   step, so the generate trace holds at least 3 runs x max_len - 1 launches
+#   of the argmax's reduction kernel; the train trace, the decoder's
+#   embedding and its backward once a run and a kernel for every matrix
+#   product;
+# - `cli.gather_pretrained_models` over the model root of phases 4-22,
+#   `cli.droplidar50_ablation` over phase 18's seeded p2p_fusion in a root of
+#   its own (ROADMAP 3.15: its two rows predict with one model on the same
+#   inputs, but a fusion prediction is not repeatable on the card, where the
+#   two rows of one seeded model read IoU 0.1094 and 0.1070 in one run
+#   (PERF.md), so the rows' equality is printed, not held).
+ORACLE_FLOORS = {
+    "ffl.acm.tol_1": (0.88, 0.70, 0.75),
+    "hisup": (0.85, 0.70, 0.78),
+    "pix2poly": (0.85, 0.75, 0.85),
+    "ffl.asm.tol_1": (0.78, 0.65, 0.78),
+}
+ORACLE_CPU_TOL = 0.02
+ORACLE_ASM_TILES = 4
 
 
 def fail(msg: str) -> None:
@@ -1119,7 +1173,7 @@ def phase_predict(cfg_overrides: list[str], dtype: str = "float32") -> dict:
 
 
 def check_maps_against_cpu(cfg, predictor) -> None:
-    """One test batch's probability maps on the card against the same model
+    """MAP_TILES tiles' probability maps on the card against the same model
     on the CPU; then the junction candidates of the card's maps, extracted
     on the card and on the CPU, must be the same pixels."""
     import copy
@@ -1127,7 +1181,7 @@ def check_maps_against_cpu(cfg, predictor) -> None:
     from pixelspointspolygons_torch.data.loader import build_loader, to_device
     from pixelspointspolygons_torch.models.hisup.model import extract_junctions
 
-    batch = next(iter(build_loader(cfg, "test", eval_mode=True)))
+    batch = {k: v[:MAP_TILES] for k, v in next(iter(build_loader(cfg, "test", eval_mode=True))).items()}
 
     def maps(model, device):
         with torch.inference_mode():
@@ -1143,7 +1197,8 @@ def check_maps_against_cpu(cfg, predictor) -> None:
     cpu = maps(copy.deepcopy(predictor.model).cpu(), torch.device("cpu"))
     cpu_s = time.perf_counter() - t
     errs = {k: float((card[k].cpu() - v).abs().max()) for k, v in cpu.items()}
-    print(f"card vs CPU on a test batch of {B} (CPU forward {cpu_s:.1f} s): max abs err {errs} (tol {MAP_TOL})",
+    print(f"card vs CPU on {MAP_TILES} tiles of a test batch (CPU forward {cpu_s:.1f} s): max abs err {errs} "
+          f"(tol {MAP_TOL})",
           flush=True)
     if not all(e <= MAP_TOL for e in errs.values()):
         fail(f"the card's maps differ from the CPU's: {errs}")
@@ -1874,7 +1929,7 @@ def p2p_bf16_card_against_cpu(model, inputs: dict, tokenizer, what: str) -> dict
 
     from pixelspointspolygons_torch.models.pix2poly import greedy_decode
 
-    steps = model.max_len - 1
+    steps = min(model.max_len - 1, P2P_BF16_CHECK_STEPS)
     cpu_model = copy.deepcopy(model).cpu().eval()
     with torch.inference_mode():
         enc = model.encode(inputs)
@@ -1883,6 +1938,7 @@ def p2p_bf16_card_against_cpu(model, inputs: dict, tokenizer, what: str) -> dict
         enc_cpu = cpu_model.encode({"images": inputs["images"].cpu()})
         tokens_cpu, feats_cpu, _ = greedy_decode(cpu_model, enc_cpu, tokenizer.BOS_code, steps)
         cpu_s = time.perf_counter() - t
+        tokens, tokens_cpu = tokens[:, :steps], tokens_cpu[:, :steps]
         logits_cpu_decode = cpu_model.decoder.output(feats_cpu).float()
         bos = torch.full_like(tokens[:, :1], tokenizer.BOS_code)
         tgt = torch.cat([bos, tokens[:, :-1]], dim=1)
@@ -4251,6 +4307,226 @@ def phase_remaining_encoders(smi: str) -> dict:
     return out
 
 
+# --- the last script twins (phase 24) ----------------------------------------------
+
+
+@contextlib.contextmanager
+def timed_calls(module, names: tuple[str, ...]):
+    """Host seconds of each function `names` of `module` while the block runs
+    (the module's `main` calls them through its globals), by name."""
+    seconds: dict[str, float] = {}
+    originals = {n: getattr(module, n) for n in names}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        return call
+
+    for name, fn in originals.items():
+        setattr(module, name, timed(name, fn))
+    try:
+        yield seconds
+    finally:
+        for name, fn in originals.items():
+            setattr(module, name, fn)
+
+
+def twin_oracle() -> dict:
+    """`cli.postprocess_oracle model=all` at the script's defaults and the
+    ASM on ORACLE_ASM_TILES tiles, on the card and with `device=cpu`: each
+    card row above its floor, the CPU's rows against the card's."""
+    from pixelspointspolygons_torch.cli import postprocess_oracle
+    from pixelspointspolygons_torch.ops.afm import afm_cuda
+
+    commands = {"all": ["model=all"],
+                "asm": ["model=ffl", "experiment.polygonization.method=[asm]", f"n={ORACLE_ASM_TILES}"]}
+    reports, seconds = {}, {}
+    afm_cuda.launches = 0
+    for where, extra in (("card", []), ("cpu", ["device=cpu"])):
+        for key, args in commands.items():
+            with timed_calls(postprocess_oracle, ("oracle_ffl", "oracle_hisup", "oracle_pix2poly")) as s:
+                reports[where, key] = postprocess_oracle.main(args + extra)
+            seconds[where, key] = {k: round(v, 3) for k, v in s.items()}
+            print(f"cli.postprocess_oracle {' '.join(args + extra)}: seconds by branch {seconds[where, key]}",
+                  flush=True)
+        if where == "card":
+            launches = afm_cuda.launches
+    card = {**reports["card", "all"], **reports["card", "asm"]}
+    low = {row: (card.get(row), floors) for row, floors in ORACLE_FLOORS.items()
+           if row not in card or not all(card[row][k] > f for k, f in zip(("IoU", "C-IoU", "NR"), floors))}
+    gaps = {}
+    for key in commands:
+        got, want = reports["cpu", key], reports["card", key]
+        if list(got) != list(want):
+            fail(f"postprocess_oracle {key}: rows on the CPU {list(got)}, on the card {list(want)}")
+        for row in want:
+            gaps[row] = max(abs(got[row][k] - want[row][k]) for k in want[row])
+    print(f"postprocess_oracle card against CPU, largest gap per row: {gaps} (HiSup and Pix2Poly equal; FFL within "
+          f"{ORACLE_CPU_TOL}); floors (IoU, C-IoU, NR) {ORACLE_FLOORS}; afm launches {launches}", flush=True)
+    if low:
+        fail(f"postprocess_oracle rows at or under their floors: {low}")
+    if gaps["hisup"] or gaps["pix2poly"] or not all(g <= ORACLE_CPU_TOL for g in gaps.values()):
+        fail(f"postprocess_oracle's rows on the card and the CPU differ: {gaps}")
+    return {"card": card, "gaps": gaps, "seconds": {f"{w}_{k}": v for (w, k), v in seconds.items()},
+            "launches": launches}
+
+
+def twin_predict_timer(seeded_latest: str, smi: str) -> dict:
+    """`cli.measure_predict_e2e experiment=p2p_image checkpoint=latest` over
+    phase 6's seeded model in a model root of its own: the split's tiles, and
+    every pass's prediction file holding the same image ids."""
+    from pixelspointspolygons_torch.cli import measure_predict_e2e
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.models.pix2poly import Tokenizer
+    from pixelspointspolygons_torch.ops.afm import afm_cuda
+    from pixelspointspolygons_torch.utils.coco import CocoIndex
+
+    args = smoke_overrides(TRAIN_STEPS * B, "p2p_image") + [
+        f"host.model_root={os.path.join(WORK, 'twins_p2p')}", "evaluation=test", "checkpoint=latest"]
+    cfg = compose(args)
+    os.makedirs(os.path.join(cfg.output_dir, "checkpoints"), exist_ok=True)
+    shutil.copyfile(seeded_latest, os.path.join(cfg.output_dir, "checkpoints", "latest.pt"))
+    ids = []
+    get_predictor = measure_predict_e2e.get_predictor
+
+    def recorded(*a, **kw):
+        predictor = get_predictor(*a, **kw)
+        predict = predictor.predict_dataset
+
+        def predict_dataset(split):
+            path = predict(split)
+            with open(path) as f:
+                ids.append(sorted({ann["image_id"] for ann in json.load(f)}))
+            return path
+
+        predictor.predict_dataset = predict_dataset
+        return predictor
+
+    measure_predict_e2e.get_predictor = recorded
+    afm_cuda.launches = 0
+    try:
+        report = measure_predict_e2e.main(args)
+    finally:
+        measure_predict_e2e.get_predictor = get_predictor
+    launches = afm_cuda.launches
+    test_ids = set(CocoIndex(cfg.experiment.dataset.annotations["test"]).imgs)
+    print(f"cli.measure_predict_e2e (seeded p2p_image, float32, all {Tokenizer(cfg).max_len - 1} decode steps): "
+          f"{report['warm_tiles_per_s']} tiles/s warm, cold {report['cold_s']} s against a warm median "
+          f"of {report['warm_s_median']} s; {len(ids)} passes wrote {[len(i) for i in ids]} image ids; afm launches "
+          f"{launches}; card {smi}", flush=True)
+    if report["tiles"] != TEST_TILES or len(ids) != 4 or any(i != ids[0] for i in ids) or not set(ids[0]) <= test_ids:
+        fail(f"cli.measure_predict_e2e: {report['tiles']} tiles, image ids per pass {ids}")
+    return {"report": report, "launches": launches}
+
+
+def trace_counts(path: str) -> tuple[collections.Counter, collections.Counter]:
+    """(kernel names, CPU operator names) of a Chrome trace the profiler
+    wrote, counted by a scan of its text: a generate trace holds millions of
+    events, which `json.load` would hold as tens of GiB of objects."""
+    kernels, ops = collections.Counter(), collections.Counter()
+    pattern = re.compile(rb'"cat":\s*"(kernel|cpu_op)",\s*"name":\s*"((?:[^"\\]|\\.)*)"')
+    with open(path, "rb") as f, mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as m:
+        for match in pattern.finditer(m):
+            (kernels if match.group(1) == b"kernel" else ops)[match.group(2).decode()] += 1
+    return kernels, ops
+
+
+def twin_profile(smi: str) -> dict:
+    """`cli.profile TRACE_DIR train` and `generate`: each trace's size, the
+    export's seconds and the decode's kernels in it."""
+    from pixelspointspolygons_torch.cli import profile
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.models.pix2poly import Tokenizer
+    from pixelspointspolygons_torch.ops.afm import afm_cuda
+
+    steps = Tokenizer(compose(["experiment=p2p_image", "run_type=debug"])).max_len - 1
+    trace_dir = os.path.join(WORK, "twins_trace")
+    out = {}
+    afm_cuda.launches = 0
+    for mode in ("train", "generate"):
+        t0 = time.perf_counter()
+        got = profile.main([trace_dir, mode])
+        wall = time.perf_counter() - t0
+        if not os.path.isfile(got["path"]):
+            fail(f"cli.profile {mode} wrote no trace at {got['path']}")
+        size = os.path.getsize(got["path"])
+        t0 = time.perf_counter()
+        kernels, ops = trace_counts(got["path"])
+        scan = time.perf_counter() - t0
+        argmax = sum(n for k, n in kernels.items() if "ArgMax" in k)
+        products = ops["aten::mm"] + ops["aten::addmm"] + ops["aten::bmm"]
+        print(f"cli.profile {mode}: {size / 1e6:.1f} MB, export {got['export_s']:.2f} s, the command {wall:.1f} s; "
+              f"{sum(kernels.values())} kernel events ({len(kernels)} kernels), {sum(ops.values())} CPU operators, "
+              f"{argmax} argmax reductions, {products} matrix products (scanned in {scan:.1f} s); card {smi}",
+              flush=True)
+        if mode == "generate" and argmax < 3 * steps:
+            fail(f"the generate trace holds {argmax} argmax kernels, expected at least 3 x {steps}")
+        if mode == "train" and not (ops["aten::embedding"] >= 3 and sum(kernels.values()) >= products > 0
+                                    and ops["autograd::engine::evaluate_function: EmbeddingBackward0"] >= 3):
+            fail(f"the train trace lacks the decoder's operations or kernels: {products} products, "
+                 f"{sum(kernels.values())} kernel events, {ops['aten::embedding']} embeddings")
+        out[mode] = {"mb": size / 1e6, "export_s": got["export_s"], "wall_s": wall, "kernel_events": sum(kernels.values()),
+                     "cpu_ops": sum(ops.values())}
+        os.remove(got["path"])
+    out["launches"] = afm_cuda.launches
+    return out
+
+
+def twin_gather_and_droplidar(fusion_latest: str, smi: str) -> dict:
+    """`cli.gather_pretrained_models` over the model root of the earlier
+    phases, and `cli.droplidar50_ablation` over phase 18's seeded p2p_fusion
+    written as `best_val_iou` in a root of its own."""
+    from pixelspointspolygons_torch.cli import droplidar50_ablation, gather_pretrained_models
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.ops.afm import afm_cuda
+
+    afm_cuda.launches = 0
+    args = ablation_overrides(os.environ["P3_MODEL_ROOT"])
+    present = [exp for exp in gather_pretrained_models.EXPERIMENTS if os.path.isfile(
+        os.path.join(compose([f"experiment={exp}"] + args).output_dir, "checkpoints", "best_val_iou.pt"))]
+    root = os.path.join(WORK, "twins_gather")
+    os.makedirs(root, exist_ok=True)
+    with contextlib.chdir(root):
+        gathered = gather_pretrained_models.main(args)
+    copied = sorted(os.listdir(os.path.join(root, "gathered_pretrained"))) if gathered else []
+    print(f"cli.gather_pretrained_models: gathered {gathered}, skipped {len(gather_pretrained_models.EXPERIMENTS) - len(gathered)}",
+          flush=True)
+    if not present or gathered != present or copied != sorted(present):
+        fail(f"cli.gather_pretrained_models gathered {gathered} ({copied} copied); the earlier phases wrote {present}")
+
+    root = os.path.join(WORK, "twins_droplidar")
+    args = ablation_overrides(root) + ["experiment.dataset.country=CH"]
+    as_best_val_iou(compose(["experiment=p2p_fusion", "experiment.lidar_dropout=0.5", "evaluation=test",
+                             "checkpoint=best_val_iou"] + args), fusion_latest)
+    t0 = time.perf_counter()
+    with contextlib.chdir(root):
+        df = droplidar50_ablation.main(args)
+    wall = time.perf_counter() - t0
+    launches = afm_cuda.launches
+    if list(df.get("variant", [])) != ["with_lidar", "no_lidar"] or set(df["num_images"]) != {TEST_TILES}:
+        fail(f"cli.droplidar50_ablation did not score both rows on the split: {df}")
+    rows = df.drop(columns=["variant", "prediction_time"]).to_dict("records")
+    differ = {k: (a, rows[1][k]) for k, a in rows[0].items() if not (a == rows[1][k] or a != a and rows[1][k] != rows[1][k])}
+    print(f"cli.droplidar50_ablation in {wall:.1f} s (ROADMAP 3.15): the two rows differ in {differ or 'nothing'}; afm "
+          f"launches {launches}; card {smi}", flush=True)
+    return {"gathered": gathered, "differ": differ, "wall_s": wall, "launches": launches}
+
+
+def phase_script_twins(seeded_p2p: str, fusion_latest: str, smi: str) -> dict:
+    """Phase 24: the last script twins on the card, each through its `main`,
+    with the AFM counter set to 0 just before each and read just after."""
+    t0 = time.perf_counter()
+    out = {"oracle": twin_oracle(), "predict_e2e": twin_predict_timer(seeded_p2p, smi), "profile": twin_profile(smi),
+           "gather_droplidar": twin_gather_and_droplidar(fusion_latest, smi)}
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"phase 24 (the last script twins) in {out['wall_s']:.1f} s; card {smi}", flush=True)
+    return out
+
+
 def elapsed(what: str) -> None:
     print(f"elapsed before {what}: {time.perf_counter() - T0:.1f} s", flush=True)
 
@@ -4315,6 +4591,9 @@ def main() -> None:
     elapsed("phase_ffl_training")
     ffl_train = phase_ffl_training(ffl_overrides, smi)
     p2p = phase_pix2poly(p2p_overrides)
+    # the training below writes its own `latest` in the same directory
+    p2p_seeded = os.path.join(WORK, "p2p_seeded_latest.pt")
+    shutil.copyfile(os.path.join(compose(p2p_overrides).output_dir, "checkpoints", "latest.pt"), p2p_seeded)
     bt = p2p["batch_times"]
     med = {k: statistics.median(t[k] for t in bt) for k in ("encoder_ms", "decode_ms", "scorenet_ms", "host_ms")}
     print(f"pix2poly predict path: {p2p['tiles_s']:.2f} tiles/s; per batch of {B} (medians): encoder "
@@ -4353,6 +4632,9 @@ def main() -> None:
           f"{B} clouds: assignment {vox[64]['assign_ms']:.2f} ms, canvas forward {vox[64]['canvas_fwd_ms']:.2f} ms, "
           f"forward and backward {vox[64]['canvas_fwd_bwd_ms']:.2f} ms; card {smi}", flush=True)
     fusion = phase_p2p_fusion_predict(lidar_overrides("p2p_fusion"))
+    fusion_seeded = os.path.join(WORK, "p2p_fusion_seeded_latest.pt")
+    shutil.copyfile(os.path.join(compose(lidar_overrides("p2p_fusion")).output_dir, "checkpoints", "latest.pt"),
+                    fusion_seeded)
     print(f"p2p_fusion predict path: {fusion['tiles_s']:.2f} tiles/s, encoder "
           f"{statistics.median(fusion['encoder_ms']):.2f} ms per batch of {B} (median), card {smi}", flush=True)
     elapsed("phase_lidar_steps")
@@ -4379,6 +4661,8 @@ def main() -> None:
     ddp = phase_data_parallel(overrides, p2p_overrides, ffl_overrides, smi)
     elapsed("phase_remaining_encoders")
     rest = phase_remaining_encoders(smi)
+    elapsed("phase_script_twins")
+    twins = phase_script_twins(p2p_seeded, fusion_seeded, smi)
     elapsed("the kernels line")
     afm_row["launches_by_path"] = {
         "hisup_train": launches["afm"], "hisup_predict": 0, "pix2poly_predict": 0,
@@ -4401,6 +4685,10 @@ def main() -> None:
         "pix2poly_vit_dinov2_train": rest["vit_dinov2"]["train"]["launches"],
         "pix2poly_vit_dinov2_predict": rest["vit_dinov2"]["predict"]["launches"],
         "ablation_twins": rest["ablations"]["launches"],
+        "postprocess_oracle": twins["oracle"]["launches"],
+        "measure_predict_e2e": twins["predict_e2e"]["launches"],
+        "profile": twins["profile"]["launches"],
+        "gather_and_droplidar50": twins["gather_droplidar"]["launches"],
     }
     print(f"smoke run: {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"kernels": [afm_row]}), flush=True)

@@ -2,7 +2,8 @@
 scripts and modules, on the CPU:
 
 - the ablation twins (`cli.modality_ablation`, `lidar_density_ablation`,
-  `all_countries`, `dino_v2_ablation`, `image_res_ablation`): each run's
+  `all_countries`, `dino_v2_ablation`, `image_res_ablation`,
+  `droplidar50_ablation`): each run's
   overrides, its `[skip]` line and its CSV equal the script's, with every
   checkpoint missing; one twin end to end on a tiny synthetic split with
   `device=cpu`, its list cut to one experiment here, and refusing to
@@ -40,8 +41,9 @@ from pixelspointspolygons_tpu.predict import afm_squeeze as jax_squeeze
 from pixelspointspolygons_tpu.predict.ffl_polygonize import c0c2_to_uv_numpy as jax_c0c2_to_uv
 from pixelspointspolygons_tpu.utils import visualization as jax_vis
 from pixelspointspolygons_torch.cli import (_ablation, all_countries, csv_results_to_latex, dino_v2_ablation,
-                                            evaluate_gt, image_res_ablation, lidar_density_ablation,
-                                            modality_ablation, preprocess_ffl, wireframe_loader)
+                                            droplidar50_ablation, evaluate_gt, image_res_ablation,
+                                            lidar_density_ablation, modality_ablation, preprocess_ffl,
+                                            wireframe_loader)
 from pixelspointspolygons_torch.config import compose
 from pixelspointspolygons_torch.data import P3Dataset, ensure_synthetic_dataset
 from pixelspointspolygons_torch.models.ffl import build_ffl
@@ -86,6 +88,7 @@ TWINS = {
     "all_countries": (all_countries, "EXPERIMENTS"),
     "dino_v2_ablation": (dino_v2_ablation, "ENCODERS"),
     "image_res_ablation": (image_res_ablation, "CONFIGS"),
+    "droplidar50_ablation": (droplidar50_ablation, "VARIANTS"),
 }
 
 

@@ -4,7 +4,8 @@ and not `chip_smoke.py`, `afm_bench.py`, `bench_torch.py`,
 and a fresh process that imports every module of the port, takes a HiSup
 and a Pix2Poly train step and decodes with a Pix2Poly on the CPU has none
 of them loaded. Every `NotImplementedError` the port raises names a ROADMAP
-'Port queue' item that ROADMAP.md still lists."""
+'Port queue' item that ROADMAP.md still lists. Every script of the JAX
+package has a twin in `cli/` or a reason in ROADMAP.md why it needs none."""
 
 import ast
 import os
@@ -109,6 +110,44 @@ def test_every_refusal_names_a_roadmap_item():
     assert named and not bare, bare
     unknown = sorted(f"{where}: {item}" for item, where in named if item not in items)
     assert not unknown, unknown
+
+
+def _untwinned_table() -> dict[str, str]:
+    """ROADMAP.md's "Still missing" table: each backticked script's file
+    name and the reason in its row's second column."""
+    with open(os.path.join(ROOT, "ROADMAP.md")) as f:
+        text = f.read()
+    section = text[text.index("**Still missing from"):text.index("**Test-time budget.**")]
+    reasons = {}
+    for line in section.splitlines():
+        cells = [c.strip() for c in line.strip().strip("|").split("|")]
+        if not line.startswith("|") or len(cells) != 2 or set(cells[1]) <= set("-"):
+            continue
+        for name in re.findall(r"`([^`]+\.py)`", cells[0]):
+            reasons[os.path.basename(name)] = cells[1]
+    return reasons
+
+
+def test_every_script_has_a_twin_or_a_reason():
+    """Each `scripts/*.py` and `data_preprocess/**/*.py` is a `cli/` module of
+    the same stem (`test_wireframe_loader` is `wireframe_loader`) or stands
+    in ROADMAP.md's "Still missing" table with its reason; never both."""
+    scripts = [os.path.join(ROOT, "scripts", n) for n in os.listdir(os.path.join(ROOT, "scripts"))]
+    for d, _, names in os.walk(os.path.join(ROOT, "data_preprocess")):
+        scripts += [os.path.join(d, n) for n in names]
+    scripts = sorted(p for p in scripts if p.endswith(".py"))
+    twins = {n[:-3] for n in os.listdir(os.path.join(PORT, "cli")) if n.endswith(".py")}
+    table = _untwinned_table()
+    assert "collect_grid.py" in table and "inria_to_coco.py" in table and all(table.values())
+    assert len(scripts) > 25 and {"postprocess_oracle", "profile", "droplidar50_ablation"} <= twins
+    neither, both = [], []
+    for path in scripts:
+        name = os.path.basename(path)
+        twinned = name[:-3].removeprefix("test_") in twins
+        if twinned == (name in table):
+            (both if twinned else neither).append(os.path.relpath(path, ROOT))
+    assert not neither and not both, {"neither": neither, "both": both}
+    assert set(table) <= {os.path.basename(p) for p in scripts}, "the table names a script that is not there"
 
 
 _STEP = textwrap.dedent(
