@@ -12,7 +12,11 @@ fails:
   3. each kernel against its plain PyTorch version on the card, at the shapes
      the main path gives it and beyond them (the AFM at 4096 segments), with
      CUDA-event timings and its bound; the AFM kernel's division-free
-     quotient against IEEE division on every operand of the main path;
+     quotient against IEEE division on every operand of the main path; the
+     voxelizer's pillar sums on 16 clouds of 200,000 points at the caps 4,
+     64 and 512 in float32 and float64, bitwise equal to the plain version
+     and to themselves over ten calls, timed beside the two `index_add_`
+     calls they replace;
   4. the training path: HiSup-image training (HRNetV2-W48, 224 px, head
      width 256, batch 16) through the trainer for 4 train steps, 1 val step
      and the val-IoU pass (the val split polygonized), with every kernel
@@ -25,7 +29,7 @@ fails:
      with the counters set to 0 just before and read just after (it
      launches no kernel of the port); tiles per second, each batch's device
      time (forward + junction extraction, CUDA events), host-stage time and
-     wall time, the metric dict; 4 tiles' maps on the card against the
+     wall time, the metric dict; 2 tiles' maps on the card against the
      CPU's and the junction candidates of the same maps on both; the host
      stage alone on the ground-truth masks and corners of the 32 tiles;
   6. the Pix2Poly predict path: a seeded random Pix2Poly-image at full width
@@ -76,7 +80,7 @@ fails:
      the same seed and weights as 4, with the counters set to 0 just
      before and read just after (5 AFM launches): step time, the step by
      layer, peak memory, the val IoU, its first step's losses against the
-     float32 run's, and the card against the CPU at bfloat16 on 2 tiles;
+     float32 run's, and the card against the CPU at bfloat16 on 1 tile;
  11. HiSup prediction at bfloat16 of the test split from that training's
      `latest`, as in 5 (0 AFM launches);
  12. pretrained encoders and the warm start: a timm-layout ViT-S/8 file
@@ -112,7 +116,8 @@ fails:
      and warm, each loss term of the first step, the val IoU with its ACM's
      rings, vertices and bucket; one float32 step on 2 tiles on the card
      against the CPU (losses and gradients); bfloat16's first-step losses
-     against float32's; the bfloat16 maps on the card against the CPU; FFL
+     against float32's; the bfloat16 maps on the card against the CPU on
+     1 tile; FFL
      prediction at bfloat16 of the first 16 test tiles from that training's
      `latest` (0 AFM launches, 0 failed batches); ASM on the ground truth's
      maps of one test batch (IoU bound; skeleton, optimization and
@@ -121,8 +126,8 @@ fails:
  16. the LiDAR voxelizer and PillarFeatureNet on the synthetic train split's
      first batch of 16 clouds at 200,000 points, at the per-pillar caps 4,
      64 and 512: the assignment on the card against the CPU (points, pillar
-     ids, kept masks and counts exact, features within a bound), a seeded
-     PillarCanvas in train mode on 4 clouds against the CPU, the assignment,
+     ids, kept masks, counts and features bitwise equal), a seeded
+     PillarCanvas in train mode on 2 clouds against the CPU, the assignment,
      the canvas forward and its backward timed with their peak memory, and
      one call profiled (K6's baseline, ROADMAP §2);
  17. HiSup-LiDAR training at full width (`experiment=hisup_lidar`,
@@ -137,8 +142,13 @@ fails:
  18. Pix2Poly early-fusion prediction (`experiment=p2p_fusion`) of the
      32-tile test split from a seeded random model, through
      `cli/predict.py`'s functions (0 AFM launches): tiles/s, the encoder's
-     ms per batch, the encoder tokens on 2 tiles on the card against the
-     CPU;
+     ms per batch, the split predicted again and its prediction file equal
+     byte for byte; the encoder run three times on a batch of 16 with the
+     pillar sums taken by `index_add_` (atomics) and three times by the
+     port's kernel, each stage (decorated features, canvas, fusion conv,
+     tokens) compared bitwise with the first call's and the first stage
+     that differs printed for each; the encoder tokens on 2 tiles on the
+     card against the CPU;
  19. one train step at batch 16 each of p2p_lidar, hisup_fusion (1 AFM
      launch), ffl_lidar and ffl_fusion through their trainers' set-up: step
      time, peak memory, finite losses, a forward on 2 tiles on the card
@@ -177,10 +187,11 @@ fails:
      and the CPU.
  23. the remaining encoders at full width, each in a model root of its own:
      FFL over UNet-ResNet101 and ConvNeXt-V2-T (training, a step on the
-     card against the CPU and float64, 16 test tiles predicted), Pix2Poly
+     card against the CPU and float64, 8 test tiles predicted), Pix2Poly
      over DINOv2 ViT-S/14 grafted from a seeded file (training, the val
      figure, the split predicted, the card against the CPU), then the
-     DINOv2 and image-resolution ablation twins and their LaTeX tables;
+     DINOv2 and image-resolution ablation twins on 16 test tiles and their
+     LaTeX tables;
  24. the last script twins, each through its `main`: `cli.postprocess_oracle`
      (every family's post-processing on the ground truth's outputs, on the
      card and the CPU, each row above its quality floor),
@@ -188,10 +199,21 @@ fails:
      JSON line), `cli.profile train` and `generate` (each trace's size,
      its export's seconds and the decode's kernels in it),
      `cli.gather_pretrained_models` over the earlier phases' checkpoints
-     and `cli.droplidar50_ablation` over phase 18's seeded fusion model.
-They run in the order 1-5, 10-15, 6-9, 16-24. The line before the last is the
-card's name and power limit, the one before it a JSON object with every
-kernel's numbers; the last line is {"ok": true, "device": {...}}.
+     and `cli.droplidar50_ablation` over phase 18's seeded fusion model
+     (its two rows must be equal).
+The repeat checks (ROADMAP 3.21): every prediction path predicts twice
+from the same weights on the same tiles, and the two must be bitwise equal:
+hisup_image, p2p_image and ffl_image on the first test batch of phases 5,
+6 and 14 (device outputs and polygons; FFL's ACM runs its 500 steps on the
+card), p2p_fusion's whole split in phase 18 (the prediction file byte for
+byte), and two eval forwards on 2 tiles of phase 17's hisup_lidar and of
+phase 19's p2p_lidar, hisup_fusion, ffl_lidar and ffl_fusion.
+Each LiDAR and fusion path sets the pillar_sums counter to 0 just before it
+and reads it just after, and fails if the kernel was launched no time.
+They run in the order 1-5, 10-15, 6-9, 16-24; each phase prints its
+seconds. The line before the last is the card's name and power limit, the
+one before it a JSON object with every kernel's numbers; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -243,7 +265,7 @@ TEST_TILES = 32  # 2 batches: the predictor's one batch in flight runs
 # training phase holds the raw outputs to 1e-3 of their range, and a softmax
 # or sigmoid moves by less than its input does
 MAP_TOL = 1e-3
-MAP_TILES = 4
+MAP_TILES = 2
 # polygonizing the ground truth's own masks and corners gives it back up to
 # merged touching buildings (tiles of row houses), so its IoU stays below 1
 ORACLE_MIN_IOU = 0.95
@@ -265,11 +287,10 @@ P2P_SHARPEN = 4.0
 # 1e-3 of the exact one in relative L2 over all parameters (the float32
 # sums through 12 encoder blocks, 6 decoder layers and 100 Sinkhorn
 # iterations read 2.6e-4 on an NVIDIA H100 80GB HBM3 and 5.0e-4 on the
-# CPU; PERF.md).
-# The same step from the trained weights is printed and not held to a
-# bound: after a few updates the ScoreNets' train-mode BatchNorm divides by
-# the variance of nearly equal vertex-pair features, and a float32 gradient
-# strays about ten times further from the exact one on either device.
+# CPU; PERF.md). Not from the trained weights: after a few updates the
+# ScoreNets' train-mode BatchNorm divides by the variance of nearly equal
+# vertex-pair features, and a float32 gradient strays about ten times
+# further from the exact one on either device.
 P2P_TRAIN_CPU_TILES = 2
 P2P_LOSS_TOL = 1e-4
 P2P_GRAD_TOL = 1e-3
@@ -301,8 +322,8 @@ PRETRAINED_SEED = 3
 # HiSup at bfloat16: the first train step's losses against float32's from
 # the same weights on the same batch, 1e-2 relative (bfloat16 rounds each
 # layer's output to 8 bits; the losses are float32 means over the batch).
-# The card against the CPU at bfloat16 on 2 tiles of the first step's batch
-# (the CPU's bfloat16 convolutions are slow), from the first step's weights
+# The card against the CPU at bfloat16 on BF16_EVAL_TILES of the first
+# step's batch (the CPU's bfloat16 convolutions are slow), from the first step's weights
 # in eval mode: each head within 5e-2 in relative L2, through about 40
 # rounded layers. Not in train mode: there, from the same weights, each
 # side strays 31-65 % from float32 and 20-49 % from the other (NVIDIA H100
@@ -312,12 +333,15 @@ PRETRAINED_SEED = 3
 HISUP_BF16_LOSS_TOL = 1e-2
 HISUP_BF16_CPU_TILES = 2
 HISUP_BF16_REL_L2 = 5e-2
+# the eval-mode bfloat16 checks (HiSup, FFL) take the first BF16_EVAL_TILES
+# of those tiles: in eval mode each tile's output depends on that tile alone
+BF16_EVAL_TILES = 1
 # the port's twin of __graft_entry__.entry() on the card against the CPU,
 # float32 with TF32 off: 1e-3 of the largest value, as Pix2Poly above
 ENTRY_REL_TOL = 1e-3
 # bench_torch.py inside the smoke run: few iterations (its own defaults are
 # 20 iterations in each of 5 repeats)
-BENCH_ITERS, BENCH_REPEATS = 1, 3
+BENCH_ITERS, BENCH_REPEATS = 1, 2
 # FFL-image: the seeded random model's weights; its seg and crossfield on
 # FFL_CPU_TILES tiles on the card against the CPU, float32 with TF32 off on
 # both, within FFL_MAP_TOL (seg in [0, 1], crossfield in [-2, 2]: the maps
@@ -367,8 +391,8 @@ FFL_ORACLE_MIN_IOU = 0.95
 #   crossfield_smooth 0.5: it is the mean |Laplacian| of a field that is
 #   smooth at these weights, and bfloat16's rounding of every layer adds
 #   roughness (0.263 apart on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md);
-# - the card's bfloat16 maps against the CPU's, from the first step's
-#   weights in eval mode: 5e-2 in relative L2, as HiSup's;
+# - the card's bfloat16 maps against the CPU's on BF16_EVAL_TILES, from the
+#   first step's weights in eval mode: 5e-2 in relative L2, as HiSup's;
 # - prediction at bfloat16 on the first FFL_BF16_TEST_TILES test tiles.
 FFL_LOSS_TOL, FFL_GRAD_TOL = 1e-4, 2e-3
 FFL_BF16_LOSS_TOL = {"loss": 1e-2, "seg": 1e-2, "crossfield_align": 1e-2, "crossfield_align90": 1e-2,
@@ -393,16 +417,13 @@ ASM_ONE_STEP_MEDIAN_PX, ASM_ONE_STEP_SHARE = 1e-4, 0.02
 ASM_MEDIAN_PX = 0.1
 # LiDAR and early fusion (phases 16-20):
 # - the pillar assignment on the card against the CPU: points, pillar ids,
-#   kept masks and per-pillar counts exact (the same stable sort); the
-#   decorated features within cap x LIDAR_FEAT_TOL px: the card sums each
-#   pillar's centroid with atomics in no fixed order, and a sum of up to
-#   `cap` coordinates below 224 px is rounded up to cap - 1 times by 2^-24
-#   of a value below cap x 224 px (read at cap 4: 3.05e-5 px; at 64:
-#   1.37e-4 px, NVIDIA H100 80GB HBM3, 700.00 W);
+#   kept masks, per-pillar counts and decorated features bitwise equal (the
+#   same stable sort; `csrc/pillar_sums.cu` adds each pillar's centroid sum
+#   in the CPU's order);
 # - the train-mode PillarCanvas of LIDAR_CANVAS_TILES clouds and its
 #   running statistics within LIDAR_CANVAS_TOL of the CPU's, relative to the
 #   largest value (float32, TF32 off; the Dense and max are exact
-#   operations on the same rows, the BatchNorm statistics sum 800,000 rows
+#   operations on the same rows, the BatchNorm statistics sum 400,000 rows
 #   in other orders: the CPU tests read 3e-7 against float64);
 # - HiSup-LiDAR training, one float32 step on HISUP_BF16_CPU_TILES tiles on
 #   the card and on the CPU: losses within LIDAR_LOSS_TOL relative, the two
@@ -420,8 +441,7 @@ ASM_MEDIAN_PX = 0.1
 #   and the pillar ViT) runs at LIDAR_STEP_DTYPE's dtype.
 LIDAR_CAPS = (4, 64, 512)
 LIDAR_SEED = 0
-LIDAR_CANVAS_TILES = 4
-LIDAR_FEAT_TOL = 224 * 2 ** -23
+LIDAR_CANVAS_TILES = 2
 LIDAR_CANVAS_TOL = 1e-4
 LIDAR_LOSS_TOL, LIDAR_GRAD_TOL = 1e-4, 1e-2
 LIDAR_BF16_LOSS_TOL = 5e-2
@@ -451,13 +471,14 @@ LIDAR_STEP_DTYPE = {"p2p_lidar": "float32", "hisup_fusion": "float32", "ffl_lida
 #   BatchNorm buffer within REMAT_STATS_TOL relative to its largest value,
 #   gradients within REMAT_GRAD_TOL in relative L2, or within
 #   REMAT_NOISE_FACTOR times the two plain steps' own distance where that
-#   is larger. Not equal: the voxelizer's atomic centroid sums differ at the
-#   last bit from one forward to the next (phase 16), and the backward's atomic
-#   sums (the scatter-max's gradient, the convolutions' weight gradients)
-#   from one backward to the next; the remat step's backward reads the
-#   recompute's activations, which carry their own last bits (its gradient
+#   is larger. Not equal: the forward is repeatable (the voxelizer's sums
+#   are ordered, `csrc/pillar_sums.cu`, and the repeat checks hold every
+#   prediction path), but the backward still sums atomically in no fixed
+#   order (the scatter-max's gradient, the convolutions' weight gradients),
+#   so gradients differ from one backward to the next (the remat step's
 #   read 1.0 to 2.4 times the plain pair's distance of 2.1e-5 to 2.4e-5 on
-#   an NVIDIA H100 80GB HBM3 at 700 W, PERF.md). A second update of the
+#   an NVIDIA H100 80GB HBM3 at 700 W while the voxelizer's sums were still
+#   atomic, PERF.md). A second update of the
 #   running statistics would move them by a tenth of the batch statistics,
 #   a recompute of other numbers would move the gradient far more.
 FFL_CACHE_LOSS_TOL, FFL_CACHE_NOISELESS_TOL = 5e-2, 5e-3
@@ -487,9 +508,11 @@ REMAT_LOSS_TOL, REMAT_GRAD_TOL, REMAT_STATS_TOL, REMAT_NOISE_FACTOR = 1e-6, 1e-5
 #   batch on the card: in float32 the losses and buffers (the bounds
 #   above), in float64 the gradient within DDP64_GRAD_TOL in relative L2,
 #   or DDP_NOISE_FACTOR times two one-process steps' own distance where
-#   that is larger (the voxelizer's float32 centroid sums are atomic:
-#   Pix2Poly's float64 gradient reads 1.2e-7 to 1.5e-7 from the
-#   one-process step's, PERF.md). Not in float32: a ReLU input within a rounding
+#   that is larger (the backward's scatter-max gradient and weight
+#   gradients sum atomically in no fixed order: Pix2Poly's float64 gradient
+#   read 1.2e-7 to 1.5e-7 from the one-process step's while the voxelizer's
+#   sums were atomic too, and about 1e-15 since they are ordered, PERF.md).
+#   Not in float32: a ReLU input within a rounding
 #   of 0 takes either side with the order of a sum, and one such element
 #   moves a tiny model's gradient by 1e-2 (tests/test_torch_ddp.py holds
 #   the same cases to JAX and to float64 on the CPU);
@@ -505,9 +528,9 @@ DRIFT_SIZE = 64
 # The remaining encoders (phase 23), float32 with TF32 off, at the widths
 # the config tree ships:
 # - FFL over UNet-ResNet101 and over ConvNeXt-V2-T at 224 px (decoder 256):
-#   phase 15's training path (TRAIN_STEPS and CNX_TRAIN_STEPS steps), its
+#   phase 15's training path (CNX_TRAIN_STEPS steps each), its
 #   card-against-CPU step (FFL_LOSS_TOL, FFL_GRAD_TOL) and prediction of the
-#   first FFL_BF16_TEST_TILES test tiles from `latest`; ConvNeXt's one
+#   first PHASE23_TEST_TILES test tiles from `latest`; ConvNeXt's one
 #   bfloat16 step from the first step's weights on the same 2 tiles against
 #   the float32 step on the card, per term within FFL_BF16_LOSS_TOL;
 # - Pix2Poly over DINOv2 ViT-S/14: a file in DINOv2's layout with the real
@@ -520,9 +543,17 @@ DRIFT_SIZE = 64
 #   in a model root of its own (ROADMAP 3.19: the two rows read one
 #   checkpoint path), `cli.image_res_ablation` with the 224 px tiles for
 #   both rows (the 512 row a seeded UNet-ResNet101 at 512, whose polygons
-#   land on the 512 grid: ROADMAP 3.18), `cli.csv_results_to_latex`.
+#   land on the 512 grid: ROADMAP 3.18), each on ABLATION_TEST_TILES tiles,
+#   and `cli.csv_results_to_latex`.
 CNX_TRAIN_STEPS = 2
 DINO_GRID = 37
+# the UNet's card-against-CPU step, its gradient held against float64 on
+# the CPU, on the first UNET_EXACT_TILES of the first batch (its float64
+# step on the CPU takes about 16 s a tile); ConvNeXt's on
+# HISUP_BF16_CPU_TILES, where its float32 gradients on one tile read 2.95e-4
+# (card, NVIDIA H100 80GB HBM3 at 700 W) and 1.56e-4 (CPU) from float64,
+# too near the bound to hold
+UNET_EXACT_TILES = 1
 # The last script twins (phase 24), each through its `main` on the card:
 # - `cli.postprocess_oracle`: each row held to tests/test_postprocess_quality.py's
 #   floors (IoU, C-IoU, NR), which the JAX script's rows clear on the CPU;
@@ -533,17 +564,16 @@ DINO_GRID = 37
 # - `cli.measure_predict_e2e` over phase 6's seeded Pix2Poly-image (all 385
 #   decode steps: a random model emits no EOS): the split's TEST_TILES
 #   tiles, every pass writing the same set of image ids;
-# - `cli.profile train` and `generate`: the greedy decode takes one argmax a
-#   step, so the generate trace holds at least 3 runs x max_len - 1 launches
-#   of the argmax's reduction kernel; the train trace, the decoder's
-#   embedding and its backward once a run and a kernel for every matrix
-#   product;
+# - `cli.profile train` (3 traced runs) and `generate` (PROFILE_GENERATE_RUNS
+#   traced runs): the greedy decode takes one argmax a step, so the
+#   generate trace holds at least runs x max_len - 1 launches of the
+#   argmax's reduction kernel; the train trace, the decoder's embedding and
+#   its backward once a run and a kernel for every matrix product;
 # - `cli.gather_pretrained_models` over the model root of phases 4-22,
 #   `cli.droplidar50_ablation` over phase 18's seeded p2p_fusion in a root of
 #   its own (ROADMAP 3.15: its two rows predict with one model on the same
-#   inputs, but a fusion prediction is not repeatable on the card, where the
-#   two rows of one seeded model read IoU 0.1094 and 0.1070 in one run
-#   (PERF.md), so the rows' equality is printed, not held).
+#   inputs, so they must be equal; they read IoU 0.1094 and 0.1070 while
+#   the voxelizer's centroid sums were atomic, ROADMAP 3.21).
 ORACLE_FLOORS = {
     "ffl.acm.tol_1": (0.88, 0.70, 0.75),
     "hisup": (0.85, 0.70, 0.78),
@@ -552,6 +582,21 @@ ORACLE_FLOORS = {
 }
 ORACLE_CPU_TOL = 0.02
 ORACLE_ASM_TILES = 4
+PROFILE_GENERATE_RUNS = 1
+# Repeatable prediction (ROADMAP 3.21): each path below predicts
+# twice from the same weights on the same tiles in one process, and the two
+# results must be bitwise equal (every tensor and array byte for byte, the
+# prediction file byte for byte). Training is not held so: its backward
+# sums atomically in no fixed order (the notes on phases 21 and 22).
+REPEAT_PATHS = ("hisup_image", "p2p_image", "ffl_image", "hisup_lidar", "p2p_fusion", "p2p_lidar",
+                "hisup_fusion", "ffl_lidar", "ffl_fusion")
+# the fusion encoder's stages, in order, for the isolation in phase 18
+FUSION_STAGES = ("features", "canvas", "fusion_conv", "tokens")
+FUSION_INDEX_ADD_RUNS = 3
+PHASE23_TEST_TILES = 8
+# the ablation twins of phase 23 predict the first ABLATION_TEST_TILES of
+# the test split
+ABLATION_TEST_TILES = 16
 
 
 def fail(msg: str) -> None:
@@ -810,6 +855,107 @@ def phase_afm(cfg) -> dict:
     }
 
 
+def lidar_batch(overrides: list[str]) -> tuple[torch.Tensor, torch.Tensor, dict]:
+    """The synthetic train split's first batch of 16 clouds at 200,000
+    points on the card (points, valid) and the encoder's pillar grid."""
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.data.loader import build_loader, to_device
+
+    cfg = compose(overrides)
+    enc = cfg.experiment.encoder
+    card = to_device(next(iter(build_loader(cfg, "train"))), CARD, ("lidar", "lidar_mask"))
+    grid = dict(width=float(enc.in_width), height=float(enc.in_height), voxel_x=float(enc.in_voxel_size.x),
+                voxel_y=float(enc.in_voxel_size.y))
+    return card["lidar"], card["lidar_mask"], grid
+
+
+def index_add_pillar_sums(pts_s: torch.Tensor, pid_s: torch.Tensor, cap: int, n_cells: int):
+    """The voxelizer's sums as the port took them before `csrc/pillar_sums.cu`:
+    two `index_add_` calls over flat ids (CUDA atomics, no fixed order),
+    with `pillar_sums`'s contract. The yardstick of phase 3 and the negative
+    control of the isolation in phase 18; the port never calls it."""
+    from pixelspointspolygons_torch.ops.segment import rank_in_run
+    from pixelspointspolygons_torch.ops.voxelize import cell_offsets
+
+    B, N, C = pts_s.shape
+    keep = (pid_s < n_cells) & (rank_in_run(pid_s) < cap)
+    flat = (torch.where(keep, pid_s, n_cells) + cell_offsets(B, n_cells, pts_s.device)).reshape(-1)
+    w = keep.to(pts_s.dtype)[..., None]
+    sums = pts_s.new_zeros((B * (n_cells + 1), C)).index_add_(0, flat, (pts_s * w).reshape(B * N, C))
+    cnts = pts_s.new_zeros((B * (n_cells + 1), 1)).index_add_(0, flat, w.reshape(B * N, 1))
+    return sums.reshape(B, n_cells + 1, C), cnts.reshape(B, n_cells + 1).to(torch.int32)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal dtype, shape and bytes (a NaN equals itself, -0 differs from +0)."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().reshape(-1).view(torch.uint8), b.contiguous().reshape(-1).view(torch.uint8)))
+
+
+def phase_pillar_sums() -> dict:
+    """Phase 3, the voxelizer's kernel: `pillar_sums_cuda` against its plain
+    version `pillar_sums` on the synthetic train split's first 16 clouds at
+    200,000 points, sorted as `assign_pillars` sorts them, at the caps
+    LIDAR_CAPS in float32 and float64: sums and counts bitwise equal, and
+    ten calls in a row too; CUDA-event times of the kernel, the plain
+    version and the two `index_add_` calls it replaces, and the bound."""
+    from pixelspointspolygons_torch.ops.voxelize import pillar_sums, pillar_sums_cuda, sort_by_pillar
+
+    pts, valid, grid = lidar_batch(lidar_overrides("hisup_lidar"))
+    rows = {}
+    for dtype in (torch.float32, torch.float64):
+        pts_s, pid_s, n_cells = sort_by_pillar(pts.to(dtype), valid, **grid)
+        B, N, C = pts_s.shape
+        for cap in LIDAR_CAPS:
+            got = pillar_sums_cuda(pts_s, pid_s, cap, n_cells)
+            want = pillar_sums(pts_s, pid_s, cap, n_cells)
+            again = [pillar_sums_cuda(pts_s, pid_s, cap, n_cells) for _ in range(10)]
+            torch.cuda.synchronize()
+            equal = all(same_bits(g, w) for g, w in zip(got, want))
+            repeat = all(same_bits(g, a) for r in again for g, a in zip(got, r))
+            kept = int(got[1].sum())
+            print(f"pillar_sums {B}x{N} points ({str(dtype)[6:]}), cap {cap}: {kept} points kept in "
+                  f"{int((got[1] > 0).sum())} pillars; sums and counts bitwise equal to the plain version {equal}, "
+                  f"ten more calls bitwise equal {repeat}", flush=True)
+            if not (equal and repeat):
+                fail(f"pillar_sums (cap {cap}, {dtype}): the kernel differs from its plain version ({equal}) or "
+                     f"from itself ({repeat})")
+            if dtype != torch.float32:
+                continue
+            ms = cuda_ms(lambda: pillar_sums_cuda(pts_s, pid_s, cap, n_cells), launches=20, rounds=5)
+            plain_ms = cuda_ms(lambda: pillar_sums(pts_s, pid_s, cap, n_cells), launches=2, rounds=3)
+            library_ms = cuda_ms(lambda: index_add_pillar_sums(pts_s, pid_s, cap, n_cells), launches=10, rounds=5)
+            # the least bytes: each kept coordinate read once, the sums and
+            # counts written once (the padding and the ids past a pillar's cap
+            # need not be read); one add per kept coordinate
+            size = pts_s.element_size()
+            nbytes = kept * C * size + B * (n_cells + 1) * (C * size + 4)
+            t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, kept * C / PEAK_FP32_FLOPS * 1e3
+            bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
+            whole_ms = (pts_s.numel() * size + pid_s.numel() * 8) / PEAK_BYTES_PER_S * 1e3
+            rows[cap] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "kept": kept}
+            print(f"pillar_sums cap {cap}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, the two index_add_ calls it "
+                  f"replaces {library_ms:.4f} ms (CUDA events); bound {bound_ms:.5f} ms ({bound_by}: "
+                  f"{nbytes / 1e6:.2f} MB of kept points and outputs; {whole_ms:.5f} ms to read all "
+                  f"{(pts_s.numel() * size + pid_s.numel() * 8) / 1e6:.1f} MB of points and ids once)", flush=True)
+    main = rows[64]  # the cap of every LiDAR and fusion encoder of the config tree
+    return {
+        "name": "pillar_sums",
+        "route": "cuda",
+        "source": "pixelspointspolygons_torch/csrc/pillar_sums.cu",
+        "replaces": "none (the TPU's XLA scatter-add, pixelspointspolygons_tpu/ops/voxelize.py:81)",
+        "launches": None,
+        "max_abs_err": 0.0,
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],  # two index_add_ calls, the route it replaced
+        "by_cap": rows,
+    }
+
+
 def record_steps(trainer, step_losses: list, iou_pass_s: list, first: dict | None = None,
                  loader_ms: list | None = None) -> None:
     """Have the trainer's set-up wrap its train step so that it records
@@ -948,14 +1094,14 @@ def phase_train(cfg_overrides: list[str], dtype: str = "float32") -> tuple[dict,
 
 def hisup_bf16_card_against_cpu(cfg, first: dict) -> None:
     """The bfloat16 model on the card against the same on the CPU, from the
-    first train step's weights, in eval mode on HISUP_BF16_CPU_TILES tiles
-    of its batch: each head within HISUP_BF16_REL_L2 in relative L2 (the
-    CPU path is held to flax's bfloat16 by tests/test_torch_hisup_bf16.py).
-    Each side's distance from the same weights' float32 output on the card
-    is printed beside it."""
+    first train step's weights, in eval mode on BF16_EVAL_TILES tiles of its
+    batch: each head within HISUP_BF16_REL_L2 in relative L2 (the CPU path
+    is held to flax's bfloat16 by tests/test_torch_hisup_bf16.py). Each
+    side's distance from the same weights' float32 output on the card is
+    printed beside it."""
     from pixelspointspolygons_torch.models.hisup.factory import build_hisup
 
-    images = first["batch"]["images"]
+    images = first["batch"]["images"][:BF16_EVAL_TILES]
     models = {}
     for name, dev, dtype in (("card", CARD, torch.bfloat16), ("cpu", torch.device("cpu"), torch.bfloat16),
                              ("float32", CARD, torch.float32)):
@@ -1169,6 +1315,7 @@ def phase_predict(cfg_overrides: list[str], dtype: str = "float32") -> dict:
     if dtype == "float32":
         check_maps_against_cpu(cfg, predictor)
         out.update(phase_oracle(cfg, predictor))
+        predict_repeat("hisup_image", predictor)
     return out
 
 
@@ -1359,6 +1506,8 @@ def phase_pix2poly(overrides: list[str], device: str = "cuda") -> dict:
                   f"{t['scorenet_ms']:.2f} (CUDA events); decode loop host {t['decode_host_ms']:.2f} ms; "
                   f"host stage {t['host_ms']:.2f} ms; wall {t['wall_ms']:.2f} ms", flush=True)
     print("pix2poly metrics: " + json.dumps(results), flush=True)
+    if dev.type == "cuda":
+        predict_repeat("p2p_image", predictor)
 
     batch = next(iter(build_loader(cfg, "test", tokenizer=tokenizer, eval_mode=True)))
     inputs = to_device(batch, dev, ("images",))
@@ -1772,10 +1921,10 @@ def p2p_step_parts(trainer, batch: dict) -> dict:
 def p2p_train_card_against_cpu(trainer, batch: dict) -> None:
     """One float32 train step on P2P_TRAIN_CPU_TILES tiles, on the card and
     on the CPU with fresh AdamW states, and the same loss's gradient in
-    float64 on the CPU: from the trainer's initial weights (its seed) the
+    float64 on the CPU, from the trainer's initial weights (its seed): the
     losses and each float32 gradient against the exact one are held to
-    bounds; from its trained weights they are printed (the CPU path is held
-    to the JAX package by tests/test_torch_train_pix2poly.py)."""
+    bounds (the CPU path is held to the JAX package by
+    tests/test_torch_train_pix2poly.py)."""
     from pixelspointspolygons_torch.models.pix2poly import build_pix2poly
     from pixelspointspolygons_torch.train.pix2poly_step import _losses, make_train_step
     from pixelspointspolygons_torch.train.state import TrainState, make_optimizer, make_scheduler
@@ -1784,8 +1933,7 @@ def p2p_train_card_against_cpu(trainer, batch: dict) -> None:
     vw, pw, pad = float(m.vertex_loss_weight), float(m.perm_loss_weight), trainer.tokenizer.PAD_code
     lr = float(m.learning_rate)
     seed = torch.Generator(device=CARD).manual_seed(int(cfg.get("seed", 42)))
-    weights = {"initial": build_pix2poly(cfg, trainer.tokenizer, device=CARD, generator=seed).state_dict(),
-               "trained": trainer.state.model.state_dict()}
+    sd = build_pix2poly(cfg, trainer.tokenizer, device=CARD, generator=seed).state_dict()
     small = {k: v[:P2P_TRAIN_CPU_TILES] for k, v in batch.items()}
     host = {k: v.cpu() for k, v in small.items()}
     step = make_train_step(vw, pw, pad)
@@ -1802,28 +1950,25 @@ def p2p_train_card_against_cpu(trainer, batch: dict) -> None:
     def rel(a, b):
         return (sum(float(((a[k] - b[k]) ** 2).sum()) for k in b) / sum(float((b[k] ** 2).sum()) for k in b)) ** 0.5
 
-    for which, sd in weights.items():
-        card, cpu, exact = state_on(sd, CARD), state_on(sd, torch.device("cpu")), state_on(sd, "cpu", torch.float64)
-        got = step(card, small)
-        t = time.perf_counter()
-        want = step(cpu, host)
-        _losses(exact.model.train(), {k: v.double() if v.is_floating_point() else v for k, v in host.items()},
-                vw, pw, pad)["loss"].backward()
-        cpu_s = time.perf_counter() - t
-        loss_err = {k: abs(float(got[k]) / float(want[k]) - 1.0) for k in want}
-        g_card, g_cpu, g_exact = grads(card), grads(cpu), grads(exact)
-        errs = {"card vs exact": rel(g_card, g_exact), "CPU vs exact": rel(g_cpu, g_exact),
-                "card vs CPU": rel(g_card, g_cpu)}
-        held = which == "initial"
-        print(f"pix2poly train step card vs CPU on {P2P_TRAIN_CPU_TILES} tiles from the {which} weights (float32; CPU "
-              f"float32 and float64 {cpu_s:.1f} s): losses {({k: round(float(v), 6) for k, v in want.items()})}, "
-              f"rel err {loss_err}; gradients rel L2 {errs}"
-              + (f" (tol {P2P_LOSS_TOL} and {P2P_GRAD_TOL} against the exact one)" if held else " (not held)"),
-              flush=True)
-        if held and not all(e <= P2P_LOSS_TOL for e in loss_err.values()):
-            fail(f"the Pix2Poly train step's losses differ between card and CPU: {loss_err}")
-        if held and not (errs["card vs exact"] <= P2P_GRAD_TOL and errs["CPU vs exact"] <= P2P_GRAD_TOL):
-            fail(f"the Pix2Poly train step's float32 gradients stray from the exact one: {errs}")
+    card, cpu, exact = state_on(sd, CARD), state_on(sd, torch.device("cpu")), state_on(sd, "cpu", torch.float64)
+    got = step(card, small)
+    t = time.perf_counter()
+    want = step(cpu, host)
+    _losses(exact.model.train(), {k: v.double() if v.is_floating_point() else v for k, v in host.items()},
+            vw, pw, pad)["loss"].backward()
+    cpu_s = time.perf_counter() - t
+    loss_err = {k: abs(float(got[k]) / float(want[k]) - 1.0) for k in want}
+    g_card, g_cpu, g_exact = grads(card), grads(cpu), grads(exact)
+    errs = {"card vs exact": rel(g_card, g_exact), "CPU vs exact": rel(g_cpu, g_exact),
+            "card vs CPU": rel(g_card, g_cpu)}
+    print(f"pix2poly train step card vs CPU on {P2P_TRAIN_CPU_TILES} tiles from the initial weights (float32; CPU "
+          f"float32 and float64 {cpu_s:.1f} s): losses {({k: round(float(v), 6) for k, v in want.items()})}, "
+          f"rel err {loss_err}; gradients rel L2 {errs} (tol {P2P_LOSS_TOL} and {P2P_GRAD_TOL} against the exact "
+          f"one)", flush=True)
+    if not all(e <= P2P_LOSS_TOL for e in loss_err.values()):
+        fail(f"the Pix2Poly train step's losses differ between card and CPU: {loss_err}")
+    if not (errs["card vs exact"] <= P2P_GRAD_TOL and errs["CPU vs exact"] <= P2P_GRAD_TOL):
+        fail(f"the Pix2Poly train step's float32 gradients stray from the exact one: {errs}")
 
 
 def phase_p2p_predict_bf16(overrides: list[str]) -> dict:
@@ -2189,6 +2334,7 @@ def phase_ffl(overrides: list[str]) -> dict:
               f"bucket {t['bucket']}, {t['dropped']} rings dropped; post-processing {t['post_ms']:.2f} ms (host); "
               f"host stage {t['host_ms']:.2f} ms; wall {t['wall_ms']:.2f} ms", flush=True)
     print("ffl metrics: " + json.dumps(results), flush=True)
+    predict_repeat("ffl_image", predictor)
 
     acm = ffl_acm_against_cpu(predictor, ffl_forward_against_cpu(cfg, predictor))
     oracle = ffl_oracle(cfg, predictor)
@@ -2415,14 +2561,15 @@ def ffl_demo(overrides: list[str]) -> float:
 
 
 def phase_ffl_train(overrides: list[str], dtype: str, steps: int = TRAIN_STEPS, name: str = "ffl",
-                    cold: bool = True, exact: bool = False) -> dict:
+                    cold: bool = True, exact_tiles: int = 0) -> dict:
     """FFL-image training at full width through the trainer that
     `cli/train.py` builds, at `dtype`: `steps` train + 1 val steps and the
     val-IoU pass with the kernel counters set to 0 just before and read
     just after (with `cold`, the float32 run from an empty ground-truth
     cache, so its loader is cold), then the steady-state step, its parts,
-    one forward traced, and the card against the CPU (`exact`: its
-    gradient against float64's). `name` heads its lines."""
+    one forward traced, and the card against the CPU (with `exact_tiles`,
+    on that many tiles and its gradient against float64's). `name` heads
+    its lines."""
     from pixelspointspolygons_torch.config import compose
     from pixelspointspolygons_torch.data.loader import device_prefetch
     from pixelspointspolygons_torch.ops.afm import afm_cuda
@@ -2500,8 +2647,10 @@ def phase_ffl_train(overrides: list[str], dtype: str, steps: int = TRAIN_STEPS, 
     print(f"{name} train step ({dtype}) by layer (ms, CUDA events, median of {len(parts)}): {json.dumps(breakdown)}",
           flush=True)
     profile_forward(trainer, batches[0]["images"], f"{name} {dtype}")
+    if exact_tiles:
+        first["batch"] = {k: v[:exact_tiles] for k, v in first["batch"].items()}
     if dtype == "float32":
-        card_losses = ffl_train_card_against_cpu(cfg, first, name, exact)
+        card_losses = ffl_train_card_against_cpu(cfg, first, name, exact=bool(exact_tiles))
     else:
         ffl_bf16_card_against_cpu(cfg, first)
     return {"first": first, "card_losses": card_losses if dtype == "float32" else None, "step_ms": step_ms,
@@ -2534,9 +2683,10 @@ def ffl_step_parts(trainer, batch: dict, weights: dict) -> dict:
 
 
 def ffl_train_card_against_cpu(cfg, first: dict, name: str = "ffl", exact: bool = False) -> dict:
-    """One float32 train step on HISUP_BF16_CPU_TILES tiles of the first
-    batch from the trainer's initial weights, on the card and on the CPU
-    with fresh Adam states: the losses and the gradients (the CPU path is
+    """One float32 train step on the tiles of `first` (HISUP_BF16_CPU_TILES
+    of the first batch, or fewer) from the trainer's initial weights, on
+    the card and on the CPU with fresh Adam states: the losses and the
+    gradients (the CPU path is
     held to the JAX package by tests/test_torch_train_ffl.py). With
     `exact`, the gradients are held against the same step in float64 on
     the CPU instead: the card's no farther from it than
@@ -2593,13 +2743,13 @@ def ffl_train_card_against_cpu(cfg, first: dict, name: str = "ffl", exact: bool 
 
 def ffl_bf16_card_against_cpu(cfg, first: dict) -> None:
     """The bfloat16 FFL on the card against the same on the CPU, from the
-    first train step's weights, in eval mode on HISUP_BF16_CPU_TILES tiles of
-    its batch: each map within FFL_BF16_REL_L2 in relative L2 (the CPU path
-    is held to flax's bfloat16 by tests/test_torch_ffl_bf16.py). Each side's
+    first train step's weights, in eval mode on BF16_EVAL_TILES tiles of its
+    batch: each map within FFL_BF16_REL_L2 in relative L2 (the CPU path is
+    held to flax's bfloat16 by tests/test_torch_ffl_bf16.py). Each side's
     distance from the same weights' float32 maps on the card beside it."""
     from pixelspointspolygons_torch.models.ffl import build_ffl
 
-    images = first["batch"]["images"]
+    images = first["batch"]["images"][:BF16_EVAL_TILES]
     models = {}
     for name, dev, dtype in (("card", CARD, torch.bfloat16), ("cpu", torch.device("cpu"), torch.bfloat16),
                              ("float32", CARD, torch.float32)):
@@ -2624,17 +2774,18 @@ def ffl_bf16_card_against_cpu(cfg, first: dict) -> None:
         fail(f"bfloat16 FFL on the card differs from the CPU: {apart}")
 
 
-def phase_ffl_predict_tiles(overrides: list[str], dtype: str = "bfloat16", name: str = "ffl") -> dict:
+def phase_ffl_predict_tiles(overrides: list[str], dtype: str = "bfloat16", name: str = "ffl",
+                            tiles: int = FFL_BF16_TEST_TILES) -> dict:
     """FFL prediction at `dtype` (bfloat16 from the bfloat16 training's
     `latest`), through the functions `cli/predict.py::main` calls, on the
-    first FFL_BF16_TEST_TILES test tiles."""
+    first `tiles` test tiles."""
     from pixelspointspolygons_torch.cli.evaluate import evaluate
     from pixelspointspolygons_torch.cli.predict import get_predictor
     from pixelspointspolygons_torch.config import compose
     from pixelspointspolygons_torch.ops.afm import afm_cuda
 
     cfg = compose(overrides + [f"host.compute_dtype={dtype}", "evaluation=test", "checkpoint=latest",
-                               f"run_type.test_subset={FFL_BF16_TEST_TILES}"])
+                               f"run_type.test_subset={tiles}"])
     afm_cuda.launches = 0
     t0 = time.perf_counter()
     predictor = get_predictor(cfg)
@@ -2647,7 +2798,7 @@ def phase_ffl_predict_tiles(overrides: list[str], dtype: str = "bfloat16", name:
         timing = json.load(f)
     if predictor.model.compute_dtype != getattr(torch, dtype) or predictor.map_dtype != torch.float16:
         fail(f"{name} prediction at {dtype}: the model computes in {predictor.model.compute_dtype}")
-    if launches or predictor.failed_batches or timing["num_images"] != FFL_BF16_TEST_TILES:
+    if launches or predictor.failed_batches or timing["num_images"] != tiles:
         fail(f"{name} prediction at {dtype}: {launches} afm launches, {predictor.failed_batches} failed batches, "
              f"{timing['num_images']} tiles")
     if not all(np.isfinite(results.get(k, np.nan)) for k in ("IoU", "C-IoU")):
@@ -2834,6 +2985,144 @@ def phase_ffl_training(overrides: list[str], smi: str) -> dict:
 # --- LiDAR and early fusion (phases 16-20) -------------------------------------
 
 
+# --- repeatable prediction (ROADMAP 3.21) ---------------------------------------------
+
+# path -> the pillar_sums launches of its two predictions
+REPEATS: dict[str, list[int]] = {}
+
+
+def leaves(x, path: str = ""):
+    """(path, leaf) pairs of nested dicts, lists and tuples, in order."""
+    if isinstance(x, dict):
+        for k, v in x.items():
+            yield from leaves(v, f"{path}/{k}")
+    elif isinstance(x, (list, tuple)):
+        for i, v in enumerate(x):
+            yield from leaves(v, f"{path}/{i}")
+    else:
+        yield path, x
+
+
+def leaf_bits(x) -> tuple:
+    """A leaf's kind, dtype, shape and bytes."""
+    if isinstance(x, torch.Tensor):
+        t = x.detach().cpu().contiguous()
+        return "tensor", str(t.dtype), tuple(t.shape), t.reshape(-1).view(torch.uint8).numpy().tobytes()
+    if isinstance(x, (np.ndarray, np.generic)):
+        a = np.ascontiguousarray(x)
+        return "array", str(a.dtype), a.shape, a.tobytes()
+    if isinstance(x, float):
+        return "float", np.float64(x).tobytes()
+    return type(x).__name__, x
+
+
+def hold_repeat(path: str, first, second, launches) -> None:
+    """Fail unless two predictions of `path` are bitwise equal, leaf by leaf
+    (the same structure, every tensor, array and file byte for byte);
+    record the path with the pillar_sums launches of each prediction."""
+    a = [(p, leaf_bits(x)) for p, x in leaves(first)]
+    b = [(p, leaf_bits(x)) for p, x in leaves(second)]
+    differ = [p for (p, x), (q, y) in zip(a, b) if p != q or x != y]
+    if len(a) != len(b):
+        differ.append(f"{len(a)} against {len(b)} leaves")
+    size = sum(len(x[-1]) if isinstance(x[-1], bytes) else 1 for _, x in a)
+    print(f"repeat check {path}: two predictions from the same weights on the same tiles, {len(a)} leaves "
+          f"({size} bytes), bitwise equal {not differ}; pillar_sums launches {list(launches)}", flush=True)
+    if differ:
+        fail(f"{path}: two predictions from the same weights on the same tiles differ at {differ[:8]}")
+    REPEATS[path] = list(launches)
+
+
+def predict_repeat(path: str, predictor) -> None:
+    """The first test batch predicted twice through `predictor` (its device
+    outputs as fetched to the host, then its host stage's polygons), held
+    by `hold_repeat`."""
+    from pixelspointspolygons_torch.data.loader import INPUT_KEYS, build_loader, to_device
+    from pixelspointspolygons_torch.ops.voxelize import pillar_sums_cuda
+
+    cfg = predictor.cfg
+    batch = next(iter(build_loader(cfg, cfg.evaluation.split, tokenizer=getattr(predictor, "tokenizer", None),
+                                   eval_mode=True)))
+    runs, launches = [], []
+    for _ in range(2):
+        pillar_sums_cuda.launches = 0
+        outputs = predictor._fetch(predictor._dispatch(to_device(batch, predictor.device, INPUT_KEYS)))
+        polygons = predictor.assemble(*outputs) if hasattr(predictor, "assemble") else predictor._host_stage(outputs)
+        torch.cuda.synchronize()
+        launches.append(pillar_sums_cuda.launches)
+        runs.append({"outputs": outputs, "polygons": polygons})
+    hold_repeat(path, runs[0], runs[1], launches)
+
+
+def forward_repeat(path: str, model, name: str, batch: dict, y_input=None) -> None:
+    """Two eval-mode forwards of `model` (family `name`) on `batch`, every
+    output held by `hold_repeat`."""
+    from pixelspointspolygons_torch.ops.voxelize import pillar_sums_cuda
+
+    runs, launches = [], []
+    for _ in range(2):
+        pillar_sums_cuda.launches = 0
+        runs.append(model_outputs(model, name, batch, y_input))
+        torch.cuda.synchronize()
+        launches.append(pillar_sums_cuda.launches)
+    hold_repeat(path, runs[0], runs[1], launches)
+
+
+def fusion_isolation(model, inputs: dict) -> dict:
+    """The early-fusion encoder of `model` (Pix2Poly, eval mode) on one
+    batch of test tiles, FUSION_INDEX_ADD_RUNS times with the voxelizer's
+    sums taken by `index_add_pillar_sums` (atomics, the port's route before
+    `csrc/pillar_sums.cu`) and as many times with the port's own route; each
+    stage of FUSION_STAGES compared bitwise with the first run's: the
+    decorated features of `assign_pillars`, the PillarCanvas, the fusion
+    conv, the encoder's tokens. Prints the first stage that differs for
+    each route; fails if the port's route differs at any stage."""
+    from pixelspointspolygons_torch.ops import voxelize
+
+    enc = model.encoder
+    canvas = enc.pillar_canvas
+
+    def stages() -> dict:
+        out = {}
+
+        def features(module, args):
+            points, valid = args
+            out["features"] = voxelize.assign_pillars(points, valid, max_points_per_voxel=module.max_points_per_voxel,
+                                                      **module.grid).features
+
+        hooks = [canvas.register_forward_pre_hook(features),
+                 canvas.register_forward_hook(lambda m, a, o: out.__setitem__("canvas", o)),
+                 enc.fusion_conv.register_forward_hook(lambda m, a, o: out.__setitem__("fusion_conv", o))]
+        try:
+            with torch.no_grad():
+                out["tokens"] = model.eval().encode(inputs)
+        finally:
+            for h in hooks:
+                h.remove()
+        torch.cuda.synchronize()
+        return {k: out[k] for k in FUSION_STAGES}
+
+    found = {}
+    for route in ("index_add_", "pillar_sums"):
+        original = voxelize.pillar_sums_auto
+        if route == "index_add_":
+            voxelize.pillar_sums_auto = index_add_pillar_sums
+        try:
+            runs = [stages() for _ in range(FUSION_INDEX_ADD_RUNS)]
+        finally:
+            voxelize.pillar_sums_auto = original
+        spread = {k: max(float((r[k].float() - runs[0][k].float()).abs().max()) for r in runs[1:]) for k in FUSION_STAGES}
+        differ = [k for k in FUSION_STAGES if any(not same_bits(r[k], runs[0][k]) for r in runs[1:])]
+        found[route] = {"first": differ[0] if differ else None, "differ": differ, "max_abs": spread}
+        print(f"fusion encoder isolation ({route} centroid sums): {len(runs)} calls on {inputs['images'].shape[0]} test "
+              f"tiles; stages that differ from the first call {differ or 'none'}; largest difference by stage {spread}",
+              flush=True)
+        print(f"first stage that differs ({route} centroid sums): {found[route]['first'] or 'none'}", flush=True)
+    if found["pillar_sums"]["differ"]:
+        fail(f"the fusion encoder is not repeatable with the port's pillar sums: {found['pillar_sums']}")
+    return found
+
+
 def lidar_overrides(experiment: str) -> list[str]:
     """The smoke split for a LiDAR or fusion experiment: the same synthetic
     tiles as the image phases (country CH, which the fusion experiments'
@@ -2846,8 +3135,8 @@ def phase_voxelizer(overrides: list[str]) -> dict:
     """Phase 16: the voxelizer and the PillarFeatureNet on the synthetic
     train split's first batch of 16 clouds at 200,000 points, at the
     per-pillar caps 4, 64 and 512: the pillar assignment on the card
-    against the CPU (points, pillar ids, kept masks and counts exact,
-    decorated features within cap x LIDAR_FEAT_TOL), the train-mode canvas of a
+    against the CPU (points, pillar ids, kept masks, counts and decorated
+    features bitwise equal), the train-mode canvas of a
     seeded PillarCanvas on LIDAR_CANVAS_TILES clouds within
     LIDAR_CANVAS_TOL, the assignment, the canvas forward and its forward
     with backward timed by CUDA events on all 16 with their peak memory,
@@ -2856,20 +3145,13 @@ def phase_voxelizer(overrides: list[str]) -> dict:
     import copy
 
     from pixelspointspolygons_torch.config import compose
-    from pixelspointspolygons_torch.data.loader import build_loader, to_device
     from pixelspointspolygons_torch.models.layers import init_flax_defaults
     from pixelspointspolygons_torch.models.pointpillars import PillarCanvas
     from pixelspointspolygons_torch.ops.voxelize import assign_pillars
 
-    cfg = compose(overrides)
-    enc = cfg.experiment.encoder
-    host = next(iter(build_loader(cfg, "train")))
-    card = to_device(host, CARD, ("lidar", "lidar_mask"))
-    cpu = to_device(host, torch.device("cpu"), ("lidar", "lidar_mask"))
-    pts, valid = card["lidar"], card["lidar_mask"]
-    grid = dict(width=float(enc.in_width), height=float(enc.in_height), voxel_x=float(enc.in_voxel_size.x),
-                voxel_y=float(enc.in_voxel_size.y))
-    dim = int(enc.patch_feature_dim)
+    pts, valid, grid = lidar_batch(overrides)
+    cpu = {"lidar": pts.cpu(), "lidar_mask": valid.cpu()}
+    dim = int(compose(overrides).experiment.encoder.patch_feature_dim)
     print(f"voxelizer input: {tuple(pts.shape)} points ({pts.dtype}), {int(valid.sum())} valid "
           f"({float(valid.float().mean()) * 100:.1f} %), grid {grid}, PFN channels (64, {dim})", flush=True)
     out = {}
@@ -2886,8 +3168,8 @@ def phase_voxelizer(overrides: list[str]) -> dict:
         if not torch.equal(counts, torch.bincount(cflat[c.keep.reshape(-1)], minlength=B * (c.n_cells + 1))):
             fail(f"voxelizer (cap {cap}): the per-pillar counts differ between the card and the CPU")
         feat_err = float((a.features.cpu() - c.features).abs().max())
-        if not feat_err <= cap * LIDAR_FEAT_TOL:
-            fail(f"voxelizer (cap {cap}): decorated features differ by {feat_err} px")
+        if not same_bits(a.features.cpu(), c.features):
+            fail(f"voxelizer (cap {cap}): decorated features differ between the card and the CPU by {feat_err} px")
 
         canvas_cpu = PillarCanvas(max_points_per_voxel=cap, feat_channels=(64, dim), **grid)
         init_flax_defaults(canvas_cpu, torch.Generator().manual_seed(LIDAR_SEED))
@@ -2923,9 +3205,8 @@ def phase_voxelizer(overrides: list[str]) -> dict:
         out[cap] = {"assign_ms": assign_ms, "canvas_fwd_ms": fwd_ms, "canvas_fwd_bwd_ms": fwd_bwd_ms,
                     "fwd_bwd_peak_bytes": peak, "kept": kept, "pillars": pillars, "feat_err": feat_err,
                     "canvas_err": canvas_err}
-        print(f"voxelizer cap {cap}: {kept} points kept in {pillars} pillars (card = CPU: points, ids, masks, "
-              f"counts); features max abs err {feat_err:.3g} px (tol {cap * LIDAR_FEAT_TOL:.3g}); train-mode canvas "
-              f"on {n} "
+        print(f"voxelizer cap {cap}: {kept} points kept in {pillars} pillars (card = CPU bitwise: points, ids, masks, "
+              f"counts, decorated features); train-mode canvas on {n} "
               f"clouds rel err {canvas_err:.3g}, running statistics {stats_err:.3g} (tol {LIDAR_CANVAS_TOL}; CPU "
               f"{cpu_s:.1f} s); on {B} clouds (CUDA events): assignment {assign_ms:.2f} ms, canvas forward "
               f"{fwd_ms:.2f} ms, forward and backward {fwd_bwd_ms:.2f} ms, its peak {peak / 2**30:.2f} GiB above "
@@ -3025,6 +3306,7 @@ def phase_hisup_lidar_train(overrides: list[str]) -> dict:
     from pixelspointspolygons_torch.data.loader import device_prefetch
     from pixelspointspolygons_torch.models.hisup.factory import build_hisup
     from pixelspointspolygons_torch.ops.afm import afm_cuda
+    from pixelspointspolygons_torch.ops.voxelize import pillar_sums_cuda
     from pixelspointspolygons_torch.train.hisup_step import make_train_step
     from pixelspointspolygons_torch.train.state import TrainState, make_optimizer, make_scheduler
     from pixelspointspolygons_torch.train.trainer_hisup import _DEV_KEYS, HiSupTrainer
@@ -3034,20 +3316,20 @@ def phase_hisup_lidar_train(overrides: list[str]) -> dict:
     iou_pass_s, step_losses, first, loader_ms = [], [], {}, []
     record_steps(trainer, step_losses, iou_pass_s, first, loader_ms)
     torch.cuda.reset_peak_memory_stats()
-    afm_cuda.launches = 0
+    afm_cuda.launches = pillar_sums_cuda.launches = 0
     t0 = time.perf_counter()
     history = trainer.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = afm_cuda.launches
+    launches, pillar_launches = afm_cuda.launches, pillar_sums_cuda.launches
     peak = torch.cuda.max_memory_allocated()
     run_loader_ms = list(loader_ms)
     n_train, n_val = len(trainer.train_loader), len(trainer.val_loader)
     model = trainer.state.model
     losses = [{k: float(v) for k, v in m.items()} for m in step_losses]
     print(f"hisup_lidar train path (float32): {n_train} train + {n_val} val steps and the val-IoU pass in {wall:.1f} s "
-          f"(set-up included), peak memory {peak / 2**30:.2f} GiB; afm launches {launches}; encoder "
-          f"{type(model.encoder).__name__}", flush=True)
+          f"(set-up included), peak memory {peak / 2**30:.2f} GiB; afm launches {launches}, pillar_sums launches "
+          f"{pillar_launches}; encoder {type(model.encoder).__name__}", flush=True)
     print("hisup_lidar history: " + json.dumps(history), flush=True)
     print("hisup_lidar step losses: " + json.dumps(losses), flush=True)
     if (n_train, n_val) != (TRAIN_STEPS, VAL_STEPS) or len(losses) != n_train:
@@ -3057,6 +3339,8 @@ def phase_hisup_lidar_train(overrides: list[str]) -> dict:
         fail(f"hisup_lidar: non-finite losses: {history}")
     if launches != n_train + n_val:
         fail(f"afm launched {launches} times in HiSup-LiDAR training, expected {n_train + n_val}")
+    if not pillar_launches:
+        fail("HiSup-LiDAR training launched the pillar_sums kernel no time")
     if type(model.encoder).__name__ != "PointPillarsViTCNNEncoder" or first["batch"].get("images") is not None:
         fail("hisup_lidar: not the LiDAR encoder on a LiDAR-only batch")
     if not trainer.manager.exists("latest") or not trainer.manager.exists("best_val_loss"):
@@ -3092,6 +3376,7 @@ def phase_hisup_lidar_train(overrides: list[str]) -> dict:
     print(f"hisup_lidar train step by layer (ms, CUDA events, median of {len(parts)}): {json.dumps(breakdown)}",
           flush=True)
     card_cpu = lidar_train_card_against_cpu(cfg, first)
+    forward_repeat("hisup_lidar", model, "hisup", {k: v[:2] for k, v in batches[0].items()})
 
     # one bfloat16 step from the same initial weights on the same first batch
     bcfg = compose(overrides + ["host.compute_dtype=bfloat16"])
@@ -3114,7 +3399,7 @@ def phase_hisup_lidar_train(overrides: list[str]) -> dict:
         fail(f"the bfloat16 HiSup-LiDAR step's losses differ from float32's by {loss_err}")
     return {"step_ms": step_ms, "val_ms": val_ms, "peak_bytes": peak, "iou_pass_ms": iou_pass_s[0] * 1e3,
             "val_iou": val_iou, "losses": losses, "breakdown": breakdown, "launches": launches,
-            "loader_ms": loader, "card_cpu": card_cpu, "bf16_loss_err": loss_err}
+            "pillar_launches": pillar_launches, "loader_ms": loader, "card_cpu": card_cpu, "bf16_loss_err": loss_err}
 
 
 def phase_p2p_fusion_predict(overrides: list[str]) -> dict:
@@ -3123,12 +3408,15 @@ def phase_p2p_fusion_predict(overrides: list[str]) -> dict:
     `latest`, through the functions `cli/predict.py::main` calls, with the
     counters set to 0 just before and read just after (0 AFM launches);
     tiles per second and the encoder's ms per batch; on P2P_CPU_TILES tiles
-    the encoder tokens on the card against the CPU (P2P_REL_TOL)."""
+    the encoder tokens on the card against the CPU (P2P_REL_TOL); the split
+    predicted once more and its prediction file held to the first byte for
+    byte; and the isolation of the encoder's stages (`fusion_isolation`)."""
     from pixelspointspolygons_torch.cli.predict import predict_and_evaluate
     from pixelspointspolygons_torch.config import compose
     from pixelspointspolygons_torch.data.loader import INPUT_KEYS, build_loader, to_device
     from pixelspointspolygons_torch.models.pix2poly import Tokenizer, build_pix2poly
     from pixelspointspolygons_torch.ops.afm import afm_cuda
+    from pixelspointspolygons_torch.ops.voxelize import pillar_sums_cuda
     from pixelspointspolygons_torch.train.state import TrainState, linear_warmup_decay, make_optimizer, make_scheduler
     from pixelspointspolygons_torch.utils.checkpoint import CheckpointManager
 
@@ -3140,17 +3428,18 @@ def phase_p2p_fusion_predict(overrides: list[str]) -> dict:
     CheckpointManager(cfg.output_dir).save(
         "latest", TrainState(model, opt, make_scheduler(opt, linear_warmup_decay(lr, 1000), lr)), 0, cfg)
     del model, opt
-    afm_cuda.launches = 0
+    afm_cuda.launches = pillar_sums_cuda.launches = 0
     t0 = time.perf_counter()
     predictor, results = predict_and_evaluate(cfg, CARD)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = afm_cuda.launches
+    launches, pillar_launches = afm_cuda.launches, pillar_sums_cuda.launches
     with open(cfg.evaluation.pred_file.replace(".json", "_time.json")) as f:
         timing = json.load(f)
     encoder = type(predictor.model.encoder).__name__
-    if launches or timing["num_images"] != TEST_TILES or encoder != "EarlyFusionViTEncoder":
-        fail(f"p2p_fusion prediction: {launches} afm launches, {timing['num_images']} tiles, encoder {encoder}")
+    if launches or not pillar_launches or timing["num_images"] != TEST_TILES or encoder != "EarlyFusionViTEncoder":
+        fail(f"p2p_fusion prediction: {launches} afm launches, {pillar_launches} pillar_sums launches, "
+             f"{timing['num_images']} tiles, encoder {encoder}")
     if not all(np.isfinite(results.get(k, np.nan)) for k in ("IoU", "C-IoU")):
         fail(f"p2p_fusion: non-finite metrics {results}")
     times = predictor.batch_times
@@ -3160,10 +3449,18 @@ def phase_p2p_fusion_predict(overrides: list[str]) -> dict:
           f"tiles/s (the predictor's own s/tile over its loop), set-up, loop, files and evaluation {wall:.1f} s; "
           f"encoder {[round(x, 2) for x in enc_ms]} ms per batch (CUDA events), decode loop "
           f"{[round(t['decode_ms'], 1) for t in times]} ms ({[t['steps'] for t in times]} steps), ScoreNets "
-          f"{[round(t['scorenet_ms'], 2) for t in times]} ms; afm launches {launches}; IoU {results['IoU']:.4f}",
-          flush=True)
+          f"{[round(t['scorenet_ms'], 2) for t in times]} ms; afm launches {launches}, pillar_sums launches "
+          f"{pillar_launches}; IoU {results['IoU']:.4f}", flush=True)
+    with open(cfg.evaluation.pred_file, "rb") as f:
+        first_file = f.read()
+    pillar_sums_cuda.launches = 0
+    predictor.predict_dataset(cfg.evaluation.split)
+    torch.cuda.synchronize()
+    with open(cfg.evaluation.pred_file, "rb") as f:
+        hold_repeat("p2p_fusion", first_file, f.read(), (pillar_launches, pillar_sums_cuda.launches))
 
     batch = next(iter(build_loader(cfg, "test", tokenizer=tokenizer, eval_mode=True)))
+    isolation = fusion_isolation(predictor.model, to_device(batch, CARD, INPUT_KEYS))
     small = {k: v[:P2P_CPU_TILES] for k, v in batch.items()}
     cpu_model = build_pix2poly(cfg, tokenizer)
     cpu_model.load_state_dict({k: v.cpu() for k, v in predictor.model.state_dict().items()})
@@ -3176,7 +3473,7 @@ def phase_p2p_fusion_predict(overrides: list[str]) -> dict:
     if not err <= P2P_REL_TOL:
         fail(f"p2p_fusion encoder tokens differ between card and CPU by {err}")
     return {"tiles_s": tiles_s, "encoder_ms": enc_ms, "batch_times": times, "launches": launches,
-            "results": results, "token_err": err}
+            "pillar_launches": pillar_launches, "results": results, "token_err": err, "isolation": isolation}
 
 
 def model_outputs(model, name: str, batch: dict, y_input=None) -> dict:
@@ -3204,6 +3501,7 @@ def phase_lidar_steps() -> dict:
     from pixelspointspolygons_torch.config import compose
     from pixelspointspolygons_torch.data.loader import device_prefetch
     from pixelspointspolygons_torch.ops.afm import afm_cuda
+    from pixelspointspolygons_torch.ops.voxelize import pillar_sums_cuda
     from pixelspointspolygons_torch.train import trainer_ffl, trainer_hisup, trainer_pix2poly
 
     trainers = {"pix2poly": (trainer_pix2poly.Pix2PolyTrainer, trainer_pix2poly._DEV_KEYS),
@@ -3224,24 +3522,26 @@ def phase_lidar_steps() -> dict:
             args = (trainer._weights_for_epoch(0),)
         else:
             args = (trainer.generator,) if name == "pix2poly" else ()
-        afm_cuda.launches = 0
+        afm_cuda.launches = pillar_sums_cuda.launches = 0
         metrics = {k: float(v) for k, v in trainer._train_step(trainer.state, batch, *args).items()}
         torch.cuda.synchronize()
-        launches = afm_cuda.launches
+        launches, pillar_launches = afm_cuda.launches, pillar_sums_cuda.launches
         t = time.perf_counter()
         trainer._train_step(trainer.state, batch, *args)
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t) * 1e3
         peak = torch.cuda.max_memory_allocated()
         want_launches = 1 if name == "hisup" else 0
-        if not all(np.isfinite(v) for v in metrics.values()) or launches != want_launches:
-            fail(f"{experiment}: the step gave {metrics} with {launches} afm launches (expected {want_launches})")
+        if not all(np.isfinite(v) for v in metrics.values()) or launches != want_launches or not pillar_launches:
+            fail(f"{experiment}: the step gave {metrics} with {launches} afm launches (expected {want_launches}) and "
+                 f"{pillar_launches} pillar_sums launches")
 
         small = {k: v[:2] for k, v in batch.items()}
         y_input = small["y"][:, :-1] if name == "pix2poly" else None
         model = trainer.state.model
         cpu_model = copy.deepcopy(model).cpu()
         got = model_outputs(model, name, small, y_input)
+        forward_repeat(experiment, model, name, small, y_input)
         want = model_outputs(cpu_model, name, {k: v.cpu() for k, v in small.items()},
                              None if y_input is None else y_input.cpu())
         errs = {k: float((got[k].cpu().float() - v.float()).abs().max() / v.float().abs().max().clamp(min=1e-12))
@@ -3256,7 +3556,7 @@ def phase_lidar_steps() -> dict:
         if not all(e <= tol for e in errs.values()):
             fail(f"{experiment}: the forward differs between the card and the CPU: {errs}")
         out[experiment] = {"step_ms": step_ms, "peak_bytes": peak, "launches": launches, "losses": metrics,
-                           "errs": errs, "dtype": dtype}
+                           "errs": errs, "dtype": dtype, "pillar_launches": pillar_launches}
         del trainer, model, cpu_model, batch, small
     return out
 
@@ -3270,6 +3570,7 @@ def phase_ffl_lidar_demo() -> float:
     from pixelspointspolygons_torch.data.dataset import P3Dataset, load_lidar_file
     from pixelspointspolygons_torch.laz import read_laz, write_laz
     from pixelspointspolygons_torch.models.ffl import build_ffl
+    from pixelspointspolygons_torch.ops.voxelize import pillar_sums_cuda
     from pixelspointspolygons_torch.train.state import TrainState, linear_warmup_decay, make_optimizer, make_scheduler
     from pixelspointspolygons_torch.utils.checkpoint import CheckpointManager
 
@@ -3291,17 +3592,20 @@ def phase_ffl_lidar_demo() -> float:
     os.chdir(WORK)
     try:
         t = time.perf_counter()
+        pillar_sums_cuda.launches = 0
         polys, out_file = predict_demo.main(overrides + ["checkpoint=latest", f"+lidar_file={laz_file}"])
+        pillar_launches = pillar_sums_cuda.launches
         demo_s = time.perf_counter() - t
         ok = os.path.isfile(out_file)
     finally:
         os.chdir(cwd)
     print(f"ffl_lidar predict_demo from {os.path.basename(laz_file)} ({len(pts)} points, {nbytes} bytes, decoded "
-          f"within {laz_err:.3g} of the tile's points): {len(polys)} polygons, {out_file} written {ok}, {demo_s:.2f} s",
-          flush=True)
-    if not ok or not laz_err <= 0.0051:
-        fail("ffl_lidar predict_demo wrote no png, or the .laz round trip moved the points")
-    return demo_s
+          f"within {laz_err:.3g} of the tile's points): {len(polys)} polygons, {out_file} written {ok}, {demo_s:.2f} s; "
+          f"pillar_sums launches {pillar_launches}", flush=True)
+    if not ok or not laz_err <= 0.0051 or not pillar_launches:
+        fail(f"ffl_lidar predict_demo wrote no png, or the .laz round trip moved the points, or it launched the "
+             f"pillar_sums kernel {pillar_launches} times")
+    return pillar_launches
 
 
 # --- the device cache and remat (phase 21) ------------------------------------------
@@ -3350,18 +3654,20 @@ def run_cached_trainer(cls, cfg, what: str) -> tuple:
     4 train + 1 val steps and the val-IoU pass with the counters set to 0
     just before and read just after; fails if it took the host loader."""
     from pixelspointspolygons_torch.ops.afm import afm_cuda
+    from pixelspointspolygons_torch.ops.voxelize import pillar_sums_cuda
 
     torch.cuda.empty_cache()
     trainer = cls(cfg, device=CARD)
     iou_pass_s, step_losses, first = [], [], {}
     record_steps(trainer, step_losses, iou_pass_s, first)
     torch.cuda.reset_peak_memory_stats()
-    afm_cuda.launches = 0
+    afm_cuda.launches = pillar_sums_cuda.launches = 0
     t0 = time.perf_counter()
     history = trainer.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, peak = afm_cuda.launches, torch.cuda.max_memory_allocated()
+    pillar_launches = pillar_sums_cuda.launches
     if trainer.cache is None:
         fail(f"{what}: the trainer took the host loader, not the device cache")
     n_train, n_val = len(trainer.cache["train"]), len(trainer.cache["val"])
@@ -3378,7 +3684,7 @@ def run_cached_trainer(cls, cfg, what: str) -> tuple:
     if val_iou is None or not 0.0 <= val_iou <= 1.0 or len(iou_pass_s) != 1:
         fail(f"{what}: the val-IoU pass gave no IoU in [0, 1]: {val_iou}")
     return trainer, {"launches": launches, "peak_bytes": peak, "losses": losses, "first": first,
-                     "val_iou": val_iou, "iou_pass_ms": iou_pass_s[0] * 1e3}
+                     "val_iou": val_iou, "iou_pass_ms": iou_pass_s[0] * 1e3, "pillar_launches": pillar_launches}
 
 
 def steady_step_ms(trainer, batches: list, *args) -> float:
@@ -3553,6 +3859,8 @@ def hisup_lidar_cache_remat(smi: str) -> dict:
     cfg = compose(lidar_overrides("hisup_lidar") + ["host.compute_dtype=float32", "training.device_cache=true",
                                                     "training.remat=true"])
     trainer, run = run_cached_trainer(HiSupTrainer, cfg, "hisup_lidar (float32, remat)")
+    if not run["pillar_launches"]:
+        fail("HiSup-LiDAR training from the cache launched the pillar_sums kernel no time")
     if run["launches"] != TRAIN_STEPS + VAL_STEPS:
         fail(f"afm launched {run['launches']} times in HiSup-LiDAR training from the cache, expected "
              f"{TRAIN_STEPS + VAL_STEPS}")
@@ -3641,6 +3949,7 @@ def hisup_fusion_remat_step(smi: str) -> dict:
     from pixelspointspolygons_torch.config import compose
     from pixelspointspolygons_torch.data.loader import device_prefetch
     from pixelspointspolygons_torch.ops.afm import afm_cuda
+    from pixelspointspolygons_torch.ops.voxelize import pillar_sums_cuda
     from pixelspointspolygons_torch.train.trainer_hisup import _DEV_KEYS, HiSupTrainer
 
     cfg = compose(lidar_overrides("hisup_fusion") + ["host.compute_dtype=float32", "training.remat=true"])
@@ -3650,10 +3959,10 @@ def hisup_fusion_remat_step(smi: str) -> dict:
     trainer.generator = torch.Generator(device=CARD).manual_seed(int(cfg.get("seed", 42)))
     trainer.setup()
     batch = next(iter(device_prefetch(trainer.train_loader, CARD, _DEV_KEYS)))
-    afm_cuda.launches = 0
+    afm_cuda.launches = pillar_sums_cuda.launches = 0
     metrics = {k: float(v) for k, v in trainer._train_step(trainer.state, batch).items()}
     torch.cuda.synchronize()
-    launches = afm_cuda.launches
+    launches, pillar_launches = afm_cuda.launches, pillar_sums_cuda.launches
     t = time.perf_counter()
     trainer._train_step(trainer.state, batch)
     torch.cuda.synchronize()
@@ -3661,10 +3970,11 @@ def hisup_fusion_remat_step(smi: str) -> dict:
     print(f"hisup_fusion (float32, remat): one train step at batch {B}: losses "
           f"{ {k: round(v, 6) for k, v in metrics.items()} }, afm launches {launches}; the next step {step_ms:.1f} ms; "
           f"peak {peak / 2**30:.2f} GiB (phase 19 takes the same step without remat); card {smi}", flush=True)
-    if launches != 1 or not all(np.isfinite(v) for v in metrics.values()):
-        fail(f"hisup_fusion with remat: {metrics} with {launches} afm launches (expected 1)")
+    if launches != 1 or not pillar_launches or not all(np.isfinite(v) for v in metrics.values()):
+        fail(f"hisup_fusion with remat: {metrics} with {launches} afm launches (expected 1) and {pillar_launches} "
+             f"pillar_sums launches")
     del trainer, batch
-    return {"step_ms": step_ms, "peak_bytes": peak, "launches": launches}
+    return {"step_ms": step_ms, "peak_bytes": peak, "launches": launches, "pillar_launches": pillar_launches}
 
 
 def p2p_cache_train(overrides: list[str], smi: str) -> dict:
@@ -4204,23 +4514,27 @@ def as_best_val_iou(cfg, checkpoint: str | None = None, model=None) -> None:
 
 
 def phase_ablations(p2p_vit_latest: str, dino_latest: str, ffl_vit_latest: str) -> dict:
-    """The ablation twins and the paper table on the card, with the counters
-    set to 0 just before and read just after (0 AFM launches)."""
+    """The ablation twins on the first ABLATION_TEST_TILES test tiles and
+    the paper table on the card, with the counters set to 0 just before and
+    read just after (0 AFM launches)."""
     from pixelspointspolygons_torch.cli import csv_results_to_latex, dino_v2_ablation, image_res_ablation
     from pixelspointspolygons_torch.config import compose
     from pixelspointspolygons_torch.models.ffl import build_ffl
     from pixelspointspolygons_torch.ops.afm import afm_cuda
+
+    def overrides(root: str) -> list[str]:
+        return ablation_overrides(root) + [f"run_type.test_subset={ABLATION_TEST_TILES}"]
 
     t0 = time.perf_counter()
     afm_cuda.launches = 0
     dino_csvs = []
     for enc, latest in (("vit", p2p_vit_latest), ("vit_dinov2", dino_latest)):
         root = os.path.join(WORK, f"ablation_{enc}")
-        as_best_val_iou(compose(["experiment=p2p_image", f"encoder={enc}"] + ablation_overrides(root)), latest)
+        as_best_val_iou(compose(["experiment=p2p_image", f"encoder={enc}"] + overrides(root)), latest)
         encoders, dino_v2_ablation.ENCODERS = dino_v2_ablation.ENCODERS, [enc]
         try:
             with contextlib.chdir(root):
-                df = dino_v2_ablation.main(ablation_overrides(root))
+                df = dino_v2_ablation.main(overrides(root))
         finally:
             dino_v2_ablation.ENCODERS = encoders
         if list(df.get("encoder", [])) != [enc]:
@@ -4228,7 +4542,7 @@ def phase_ablations(p2p_vit_latest: str, dino_latest: str, ffl_vit_latest: str) 
         dino_csvs.append(os.path.join(root, "dino_v2_ablation.csv"))
 
     root = os.path.join(WORK, "ablation_res")
-    res_over = ablation_overrides(root) + ["experiment.dataset.size=224"]
+    res_over = overrides(root) + ["experiment.dataset.size=224"]
     rows = [compose(["experiment=ffl_image", "evaluation=test", "checkpoint=best_val_iou", *extra] + res_over)
             for _, extra in image_res_ablation.CONFIGS]
     as_best_val_iou(rows[0], ffl_vit_latest)
@@ -4263,12 +4577,12 @@ def phase_remaining_encoders(smi: str) -> dict:
     t0 = time.perf_counter()
     out = {}
     ffl = smoke_overrides(num_train=TRAIN_STEPS * B, experiment="ffl_image")
-    for enc, steps in (("unetresnet101", TRAIN_STEPS), ("convnext", CNX_TRAIN_STEPS)):
-        over = ffl + [f"encoder={enc}", f"experiment.encoder.in_size={S}", f"run_type.train_subset={steps * B}",
+    for enc, exact_tiles in (("unetresnet101", UNET_EXACT_TILES), ("convnext", HISUP_BF16_CPU_TILES)):
+        over = ffl + [f"encoder={enc}", f"experiment.encoder.in_size={S}", f"run_type.train_subset={CNX_TRAIN_STEPS * B}",
                       f"host.model_root={os.path.join(WORK, 'outputs_' + enc)}"]
         name = f"ffl {enc}"
-        t = phase_ffl_train(over, "float32", steps=steps, name=name, cold=False, exact=True)
-        pred = phase_ffl_predict_tiles(over, "float32", name=name)
+        t = phase_ffl_train(over, "float32", steps=CNX_TRAIN_STEPS, name=name, cold=False, exact_tiles=exact_tiles)
+        pred = phase_ffl_predict_tiles(over, "float32", name=name, tiles=PHASE23_TEST_TILES)
         out[enc] = {"train": t, "predict": pred}
         print(f"{name}: train step {t['step_ms']:.1f} ms, peak {t['peak_bytes'] / 2**30:.2f} GiB, val IoU "
               f"{t['val_iou']:.4f}, by layer {json.dumps({k: round(v, 2) for k, v in t['breakdown'].items()})}; predict "
@@ -4281,7 +4595,7 @@ def phase_remaining_encoders(smi: str) -> dict:
             bf16 = ffl_bf16_step_losses(compose(over), t["first"])
             f32 = t["card_losses"]
             err = {k: abs(bf16[k] / f32[k] - 1.0) for k in f32}
-            print(f"{name}: one bfloat16 step from the first step's weights on its {HISUP_BF16_CPU_TILES} tiles "
+            print(f"{name}: one bfloat16 step from the first step's weights on its {len(t['first']['batch']['images'])} tiles "
                   f"{bf16}, float32 {f32}; rel diff {err} (tol {FFL_BF16_LOSS_TOL})", flush=True)
             if set(err) != set(FFL_BF16_LOSS_TOL) or any(e > FFL_BF16_LOSS_TOL[k] for k, e in err.items()):
                 fail(f"the bfloat16 ConvNeXt FFL step's losses differ from float32's by {err}")
@@ -4447,9 +4761,9 @@ def twin_profile(smi: str) -> dict:
     trace_dir = os.path.join(WORK, "twins_trace")
     out = {}
     afm_cuda.launches = 0
-    for mode in ("train", "generate"):
+    for mode, runs in (("train", 3), ("generate", PROFILE_GENERATE_RUNS)):
         t0 = time.perf_counter()
-        got = profile.main([trace_dir, mode])
+        got = profile.main([trace_dir, mode, str(runs)])
         wall = time.perf_counter() - t0
         if not os.path.isfile(got["path"]):
             fail(f"cli.profile {mode} wrote no trace at {got['path']}")
@@ -4459,12 +4773,13 @@ def twin_profile(smi: str) -> dict:
         scan = time.perf_counter() - t0
         argmax = sum(n for k, n in kernels.items() if "ArgMax" in k)
         products = ops["aten::mm"] + ops["aten::addmm"] + ops["aten::bmm"]
-        print(f"cli.profile {mode}: {size / 1e6:.1f} MB, export {got['export_s']:.2f} s, the command {wall:.1f} s; "
+        print(f"cli.profile {mode} ({runs} traced runs): {size / 1e6:.1f} MB, export {got['export_s']:.2f} s, the "
+              f"command {wall:.1f} s; "
               f"{sum(kernels.values())} kernel events ({len(kernels)} kernels), {sum(ops.values())} CPU operators, "
               f"{argmax} argmax reductions, {products} matrix products (scanned in {scan:.1f} s); card {smi}",
               flush=True)
-        if mode == "generate" and argmax < 3 * steps:
-            fail(f"the generate trace holds {argmax} argmax kernels, expected at least 3 x {steps}")
+        if mode == "generate" and argmax < runs * steps:
+            fail(f"the generate trace holds {argmax} argmax kernels, expected at least {runs} x {steps}")
         if mode == "train" and not (ops["aten::embedding"] >= 3 and sum(kernels.values()) >= products > 0
                                     and ops["autograd::engine::evaluate_function: EmbeddingBackward0"] >= 3):
             fail(f"the train trace lacks the decoder's operations or kernels: {products} products, "
@@ -4483,6 +4798,7 @@ def twin_gather_and_droplidar(fusion_latest: str, smi: str) -> dict:
     from pixelspointspolygons_torch.cli import droplidar50_ablation, gather_pretrained_models
     from pixelspointspolygons_torch.config import compose
     from pixelspointspolygons_torch.ops.afm import afm_cuda
+    from pixelspointspolygons_torch.ops.voxelize import pillar_sums_cuda
 
     afm_cuda.launches = 0
     args = ablation_overrides(os.environ["P3_MODEL_ROOT"])
@@ -4503,17 +4819,22 @@ def twin_gather_and_droplidar(fusion_latest: str, smi: str) -> dict:
     as_best_val_iou(compose(["experiment=p2p_fusion", "experiment.lidar_dropout=0.5", "evaluation=test",
                              "checkpoint=best_val_iou"] + args), fusion_latest)
     t0 = time.perf_counter()
+    pillar_sums_cuda.launches = 0
     with contextlib.chdir(root):
         df = droplidar50_ablation.main(args)
     wall = time.perf_counter() - t0
-    launches = afm_cuda.launches
+    launches, pillar_launches = afm_cuda.launches, pillar_sums_cuda.launches
     if list(df.get("variant", [])) != ["with_lidar", "no_lidar"] or set(df["num_images"]) != {TEST_TILES}:
         fail(f"cli.droplidar50_ablation did not score both rows on the split: {df}")
     rows = df.drop(columns=["variant", "prediction_time"]).to_dict("records")
     differ = {k: (a, rows[1][k]) for k, a in rows[0].items() if not (a == rows[1][k] or a != a and rows[1][k] != rows[1][k])}
     print(f"cli.droplidar50_ablation in {wall:.1f} s (ROADMAP 3.15): the two rows differ in {differ or 'nothing'}; afm "
-          f"launches {launches}; card {smi}", flush=True)
-    return {"gathered": gathered, "differ": differ, "wall_s": wall, "launches": launches}
+          f"launches {launches}, pillar_sums launches {pillar_launches}; card {smi}", flush=True)
+    if differ or not pillar_launches:
+        fail(f"cli.droplidar50_ablation: its two rows predict with one model on the same inputs and differ in "
+             f"{differ}, or it launched the pillar_sums kernel {pillar_launches} times")
+    return {"gathered": gathered, "differ": differ, "wall_s": wall, "launches": launches,
+            "pillar_launches": pillar_launches}
 
 
 def phase_script_twins(seeded_p2p: str, fusion_latest: str, smi: str) -> dict:
@@ -4527,8 +4848,18 @@ def phase_script_twins(seeded_p2p: str, fusion_latest: str, smi: str) -> dict:
     return out
 
 
-def elapsed(what: str) -> None:
-    print(f"elapsed before {what}: {time.perf_counter() - T0:.1f} s", flush=True)
+# phase label -> its seconds, and when the last phase ended
+PHASE_S: dict[str, float] = {}
+PHASE_END = [T0]
+
+
+def phase_done(label: str) -> None:
+    """Print the seconds since the previous phase ended on a line of the
+    phase's own, and keep them for the run's table."""
+    now = time.perf_counter()
+    PHASE_S[label] = now - PHASE_END[0]
+    PHASE_END[0] = now
+    print(f"phase {label} took {PHASE_S[label]:.1f} s ({now - T0:.1f} s into the run)", flush=True)
 
 
 def main() -> None:
@@ -4543,29 +4874,35 @@ def main() -> None:
     print(f"card: {smi}", flush=True)
     set_tf32(False)
     phase_build()
+    phase_done("1-2")
     overrides = smoke_overrides(num_train=TRAIN_STEPS * B)
     afm_row = phase_afm(compose(overrides))
+    pillar_row = phase_pillar_sums()
+    phase_done("3")
     launches, train = phase_train(overrides)
+    phase_done("4")
     afm_row["launches"] = launches["afm"]
     print(f"main path: train step {train['step_ms']:.1f} ms, val step {train['val_ms']:.1f} ms, "
           f"val-IoU pass {train['iou_pass_ms']:.1f} ms, peak {train['peak_bytes']} bytes, card {smi}", flush=True)
     # the bfloat16 run below writes its own `latest` in the same directory
     float32_latest = os.path.join(WORK, "hisup_float32_latest.pt")
     shutil.copyfile(os.path.join(train["output_dir"], "checkpoints", "latest.pt"), float32_latest)
-    elapsed("phase_predict")
     pred = phase_predict(overrides)
+    phase_done("5")
     print(f"predict path: {pred['tiles_s']:.2f} tiles/s, device {statistics.median(pred['device_ms']):.2f} ms and "
           f"host stage {statistics.median(pred['host_ms']):.2f} ms per batch of {B} (medians), "
           f"host stage on the ground truth {statistics.median(pred['oracle_host_ms']):.2f} ms per batch, "
           f"IoU {pred['results']['IoU']:.4f}, card {smi}", flush=True)
     p2p_overrides = smoke_overrides(num_train=TRAIN_STEPS * B, experiment="p2p_image")
     launches_bf16, train_bf16 = phase_train(overrides, "bfloat16")
+    phase_done("10")
     loss_err = {k: abs(train_bf16["losses"][0][k] / train["losses"][0][k] - 1.0) for k in train["losses"][0]}
     print(f"HiSup first train step from the same weights on the same batch: float32 {train['losses'][0]}, "
           f"bfloat16 {train_bf16['losses'][0]}; rel diff {loss_err} (tol {HISUP_BF16_LOSS_TOL})", flush=True)
     if not all(e <= HISUP_BF16_LOSS_TOL for e in loss_err.values()):
         fail(f"the bfloat16 HiSup step's losses differ from float32's by {loss_err}")
     pred_bf16 = phase_predict(overrides, "bfloat16")
+    phase_done("11")
     for dtype, t in (("float32", train), ("bfloat16", train_bf16)):
         print(f"HiSup train path ({dtype}): train step {t['step_ms']:.1f} ms, val step {t['val_ms']:.1f} ms, "
               f"val-IoU pass {t['iou_pass_ms']:.1f} ms (val IoU {t['val_iou']:.4f}), peak {t['peak_bytes']} bytes, "
@@ -4574,12 +4911,14 @@ def main() -> None:
         print(f"HiSup predict path ({dtype}): {p['tiles_s']:.2f} tiles/s, device "
               f"{statistics.median(p['device_ms']):.2f} ms and host stage {statistics.median(p['host_ms']):.2f} ms "
               f"per batch of {B} (medians), IoU {p['results']['IoU']:.4f}, card {smi}", flush=True)
-    elapsed("phase_pretrained")
     grafts = phase_pretrained(overrides, p2p_overrides, float32_latest)
     print(f"pretrained and warm start (tensors loaded and kept at init): {json.dumps(grafts)}, card {smi}", flush=True)
+    phase_done("12")
     phase_entry()
+    phase_done("13")
     ffl_overrides = smoke_overrides(num_train=TRAIN_STEPS * B, experiment="ffl_image")
     ffl = phase_ffl(ffl_overrides)
+    phase_done("14")
     bt = ffl["batch_times"]
     med = {k: statistics.median(t[k] for t in bt) for k in ("device_ms", "contours_ms", "acm_ms", "post_ms")}
     print(f"ffl predict path: {ffl['tiles_s']:.2f} tiles/s; per batch of {B} (medians): forward "
@@ -4588,9 +4927,10 @@ def main() -> None:
           f"({ffl['acm']['aten_per_step']:.1f} aten calls, {ffl['acm']['kernels_per_step']:.1f} kernels); "
           f"IoU {ffl['results']['IoU']:.4f}; ground-truth IoU {ffl['oracle']['iou']:.4f}; peak "
           f"{ffl['peak_bytes'] / 2**30:.2f} GiB, card {smi}", flush=True)
-    elapsed("phase_ffl_training")
     ffl_train = phase_ffl_training(ffl_overrides, smi)
+    phase_done("15")
     p2p = phase_pix2poly(p2p_overrides)
+    phase_done("6")
     # the training below writes its own `latest` in the same directory
     p2p_seeded = os.path.join(WORK, "p2p_seeded_latest.pt")
     shutil.copyfile(os.path.join(compose(p2p_overrides).output_dir, "checkpoints", "latest.pt"), p2p_seeded)
@@ -4601,8 +4941,8 @@ def main() -> None:
           f"host stage {med['host_ms']:.2f} ms; fixed-length decode {p2p['fixed']['tiles_s']:.2f} tiles/s, "
           f"{p2p['fixed']['ms_per_step']:.3f} ms per decode step; IoU {p2p['results']['IoU']:.4f}, card {smi}",
           flush=True)
-    elapsed("phase_p2p_train")
     trained = {dtype: phase_p2p_train(p2p_overrides, dtype) for dtype in ("float32", "bfloat16")}
+    phase_done("7-8")
     first = {dtype: t["losses"][0] for dtype, t in trained.items()}
     loss_err = {k: abs(first["bfloat16"][k] / first["float32"][k] - 1.0) for k in first["float32"]}
     print(f"pix2poly first train step from the same weights on the same batch: float32 {first['float32']}, "
@@ -4614,6 +4954,7 @@ def main() -> None:
               f"val-IoU pass {t['iou_pass_ms']:.1f} ms (val IoU {t['val_iou']:.4f}), peak {t['peak_bytes']} bytes, "
               f"by layer {json.dumps({k: round(v, 2) for k, v in t['breakdown'].items()})}, card {smi}", flush=True)
     pbf = phase_p2p_predict_bf16(p2p_overrides)
+    phase_done("9")
     bt = pbf["batch_times"]
     med = {k: statistics.median(t[k] for t in bt) for k in ("encoder_ms", "decode_ms", "scorenet_ms", "host_ms")}
     print(f"pix2poly predict path (bfloat16): {pbf['tiles_s']:.2f} tiles/s; per batch of {B} (medians): encoder "
@@ -4622,9 +4963,10 @@ def main() -> None:
           f"{pbf['fixed']['ms_per_step']:.3f} ms per decode step, {pbf['fixed']['aten_per_step']:.1f} aten calls per "
           f"step (float32 {pbf['aten_per_step_f32']:.1f}); bench_torch {pbf['bench']['value']} tiles/s, "
           f"vs_baseline {pbf['bench']['vs_baseline']}, card {smi}", flush=True)
-    elapsed("phase_voxelizer")
     vox = phase_voxelizer(lidar_overrides("hisup_lidar"))
+    phase_done("16")
     lidar = phase_hisup_lidar_train(lidar_overrides("hisup_lidar"))
+    phase_done("17")
     print(f"hisup_lidar train path: train step {lidar['step_ms']:.1f} ms, val step {lidar['val_ms']:.1f} ms, val-IoU "
           f"pass {lidar['iou_pass_ms']:.1f} ms (val IoU {lidar['val_iou']:.4f}), peak {lidar['peak_bytes']} bytes "
           f"({lidar['peak_bytes'] / 2**30:.2f} GiB), host loader {lidar['loader_ms']:.1f} ms per batch, by layer "
@@ -4632,19 +4974,21 @@ def main() -> None:
           f"{B} clouds: assignment {vox[64]['assign_ms']:.2f} ms, canvas forward {vox[64]['canvas_fwd_ms']:.2f} ms, "
           f"forward and backward {vox[64]['canvas_fwd_bwd_ms']:.2f} ms; card {smi}", flush=True)
     fusion = phase_p2p_fusion_predict(lidar_overrides("p2p_fusion"))
+    phase_done("18")
     fusion_seeded = os.path.join(WORK, "p2p_fusion_seeded_latest.pt")
     shutil.copyfile(os.path.join(compose(lidar_overrides("p2p_fusion")).output_dir, "checkpoints", "latest.pt"),
                     fusion_seeded)
     print(f"p2p_fusion predict path: {fusion['tiles_s']:.2f} tiles/s, encoder "
           f"{statistics.median(fusion['encoder_ms']):.2f} ms per batch of {B} (median), card {smi}", flush=True)
-    elapsed("phase_lidar_steps")
     steps = phase_lidar_steps()
+    phase_done("19")
     for experiment, t in steps.items():
         print(f"{experiment} ({t['dtype']}): train step {t['step_ms']:.1f} ms, peak {t['peak_bytes']} bytes "
               f"({t['peak_bytes'] / 2**30:.2f} GiB), afm launches {t['launches']}, card {smi}", flush=True)
-    phase_ffl_lidar_demo()
-    elapsed("phase_device_cache")
+    demo_launches = phase_ffl_lidar_demo()
+    phase_done("20")
     cached = phase_device_cache(ffl_overrides, p2p_overrides, smi)
+    phase_done("21")
     for dtype, t in cached["ffl"].items():
         print(f"ffl_image from the device cache ({dtype}): train step {t['step_ms']:.1f} ms, batcher "
               f"{t['batcher_ms']:.3f} ms per batch, wall per train batch from the cache {t['wall_cache_ms']} ms and "
@@ -4657,13 +5001,17 @@ def main() -> None:
           f"{hl['remat']['remat_ms']:.1f} ms at {hl['remat']['remat_peak'] / 2**30:.2f} GiB; hisup_fusion with remat "
           f"peak {cached['hisup_fusion']['peak_bytes'] / 2**30:.2f} GiB; p2p_image from the cache step "
           f"{cached['p2p']['step_ms']:.1f} ms; card {smi}", flush=True)
-    elapsed("phase_data_parallel")
     ddp = phase_data_parallel(overrides, p2p_overrides, ffl_overrides, smi)
-    elapsed("phase_remaining_encoders")
+    phase_done("22")
     rest = phase_remaining_encoders(smi)
-    elapsed("phase_script_twins")
+    phase_done("23")
     twins = phase_script_twins(p2p_seeded, fusion_seeded, smi)
-    elapsed("the kernels line")
+    phase_done("24")
+    missing = [p for p in REPEAT_PATHS if p not in REPEATS]
+    print(f"repeat checks: {len(REPEATS)} prediction paths held bitwise equal from one prediction to the next; "
+          f"pillar_sums launches of each prediction {json.dumps(REPEATS)}", flush=True)
+    if missing:
+        fail(f"the repeat checks did not run for {missing}")
     afm_row["launches_by_path"] = {
         "hisup_train": launches["afm"], "hisup_predict": 0, "pix2poly_predict": 0,
         "pix2poly_train_float32": trained["float32"]["launches"],
@@ -4690,8 +5038,18 @@ def main() -> None:
         "profile": twins["profile"]["launches"],
         "gather_and_droplidar50": twins["gather_droplidar"]["launches"],
     }
+    pillar_row["launches_by_path"] = {
+        "hisup_lidar_train": lidar["pillar_launches"], "p2p_fusion_predict": fusion["pillar_launches"],
+        **{f"{e}_step": t["pillar_launches"] for e, t in steps.items()}, "ffl_lidar_predict_demo": demo_launches,
+        "hisup_lidar_train_cache_remat": hl["pillar_launches"],
+        "hisup_fusion_step_remat": cached["hisup_fusion"]["pillar_launches"],
+        "droplidar50_ablation": twins["gather_droplidar"]["pillar_launches"],
+        **{f"repeat_{p}": n for p, n in REPEATS.items()},
+    }
+    pillar_row["launches"] = lidar["pillar_launches"]
+    print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in PHASE_S.items()})}", flush=True)
     print(f"smoke run: {time.perf_counter() - T0:.1f} s", flush=True)
-    print(json.dumps({"kernels": [afm_row]}), flush=True)
+    print(json.dumps({"kernels": [afm_row, pillar_row]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

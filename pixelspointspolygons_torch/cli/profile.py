@@ -2,10 +2,10 @@
 of scripts/profile.py: `generate` (the greedy decode of all max_len − 1
 steps, then the Sinkhorn permutation) or `train` (one AdamW train step),
 at batch 8 on seeded 224 px images, for a model drawn from seed 0. One
-untraced run first, then three traced runs, written as a Chrome trace
-(`chrome://tracing`, Perfetto) to `<trace_dir>/trace_<mode>.json`.
+untraced run first, then three traced runs (or `runs`), written as a Chrome
+trace (`chrome://tracing`, Perfetto) to `<trace_dir>/trace_<mode>.json`.
 
-Usage: python -m pixelspointspolygons_torch.cli.profile [trace_dir] [train|generate] [key.path=value ...] [device=cpu]
+Usage: python -m pixelspointspolygons_torch.cli.profile [trace_dir] [train|generate] [runs] [key.path=value ...] [device=cpu]
 
 Runs on the card and traces the CPU and the card's kernels; `device=cpu`
 runs and traces on the CPU. The default trace directory is `p3tpu_trace`
@@ -38,6 +38,7 @@ def main(argv: list[str] | None = None) -> dict:
     args = [a for a in overrides if "=" not in a]
     trace_dir = args[0] if args else os.path.join(tempfile.gettempdir(), "p3tpu_trace")
     mode = args[1] if len(args) > 1 else "generate"
+    runs = int(args[2]) if len(args) > 2 else 3
     dev = resolve_device(device)
 
     cfg = compose(["experiment=p2p_image", "run_type=debug"] + [a for a in overrides if "=" in a])
@@ -74,7 +75,7 @@ def main(argv: list[str] | None = None) -> dict:
     step()  # untraced: the first call's set-up
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
     with profile(activities=activities) as prof:
-        for _ in range(3):
+        for _ in range(runs):
             step()
     os.makedirs(trace_dir, exist_ok=True)
     path = os.path.join(trace_dir, f"trace_{mode}.json")

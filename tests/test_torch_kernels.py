@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels against their plain PyTorch versions
-on the card. This file imports neither JAX nor the JAX package, so it runs
-where only the port is installed:
+on the card (the AFM and the voxelizer's pillar sums). This file imports
+neither JAX nor the JAX package, so it runs where only the port is
+installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels.py
 
@@ -18,6 +19,8 @@ from pixelspointspolygons_torch.ops.afm import (
     division_operands,
     kernel_config,
 )
+from pixelspointspolygons_torch.ops.segment import rank_in_run
+from pixelspointspolygons_torch.ops.voxelize import pillar_sums, pillar_sums_cuda, sort_by_pillar
 
 
 @pytest.fixture()
@@ -154,3 +157,63 @@ def test_kernel_quotient_is_ieee_division(cuda_device):
     bad, total = bad + nb, total + num.numel()
     assert total >= 10**8 + num.numel()
     assert bad == 0, f"{bad} of {total} quotients differ from IEEE division"
+
+
+def _clouds(seed, B=16, N=200_000, size=224.0):
+    """Clouds as the LiDAR loader pads them: 15 to 30 % of N points of a
+    tile (30,000 to 60,000 of 200,000; a few outside it), zeros after them
+    (77.5 % padding at the mean)."""
+    rng = np.random.RandomState(seed)
+    pts = np.zeros((B, N, 3), np.float32)
+    valid = np.zeros((B, N), bool)
+    for b in range(B):
+        n = rng.randint(N * 3 // 20, N * 3 // 10 + 1)
+        pts[b, :n, :2] = rng.uniform(-2, size + 2, (n, 2))
+        pts[b, :n, 2] = rng.gamma(2.0, 20.0, n)
+        valid[b, :n] = True
+    return pts, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("cap", [4, 64, 512])
+def test_pillar_sums_kernel_matches_plain(cuda_device, cap, dtype):
+    """Bit for bit: the kernel and the plain version add each pillar's
+    first min(run, cap) points in sorted order from +0.0; and ten calls in a
+    row give the same bits."""
+    pts, valid = _clouds(7)
+    grid = dict(width=224.0, height=224.0, voxel_x=8.0, voxel_y=8.0)
+    pts_s, pid_s, n_cells = sort_by_pillar(torch.from_numpy(pts).to(cuda_device, dtype),
+                                           torch.from_numpy(valid).to(cuda_device), **grid)
+    before = pillar_sums_cuda.launches
+    sums, counts = pillar_sums_cuda(pts_s, pid_s, cap, n_cells)
+    want_sums, want_counts = pillar_sums(pts_s, pid_s, cap, n_cells)
+    torch.cuda.synchronize()
+    assert pillar_sums_cuda.launches == before + 1
+    assert sums.shape == (16, n_cells + 1, 3) and sums.dtype == dtype and counts.dtype == torch.int32
+    ints = torch.int32 if dtype == torch.float32 else torch.int64
+    assert torch.equal(sums.view(ints), want_sums.view(ints))
+    assert torch.equal(counts, want_counts)
+    longest = int(rank_in_run(pid_s)[pid_s < n_cells].max()) + 1
+    assert int(counts.max()) == min(cap, longest) and longest > 64  # pillars over caps 4 and 64
+    for _ in range(10):
+        again, again_counts = pillar_sums_cuda(pts_s, pid_s, cap, n_cells)
+        assert torch.equal(again.view(ints), sums.view(ints)) and torch.equal(again_counts, counts)
+
+
+@pytest.mark.cuda
+def test_pillar_sums_kernel_refuses_what_it_cannot_take(cuda_device):
+    pts, valid = _clouds(8, B=2, N=1000)
+    pts_s, pid_s, n_cells = sort_by_pillar(torch.from_numpy(pts).to(cuda_device),
+                                           torch.from_numpy(valid).to(cuda_device),
+                                           width=224.0, height=224.0, voxel_x=8.0, voxel_y=8.0)
+    before = pillar_sums_cuda.launches
+    with pytest.raises(ValueError, match="bfloat16"):
+        pillar_sums_cuda(pts_s.bfloat16(), pid_s, 4, n_cells)
+    with pytest.raises(ValueError, match="gradient"):
+        pillar_sums_cuda(pts_s.clone().requires_grad_(), pid_s, 4, n_cells)
+    with pytest.raises(ValueError, match="contiguous"):
+        pillar_sums_cuda(pts_s.transpose(0, 1).contiguous().transpose(0, 1), pid_s, 4, n_cells)
+    with pytest.raises(ValueError, match="one device"):
+        pillar_sums_cuda(pts_s, pid_s.cpu(), 4, n_cells)
+    assert pillar_sums_cuda.launches == before

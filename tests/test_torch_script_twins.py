@@ -245,6 +245,16 @@ def test_profile_writes_a_trace_of_the_decode(mode, tiny_vit, tmp_path, capsys):
     assert ops["aten::addmm"] >= 3
 
 
+def test_profile_takes_the_number_of_traced_runs(tiny_vit, tmp_path):
+    """`runs` after the mode: one traced decode holds each step's argmax
+    once (the script itself always traces three)."""
+    out = profile.main([str(tmp_path / "trace"), "generate", "1"] + PROFILE_ARGS + ["device=cpu"])
+    with open(out["path"]) as f:
+        events = json.load(f)["traceEvents"]
+    ops = collections.Counter(e["name"] for e in events if e.get("cat") == "cpu_op")
+    assert ops["aten::argmax"] == ops["aten::embedding"] == 9
+
+
 # --- the checkpoint gatherer ------------------------------------------------------------
 
 PRESENT = ("p2p_image", "hisup_fusion")
