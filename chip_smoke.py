@@ -15,8 +15,14 @@ fails:
      quotient against IEEE division on every operand of the main path; the
      voxelizer's pillar sums on 16 clouds of 200,000 points at the caps 4,
      64 and 512 in float32 and float64, bitwise equal to the plain version
-     and to themselves over ten calls, timed beside the two `index_add_`
-     calls they replace;
+     and to themselves over ten calls, and so on the layouts of
+     `ops/pillar_layouts.py` (runs over many chunks, runs of a cap or a
+     chunk and one more or less, empty pillars, a sample of padding only, a
+     cap above N, a 5 x 7 grid; all of them at 16 x 200,000 points); the
+     kernel's registers, shared memory and spills (ptxas) and blocks per
+     SM; timed warm (back-to-back calls, and in a CUDA graph) and cold (the
+     L2 flushed by a 256 MB write before each call) beside the two
+     `index_add_` calls they replace;
   4. the training path: HiSup-image training (HRNetV2-W48, 224 px, head
      width 256, batch 16) through the trainer for 4 train steps, 1 val step
      and the val-IoU pass (the val split polygonized), with every kernel
@@ -707,6 +713,28 @@ def graph_ms(fn, launches: int, rounds: int) -> float:
     return statistics.median(per)
 
 
+def cold_ms(fn, rounds: int, flush_bytes: int = 256 << 20) -> float:
+    """Median over `rounds` of one call's time by CUDA events, the L2 cache
+    (50 MB) flushed before each call by a write of `flush_bytes` outside
+    the events. The host enqueues the call while the write runs (about 0.1
+    ms for 256 MB), so the events hold the device's time of the call and
+    not the host's."""
+    flush = torch.empty(flush_bytes // 4, dtype=torch.int32, device=CARD)
+    fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        per.append(start.elapsed_time(end))
+    return statistics.median(per)
+
+
 def smoke_overrides(num_train: int, experiment: str = "hisup_image") -> list[str]:
     return [
         f"experiment={experiment}",
@@ -752,6 +780,19 @@ def phase_build() -> None:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
+
+
+def ptxas_usage(log: str, kernel: str) -> dict:
+    """{entry function: its registers, shared memory and spills} for each
+    entry of `-Xptxas -v`'s log whose mangled name holds `kernel`."""
+    usage, entry = {}, None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '(\w+)'", line)
+        if found:
+            entry = found.group(1) if kernel in found.group(1) else None
+        elif entry and ("registers" in line or "spill" in line):
+            usage.setdefault(entry, []).append(line.split(":", 1)[-1].strip() if "Used" in line else line.strip())
+    return {k: "; ".join(v) for k, v in usage.items()}
 
 
 def afm_inputs(cfg) -> tuple[torch.Tensor, torch.Tensor]:
@@ -892,14 +933,75 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
             and torch.equal(a.contiguous().reshape(-1).view(torch.uint8), b.contiguous().reshape(-1).view(torch.uint8)))
 
 
+def sums_layouts_against_plain() -> int:
+    """The kernel bitwise against its plain version, and against itself over
+    ten calls, on each layout of `ops/pillar_layouts.py` (runs over many
+    chunks and a tile, runs of a cap or a chunk and one more or less, empty
+    pillars, a sample of padding only, a cap above N, a grid that leaves
+    the kernel's pass short; and all of them at 16 x 200,000 points) in
+    float32 and float64 at the caps LIDAR_CAPS. Returns the number of
+    cases."""
+    from pixelspointspolygons_torch.ops.voxelize import pillar_sums, pillar_sums_cuda
+    from pixelspointspolygons_torch.ops.pillar_layouts import large_layout, small_layouts
+
+    cases = 0
+    for dtype in (np.float32, np.float64):
+        layouts = {**small_layouts(dtype), "large": large_layout(dtype)}
+        for name, (pts, pid, n_cells) in layouts.items():
+            pts_s, pid_s = torch.from_numpy(pts).to(CARD), torch.from_numpy(pid).to(CARD)
+            for cap in LIDAR_CAPS:
+                got = pillar_sums_cuda(pts_s, pid_s, cap, n_cells)
+                want = pillar_sums(pts_s, pid_s, cap, n_cells)
+                again = [pillar_sums_cuda(pts_s, pid_s, cap, n_cells) for _ in range(10)]
+                torch.cuda.synchronize()
+                equal = all(same_bits(g, w) for g, w in zip(got, want))
+                repeat = all(same_bits(g, a) for r in again for g, a in zip(got, r))
+                if not (equal and repeat):
+                    fail(f"pillar_sums on the layout {name} ({np.dtype(dtype).name}, cap {cap}): the kernel differs "
+                         f"from its plain version ({equal}) or from itself ({repeat})")
+                cases += 1
+    return cases
+
+
 def phase_pillar_sums() -> dict:
     """Phase 3, the voxelizer's kernel: `pillar_sums_cuda` against its plain
     version `pillar_sums` on the synthetic train split's first 16 clouds at
     200,000 points, sorted as `assign_pillars` sorts them, at the caps
     LIDAR_CAPS in float32 and float64: sums and counts bitwise equal, and
-    ten calls in a row too; CUDA-event times of the kernel, the plain
-    version and the two `index_add_` calls it replaces, and the bound."""
-    from pixelspointspolygons_torch.ops.voxelize import pillar_sums, pillar_sums_cuda, sort_by_pillar
+    ten calls in a row too; the same on the layouts the kernel splits its
+    work on; the kernel's registers, shared memory and spills (ptxas) and
+    its blocks per SM; CUDA-event times of the kernel warm (back-to-back
+    calls, and replayed in a CUDA graph: the device's time without the
+    host's) and cold (one call after the L2 is flushed), of the plain
+    version and of the two `index_add_` calls it replaces, and the bound."""
+    from pixelspointspolygons_torch.ops import build
+    from pixelspointspolygons_torch.ops.voxelize import (
+        pillar_sums,
+        pillar_sums_cuda,
+        sort_by_pillar,
+        sums_kernel_config,
+    )
+
+    conf = sums_kernel_config()
+    tile = 32 * conf["warps"] * conf["scan"]
+    design = (f"a block a tile of {tile} sorted rows of one sample, owning the pillars whose runs start in it; a "
+              f"padding tile stops after one read; one coalesced read of the tile's ids and the next "
+              f"{32 * conf['warps']} finds every owned pillar's start and the last one's end (a longer run's end "
+              f"searched); {conf['per_warp']} pillars a warp, their kept points staged as 16-byte units by "
+              f"cp.async in chunks of {conf['stage_bytes']} bytes, two buffers a warp; one lane a (pillar, "
+              f"coordinate) adds its points in sorted order")
+    print(f"pillar_sums kernel: {design}; {conf['blocks_per_sm_float']} blocks per SM in float32, "
+          f"{conf['blocks_per_sm_double']} in float64", flush=True)
+    log_path = build.library_path("pillar_sums") + ".log"  # written when the library was built
+    build_log = ""
+    if os.path.isfile(log_path):
+        with open(log_path) as f:
+            build_log = f.read()
+    for entry, usage in ptxas_usage(build_log, "pillar_sums_kernel").items():
+        kind = "float32" if "kernelIf" in entry else "float64" if "kernelId" in entry else entry
+        print(f"pillar_sums ptxas, {kind}: {usage}", flush=True)
+    print(f"pillar_sums on {sums_layouts_against_plain()} layout cases (float32 and float64, caps {LIDAR_CAPS}): "
+          f"bitwise equal to the plain version and over ten calls", flush=True)
 
     pts, valid, grid = lidar_batch(lidar_overrides("hisup_lidar"))
     rows = {}
@@ -923,6 +1025,8 @@ def phase_pillar_sums() -> dict:
             if dtype != torch.float32:
                 continue
             ms = cuda_ms(lambda: pillar_sums_cuda(pts_s, pid_s, cap, n_cells), launches=20, rounds=5)
+            graph = graph_ms(lambda: pillar_sums_cuda(pts_s, pid_s, cap, n_cells), launches=20, rounds=5)
+            cold = cold_ms(lambda: pillar_sums_cuda(pts_s, pid_s, cap, n_cells), rounds=7)
             plain_ms = cuda_ms(lambda: pillar_sums(pts_s, pid_s, cap, n_cells), launches=2, rounds=3)
             library_ms = cuda_ms(lambda: index_add_pillar_sums(pts_s, pid_s, cap, n_cells), launches=10, rounds=5)
             # the least bytes: each kept coordinate read once, the sums and
@@ -933,9 +1037,10 @@ def phase_pillar_sums() -> dict:
             t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, kept * C / PEAK_FP32_FLOPS * 1e3
             bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
             whole_ms = (pts_s.numel() * size + pid_s.numel() * 8) / PEAK_BYTES_PER_S * 1e3
-            rows[cap] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by, "kept": kept}
-            print(f"pillar_sums cap {cap}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, the two index_add_ calls it "
+            rows[cap] = {"ms": ms, "graph_ms": graph, "cold_ms": cold, "plain_ms": plain_ms,
+                         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by, "kept": kept}
+            print(f"pillar_sums cap {cap}: kernel {ms:.5f} ms warm ({graph:.5f} ms replayed in a CUDA graph), "
+                  f"{cold:.5f} ms cold (L2 flushed), plain {plain_ms:.3f} ms, the two index_add_ calls it "
                   f"replaces {library_ms:.4f} ms (CUDA events); bound {bound_ms:.5f} ms ({bound_by}: "
                   f"{nbytes / 1e6:.2f} MB of kept points and outputs; {whole_ms:.5f} ms to read all "
                   f"{(pts_s.numel() * size + pid_s.numel() * 8) / 1e6:.1f} MB of points and ids once)", flush=True)
@@ -952,6 +1057,9 @@ def phase_pillar_sums() -> dict:
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],  # two index_add_ calls, the route it replaced
+        "graph_ms": main["graph_ms"],  # the device's time, replayed in a CUDA graph
+        "cold_ms": main["cold_ms"],
+        "design": design,
         "by_cap": rows,
     }
 

@@ -61,7 +61,9 @@ def library_path(name: str) -> str:
 def build(names=None) -> dict:
     """Compile the named kernels (all by default) that are not built yet,
     in parallel. Returns {name: {"seconds": s, "log": nvcc's stderr}} for
-    the ones compiled; raises on the first failure, after all have ended."""
+    the ones compiled, whose log is also kept beside the library
+    (`library_path(name) + ".log"`); raises on the first failure, after all
+    have ended."""
     names = list(SOURCES if names is None else names)
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = None
@@ -81,6 +83,8 @@ def build(names=None) -> dict:
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
+        with open(f"{out}.log", "w") as f:  # ptxas's registers, shared memory and spills, kept beside the library
+            f.write(log)
         os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
         results[name] = {"seconds": time.perf_counter() - t0, "log": log}
     if failed:

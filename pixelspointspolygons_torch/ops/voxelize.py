@@ -140,22 +140,16 @@ def pillar_sums(pts_s: torch.Tensor, pid_s: torch.Tensor, cap: int, n_cells: int
 def pillar_sums_cuda(pts_s: torch.Tensor, pid_s: torch.Tensor, cap: int,
                      n_cells: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch `csrc/pillar_sums.cu` on the current stream. Same contract as
-    `pillar_sums`."""
+    `pillar_sums`, for points of 1 to 4 coordinates (one lane each for
+    each of a warp's 8 pillars)."""
     _check_sums_inputs(pts_s, pid_s, cap, n_cells)
     if not pts_s.is_cuda:
         raise ValueError("pillar_sums_cuda takes CUDA tensors; the plain version is ops.voxelize.pillar_sums")
     if not (pts_s.is_contiguous() and pid_s.is_contiguous()):
         raise ValueError("pillar_sums_cuda takes contiguous tensors")
-    B, N, C = pts_s.shape
-    sums = torch.empty((B, n_cells + 1, C), dtype=pts_s.dtype, device=pts_s.device)
-    counts = torch.empty((B, n_cells + 1), dtype=torch.int32, device=pts_s.device)
-    with torch.cuda.device(pts_s.device):
-        err = _lib().pillar_sums_launch(
-            pts_s.data_ptr(), pid_s.data_ptr(), sums.data_ptr(), counts.data_ptr(), B, N, C, int(n_cells),
-            int(cap), 0 if pts_s.dtype == torch.float32 else 1, torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"pillar_sums kernel launch failed with CUDA error {err}")
+    if not 1 <= pts_s.shape[2] <= 4:
+        raise ValueError(f"pillar_sums_cuda takes 1 to 4 coordinates a point, got {pts_s.shape[2]}")
+    sums, counts = _launch(_lib(), pts_s, pid_s, cap, n_cells)
     pillar_sums_cuda.launches += 1
     return sums, counts
 
@@ -165,11 +159,51 @@ pillar_sums_cuda.launches = 0
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = load("pillar_sums")
+    lib = bind(load("pillar_sums"))
+    lib.pillar_sums_config.argtypes = [ctypes.c_void_p]
+    lib.pillar_sums_config.restype = ctypes.c_int
+    return lib
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare `pillar_sums_launch` of a library built from a version of
+    `csrc/pillar_sums.cu`, once rather than on every call."""
     lib.pillar_sums_launch.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong]
                                        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     lib.pillar_sums_launch.restype = ctypes.c_int
     return lib
+
+
+def _launch(lib: ctypes.CDLL, pts_s: torch.Tensor, pid_s: torch.Tensor, cap: int, n_cells: int):
+    """Run `lib.pillar_sums_launch` (a library declared by `bind`) on
+    tensors that `pillar_sums_cuda` has checked, and count nothing: the
+    port launches through `pillar_sums_cuda` only. The timing tool
+    `pillar_sums_bench.py` calls it with libraries built from other
+    versions of `csrc/pillar_sums.cu`."""
+    B, N, C = pts_s.shape
+    sums = torch.empty((B, n_cells + 1, C), dtype=pts_s.dtype, device=pts_s.device)
+    counts = torch.empty((B, n_cells + 1), dtype=torch.int32, device=pts_s.device)
+    with torch.cuda.device(pts_s.device):
+        err = lib.pillar_sums_launch(
+            pts_s.data_ptr(), pid_s.data_ptr(), sums.data_ptr(), counts.data_ptr(), B, N, C, int(n_cells),
+            int(cap), 0 if pts_s.dtype == torch.float32 else 1, torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"pillar_sums kernel launch failed with CUDA error {err}")
+    return sums, counts
+
+
+def sums_kernel_config() -> dict:
+    """The warps a block, the pillars a warp takes at a time, the bytes a
+    staged chunk, the tile positions a thread reads and the most
+    coordinates a point that `csrc/pillar_sums.cu` was built with, and the
+    blocks an SM of the current card holds at once in each dtype."""
+    keys = ("warps", "per_warp", "stage_bytes", "scan", "max_coords", "blocks_per_sm_float", "blocks_per_sm_double")
+    out = (ctypes.c_int * len(keys))()
+    err = _lib().pillar_sums_config(out)
+    if err != 0:
+        raise RuntimeError(f"pillar_sums occupancy query failed with CUDA error {err}")
+    return dict(zip(keys, out))
 
 
 def pillar_sums_auto(pts_s: torch.Tensor, pid_s: torch.Tensor, cap: int, n_cells: int):

@@ -19,8 +19,16 @@ from pixelspointspolygons_torch.ops.afm import (
     division_operands,
     kernel_config,
 )
+from pixelspointspolygons_torch.ops.pillar_layouts import (
+    AHEAD_ROWS,
+    CAPS,
+    CHUNK_POINTS,
+    TILE_ROWS,
+    large_layout,
+    small_layouts,
+)
 from pixelspointspolygons_torch.ops.segment import rank_in_run
-from pixelspointspolygons_torch.ops.voxelize import pillar_sums, pillar_sums_cuda, sort_by_pillar
+from pixelspointspolygons_torch.ops.voxelize import pillar_sums, pillar_sums_cuda, sort_by_pillar, sums_kernel_config
 
 
 @pytest.fixture()
@@ -217,3 +225,84 @@ def test_pillar_sums_kernel_refuses_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="one device"):
         pillar_sums_cuda(pts_s, pid_s.cpu(), 4, n_cells)
     assert pillar_sums_cuda.launches == before
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}.get(a.dtype, a.dtype)
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(ints), b.view(ints))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("layout", ["long_run", "run_lengths", "empty_pillars", "all_padding", "cap_above_n",
+                                    "grid_5x7", "large"])
+def test_pillar_sums_kernel_on_layouts(cuda_device, layout, dtype):
+    """On every layout the kernel splits its work on (runs over many chunks
+    and a tile, runs of cap and chunk size +-1, empty pillars, a sample of
+    padding only, a cap above N, a grid that leaves the kernel's pass
+    short; "large": all of them at 16 x 200,000 points), at caps 4,
+    64 and 512: bit for bit the plain version, ten calls in a row the same
+    bits, one launch a call."""
+    pts, pid, n_cells = large_layout(dtype) if layout == "large" else small_layouts(dtype)[layout]
+    pts_s, pid_s = torch.from_numpy(pts).to(cuda_device), torch.from_numpy(pid).to(cuda_device)
+    for cap in CAPS:
+        before = pillar_sums_cuda.launches
+        sums, counts = pillar_sums_cuda(pts_s, pid_s, cap, n_cells)
+        want_sums, want_counts = pillar_sums(pts_s, pid_s, cap, n_cells)
+        torch.cuda.synchronize()
+        assert pillar_sums_cuda.launches == before + 1
+        assert _same_bits(sums, want_sums) and torch.equal(counts, want_counts), f"cap {cap}"
+        for _ in range(10):
+            again, again_counts = pillar_sums_cuda(pts_s, pid_s, cap, n_cells)
+            assert _same_bits(again, sums) and torch.equal(again_counts, counts), f"cap {cap}"
+        assert pillar_sums_cuda.launches == before + 11
+
+
+@pytest.mark.cuda
+def test_pillar_sums_kernel_config(cuda_device):
+    """The chunk and the tile the layouts are cut around are the kernel's:
+    245 points of 3 float32 coordinates, tiles of 2,048 rows and a
+    look-ahead of 256 (the long run is longer); 64 pillars a pass (8 warps
+    of 8), so a grid of 35 (36 cells) leaves its pass short and one of 63
+    (64 cells) fills it."""
+    conf = sums_kernel_config()
+    assert conf["stage_bytes"] // (3 * 4) == CHUNK_POINTS and conf["max_coords"] == 4
+    assert 32 * conf["warps"] * conf["scan"] == TILE_ROWS and 32 * conf["warps"] == AHEAD_ROWS
+    pillars = conf["warps"] * conf["per_warp"]
+    assert 36 % pillars != 0 and 64 % pillars == 0
+    assert conf["blocks_per_sm_float"] >= 1 and conf["blocks_per_sm_double"] >= 1
+
+
+@pytest.mark.cuda
+def test_pillar_sums_kernel_refuses_more_than_4_coordinates(cuda_device):
+    """One lane a coordinate for each of a warp's 8 pillars: 5 coordinates
+    are refused before a launch; 4 and 1 are taken, bit for bit the plain
+    version."""
+    pts, pid, n_cells = small_layouts()["grid_5x7"]
+    pid_s = torch.from_numpy(pid).to(cuda_device)
+    wide = torch.from_numpy(np.tile(pts, (1, 1, 2))[..., :5].copy()).to(cuda_device)  # 5 coordinates
+    before = pillar_sums_cuda.launches
+    with pytest.raises(ValueError, match="1 to 4 coordinates"):
+        pillar_sums_cuda(wide, pid_s, 64, n_cells)
+    assert pillar_sums_cuda.launches == before
+    for pts_c in (wide[..., :4].contiguous(), wide[..., :1].contiguous()):
+        sums, counts = pillar_sums_cuda(pts_c, pid_s, 64, n_cells)
+        want_sums, want_counts = pillar_sums(pts_c, pid_s, 64, n_cells)
+        torch.cuda.synchronize()
+        assert _same_bits(sums, want_sums) and torch.equal(counts, want_counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_pillar_sums_kernel_searches_a_run_past_its_look_ahead(cuda_device, dtype):
+    """A run longer than a tile and its look-ahead whose cap reaches past
+    them (2,500 points at caps 2,400 and 3,000): its end is searched, bit
+    for bit the plain version."""
+    pts, pid, n_cells = small_layouts(dtype)["long_run"]
+    pts_s, pid_s = torch.from_numpy(pts).to(cuda_device), torch.from_numpy(pid).to(cuda_device)
+    for cap in (2400, 3000):
+        sums, counts = pillar_sums_cuda(pts_s, pid_s, cap, n_cells)
+        want_sums, want_counts = pillar_sums(pts_s, pid_s, cap, n_cells)
+        torch.cuda.synchronize()
+        assert _same_bits(sums, want_sums) and torch.equal(counts, want_counts), f"cap {cap}"
+        assert int(counts.max()) == min(cap, 2500)

@@ -3,17 +3,32 @@ plain version of `csrc/pillar_sums.cu`) on the CPU: bitwise equal to the
 `index_add_` route the port took before (both add each pillar's kept
 points one by one in sorted order from +0.0), and `assign_pillars`
 bitwise equal to JAX's `voxelize_batch`, whose scatter-add sums in the
-same order on the CPU. The kernel itself runs on the card only
-(tests/test_torch_kernels.py).
+same order on the CPU. The plain sums also equal JAX's `segment_sum` of
+`assign_pillars` bit for bit, in float32 and float64, on the layouts the
+kernel splits its work on (`ops/pillar_layouts.py`). The kernel itself
+runs on the card only (tests/test_torch_kernels.py).
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from pixelspointspolygons_tpu.ops import voxelize as jvox
+from pixelspointspolygons_tpu.ops.segment import rank_in_run as jax_rank_in_run
+from pixelspointspolygons_tpu.ops.segment import segment_sum as jax_segment_sum
 from pixelspointspolygons_torch.ops import voxelize
+from pixelspointspolygons_torch.ops.pillar_layouts import (
+    AHEAD_ROWS,
+    CAPS,
+    CHUNK_POINTS,
+    EDGE_RUNS,
+    TILE_ROWS,
+    small_layouts,
+)
 from pixelspointspolygons_torch.ops.segment import rank_in_run, segment_sum
 
 S, VOXEL = 32, 8.0
@@ -125,3 +140,65 @@ def test_pillar_sums_refuse_a_gradient_and_other_dtypes():
     before = voxelize.pillar_sums_cuda.launches
     voxelize.pillar_sums_auto(pts_s, pid_s, 4, n_cells)  # the CPU takes the plain version
     assert voxelize.pillar_sums_cuda.launches == before
+
+
+@functools.partial(jax.jit, static_argnames="n_cells")
+def _jax_sums(pts, pid, cap, n_cells):
+    def one(pts, pid):
+        keep = (pid < n_cells) & (jax_rank_in_run(pid) < cap)
+        pid_kept = jnp.where(keep, pid, n_cells)
+        w = keep.astype(pts.dtype)[:, None]
+        return jax_segment_sum(pts * w, pid_kept, n_cells + 1), jax_segment_sum(w, pid_kept, n_cells + 1)[:, 0]
+
+    return jax.vmap(one)(pts, pid)
+
+
+def jax_pillar_sums(pts_s: np.ndarray, pid_s: np.ndarray, cap: int, n_cells: int):
+    """The sums and counts of JAX's `assign_pillars`
+    (pixelspointspolygons_tpu/ops/voxelize.py:74-82), mapped over the batch
+    as `voxelize_batch` maps it, at the points' dtype."""
+    with jax.enable_x64(pts_s.dtype == np.float64):
+        sums, cnts = _jax_sums(jnp.asarray(pts_s), jnp.asarray(pid_s), cap, n_cells)
+        return np.asarray(sums), np.asarray(cnts)
+
+
+LAYOUTS = ("long_run", "run_lengths", "empty_pillars", "all_padding", "cap_above_n", "grid_5x7")
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("cap", CAPS)
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_pillar_sums_equal_jax_on_kernel_layouts(layout, cap, dtype):
+    """Bit for bit against JAX's CPU scatter-add on every layout the kernel
+    treats in its own way: runs over many chunks, runs of cap and chunk
+    size +-1, empty pillars at the ends and between, a sample of padding
+    only, a cap above N, a grid that leaves the kernel's pass short."""
+    pts, pid, n_cells = small_layouts(dtype)[layout]
+    sums, counts = voxelize.pillar_sums(torch.from_numpy(pts), torch.from_numpy(pid), cap, n_cells)
+    want_sums, want_counts = jax_pillar_sums(pts, pid, cap, n_cells)
+    assert sums.dtype == torch.from_numpy(pts).dtype and want_sums.dtype == dtype
+    np.testing.assert_array_equal(bits(sums), want_sums.view(bits(sums).dtype))
+    np.testing.assert_array_equal(counts.numpy(), want_counts.astype(np.int32))
+    runs = np.stack([np.bincount(p, minlength=n_cells + 1)[:n_cells] for p in pid])
+    np.testing.assert_array_equal(counts.numpy()[:, :n_cells], np.minimum(runs, cap))
+    assert int(counts[:, n_cells].abs().sum()) == 0 and float(sums[:, n_cells].abs().sum()) == 0.0
+
+
+def test_kernel_layouts_hold_their_edge_cases():
+    """The layouts hold what they are named for (so the tests over them
+    test it): a run over several chunks and cap 512, every edge length,
+    empty pillars at both ends and between, a padding-only sample, N under
+    caps 64 and 512, a grid of 35 pillars."""
+    lay = small_layouts()
+    runs = {k: np.stack([np.bincount(p, minlength=n + 1)[:n] for p in pid]) for k, (_, pid, n) in lay.items()}
+    assert runs["long_run"].max() >= 600
+    assert runs["long_run"].max() > max(max(CAPS), 2 * CHUNK_POINTS, TILE_ROWS + AHEAD_ROWS)
+    assert set(EDGE_RUNS) <= set(runs["run_lengths"].ravel().tolist())
+    assert {c + d for c in (*CAPS, CHUNK_POINTS, 2 * CHUNK_POINTS) for d in (-1, 0, 1)} <= set(EDGE_RUNS)
+    empty = runs["empty_pillars"][0]
+    assert empty[0] == empty[-1] == 0 and (empty[1:-1] == 0).any() and (empty > 0).sum() >= 2
+    assert (runs["all_padding"][1] == 0).all() and runs["all_padding"][[0, 2]].sum() > 0
+    assert lay["cap_above_n"][1].shape[1] < 64 and runs["cap_above_n"].max() > 4
+    assert lay["grid_5x7"][2] == 35
+    for pts, pid, n_cells in lay.values():
+        assert (np.diff(pid, axis=1) >= 0).all() and pid.max() == n_cells
