@@ -18,13 +18,14 @@ fails:
      and to themselves over ten calls, and so on the layouts of
      `ops/pillar_layouts.py` (runs over many chunks, runs of a cap or a
      chunk and one more or less, empty pillars, a sample of padding only, a
-     cap above N, a 5 x 7 grid; all of them at 16 x 200,000 points); the
+     cap above N, a 5 x 7 grid; all of them at 16 x 200,000 points; the
+     dense encoder's 65,536 pillars, timed at cap 4 beside cap 64); the
      kernel's registers, shared memory and spills (ptxas) and blocks per
      SM; timed warm (back-to-back calls, and in a CUDA graph) and cold (the
      L2 flushed by a 256 MB write before each call) beside the two
      `index_add_` calls they replace;
   4. the training path: HiSup-image training (HRNetV2-W48, 224 px, head
-     width 256, batch 16) through the trainer for 4 train steps, 1 val step
+     width 256, batch 16) through the trainer for 2 train steps, 1 val step
      and the val-IoU pass (the val split polygonized), with every kernel
      launch counter set to 0 just before and read just after; then step
      time, peak memory, the host loader's time per batch, the step cut at
@@ -35,7 +36,7 @@ fails:
      with the counters set to 0 just before and read just after (it
      launches no kernel of the port); tiles per second, each batch's device
      time (forward + junction extraction, CUDA events), host-stage time and
-     wall time, the metric dict; 2 tiles' maps on the card against the
+     wall time, the metric dict; 1 tile's maps on the card against the
      CPU's and the junction candidates of the same maps on both; the host
      stage alone on the ground-truth masks and corners of the 32 tiles;
   6. the Pix2Poly predict path: a seeded random Pix2Poly-image at full width
@@ -48,7 +49,7 @@ fails:
      and steps, host-stage and wall time, the metric dict; the fixed-length
      decode of `bench.py` (385 steps, Sinkhorn) on a batch of 16, timed and
      cut at its stages, and one decode step profiled (aten calls, kernels,
-     the card's busy share); on 2 tiles the card against the CPU (encoder
+     the card's busy share); on 1 tile the card against the CPU (encoder
      tokens, teacher-forced logits and their argmax, raw scores) and the
      KV-cached decode against a full re-forward, for the model and for a
      copy whose embeddings are redrawn at unit scale and whose
@@ -57,7 +58,7 @@ fails:
      the fixed length, with an EOS bias that makes rows stop at different
      steps;
   7. Pix2Poly-image training at full width (batch 16), float32, through the
-     trainer of `cli/train.py` on the synthetic split: 4 train steps, 1 val
+     trainer of `cli/train.py` on the synthetic split: 2 train steps, 1 val
      step and the val-IoU pass (the val split greedy-decoded and scored),
      with the counters set to 0 just before and read just after (0 AFM
      launches); step time, the step cut by CUDA events into encoder,
@@ -70,10 +71,10 @@ fails:
      run's;
   9. Pix2Poly prediction at bfloat16 of the 32-tile test split from that
      training's `latest`, with the counters set to 0 just before and read
-     just after, timed per batch as in 6; on 2 tiles the card's bfloat16
+     just after, timed per batch as in 6; on 1 tile the card's bfloat16
      against the CPU's (encoder tokens, the first 128 decode steps' tokens
      outside near-ties, teacher-forced logits, raw scores), for the model
-     and, on 4 tiles, for the varied copy (unsharpened) of 6's seeded
+     and, on 2 tiles, for the varied copy (unsharpened) of 6's seeded
      random model, whose tokens vary;
      the bfloat16 fixed-length decode of `bench.py` cut at its stages and
      one step profiled, with the same step of the float32 model of the
@@ -84,7 +85,7 @@ fails:
      not measured from fewer than 5 repeats);
  10. HiSup-image training at bfloat16 (`host.compute_dtype=bfloat16`) from
      the same seed and weights as 4, with the counters set to 0 just
-     before and read just after (5 AFM launches): step time, the step by
+     before and read just after (3 AFM launches): step time, the step by
      layer, peak memory, the val IoU, its first step's losses against the
      float32 run's, and the card against the CPU at bfloat16 on 1 tile;
  11. HiSup prediction at bfloat16 of the test split from that training's
@@ -107,14 +108,17 @@ fails:
      (CUDA events, its steps, rings, vertices, bucket and rings dropped)
      and post-processing (host), peak memory, the metric dict; on 2 tiles
      the card's seg and crossfield against the CPU's, and the ACM's 500
-     steps on the card against the CPU from the same float16 maps; one ACM
-     step profiled (aten calls, kernels, the card's busy share); the
+     steps on the card against the CPU from the same float16 maps; the
+     ACM's 500 steps at the whole batch's packing replayed from their CUDA
+     graph against the loop of `acm_step`, bitwise, both timed in turns;
+     one step of the loop profiled (aten calls, kernels, the card's busy
+     share); the
      polygonizer on maps that the ground truth implies, evaluated (IoU
      bound); `cli.predict_demo` on one tile;
  15. FFL-image training at full width (batch 16) through the trainer of
      `cli/train.py`, from a seeded model drawn on the CPU and taken up by
      `init_weights_from`: at float32 (the ground-truth cache emptied first,
-     so the loader is cold) and at bfloat16, each 4 train steps, 1 val step
+     so the loader is cold) and at bfloat16, each 2 train steps, 1 val step
      and the val-IoU pass (the ACM on the model's maps) with the counters
      set to 0 just before and read just after (0 AFM launches); step time,
      the step cut by CUDA events into forward, losses, backward and Adam,
@@ -133,16 +137,16 @@ fails:
      first batch of 16 clouds at 200,000 points, at the per-pillar caps 4,
      64 and 512: the assignment on the card against the CPU (points, pillar
      ids, kept masks, counts and features bitwise equal), a seeded
-     PillarCanvas in train mode on 2 clouds against the CPU, the assignment,
+     PillarCanvas in train mode on 1 cloud against the CPU, the assignment,
      the canvas forward and its backward timed with their peak memory, and
      one call profiled (K6's baseline, ROADMAP §2);
  17. HiSup-LiDAR training at full width (`experiment=hisup_lidar`,
-     pointpillars_vit_cnn) through the trainer, 4 train + 1 val steps and
+     pointpillars_vit_cnn) through the trainer, 2 train + 1 val steps and
      the val-IoU pass with the counters set to 0 just before and read just
-     after (5 AFM launches): step time, the step cut into targets,
+     after (3 AFM launches): step time, the step cut into targets,
      voxelization with the PFN, the ViT, the heads, losses, backward and
      AdamW, peak memory, the host loader's ms per batch, the val IoU; one
-     float32 step on 2 tiles on the card against the CPU (losses and
+     float32 step on 1 tile on the card against the CPU (losses and
      gradients); one bfloat16 step from the same weights on the same batch,
      its losses against the float32 run's first;
  18. Pix2Poly early-fusion prediction (`experiment=p2p_fusion`) of the
@@ -153,24 +157,24 @@ fails:
      pillar sums taken by `index_add_` (atomics) and three times by the
      port's kernel, each stage (decorated features, canvas, fusion conv,
      tokens) compared bitwise with the first call's and the first stage
-     that differs printed for each; the encoder tokens on 2 tiles on the
+     that differs printed for each; the encoder tokens on 1 tile on the
      card against the CPU;
  19. one train step at batch 16 each of p2p_lidar, hisup_fusion (1 AFM
      launch), ffl_lidar and ffl_fusion through their trainers' set-up: step
-     time, peak memory, finite losses, a forward on 2 tiles on the card
+     time, peak memory, finite losses, a forward on 1 tile on the card
      against the CPU;
  20. `cli.predict_demo` for ffl_lidar on one tile from a `.laz` file that
      the port's `write_laz` wrote from the tile's points;
  21. training from the device cache (`training.device_cache=true`), each
      part failing the run on its own: FFL-image at float32 and bfloat16
-     from phase 15's seeded weights (4 train + 1 val steps and the val-IoU
+     from phase 15's seeded weights (2 train + 1 val steps and the val-IoU
      pass; the run fails if the trainer fell back to the host loader): the
      step, the batcher's ms per batch, the pack and upload seconds and
      bytes, the peak, the wall ms per train batch from the cache and from
      the host loader in turns, and the first float32 step's losses against
      a step on the host loader's batch of the same tiles; the cache's
      first batch on the card against the CPU (FFL-image, HiSup-fusion,
-     Pix2Poly-image); HiSup-LiDAR from the cache with remat (5 AFM
+     Pix2Poly-image); HiSup-LiDAR from the cache with remat (3 AFM
      launches): the step and its layers, the peak, the cache's point cap,
      the voxelizer and PFN at that cap; one HiSup-LiDAR step with remat
      against one without from the same weights on the same batch (losses,
@@ -181,7 +185,7 @@ fails:
      joining a group of one over NCCL for each DDP step and leaving it
      after: HiSup-image at float32, one DDP step against two plain steps
      from the same weights on the same batch (losses, gradients, every
-     BatchNorm buffer), then 4 turns each of DDP and plain steps in turns
+     BatchNorm buffer), then 2 turns each of DDP and plain steps in turns
      (median ms, peak, the collectives of a DDP step: two per BatchNorm, an
      all-gather and an all-reduce, and DDP's gradient buckets; 2 AFM
      launches a DDP turn); Pix2Poly-image and
@@ -193,31 +197,61 @@ fails:
      and the CPU.
  23. the remaining encoders at full width, each in a model root of its own:
      FFL over UNet-ResNet101 and ConvNeXt-V2-T (training, a step on the
-     card against the CPU and float64, 8 test tiles predicted), Pix2Poly
+     card against the CPU and float64 on the card, 8 test tiles
+     predicted), Pix2Poly
      over DINOv2 ViT-S/14 grafted from a seeded file (training, the val
      figure, the split predicted, the card against the CPU), then the
-     DINOv2 and image-resolution ablation twins on 16 test tiles and their
+     DINOv2 and image-resolution ablation twins on 8 test tiles and their
      LaTeX tables;
  24. the last script twins, each through its `main`: `cli.postprocess_oracle`
      (every family's post-processing on the ground truth's outputs, on the
      card and the CPU, each row above its quality floor),
-     `cli.measure_predict_e2e` over phase 6's seeded Pix2Poly-image (its
-     JSON line), `cli.profile train` and `generate` (each trace's size,
+     `cli.measure_predict_e2e` over phase 6's seeded Pix2Poly-image on 8
+     test tiles (its JSON line), `cli.profile train` and `generate` (each trace's size,
      its export's seconds and the decode's kernels in it),
      `cli.gather_pretrained_models` over the earlier phases' checkpoints
      and `cli.droplidar50_ablation` over phase 18's seeded fusion model
-     (its two rows must be equal).
+     on 8 test tiles (its two rows must be equal);
+ 25. the LiDAR and fusion grid, each part failing the run on its own and
+     printing its seconds, the counters set to 0 just before each
+     prediction or training and read just after: (a) `cli.modality_ablation`
+     over its nine experiments at their own configs (the fusion rows at
+     `country: all`), the six LiDAR and fusion rows on the whole test
+     split and the three image rows on 8 tiles, each row's `best_val_iou` an
+     earlier phase's checkpoint or a seeded model; every row present with
+     finite IoU and C-IoU, 0 AFM launches, the pillar sums once a batch on
+     the LiDAR and fusion rows and never on the image rows; each LiDAR and
+     fusion row's split predicted again and its file held byte for byte;
+     (b) `cli.lidar_density_ablation`, its eight caps over one seeded
+     FFL-LiDAR whose weights every cap's model loads strictly, on 8 test
+     tiles; (c) `cli.all_countries`, its three fusion rows at `country=all`
+     on 8 test tiles, as (a); (d) `experiment=hisup_lidar
+     encoder=pointpillars` (the dense encoder at 512 px, 256 x 256 pillars
+     at cap 4) through phase 17's path (5 AFM launches, the pillar sums
+     once a forward, one float32 step on 2 tiles on the card against the
+     CPU, an eval forward on 2 tiles card against CPU), its 16-tile test
+     split predicted twice from `latest` (the files byte for byte) and
+     evaluated; (e) `run_type=release` (8 loader threads, the train split
+     shuffled): the first 3 train batches of hisup_lidar and p2p_fusion
+     from 8 threads and from 0 bitwise equal, hisup_lidar trained 4 steps
+     from the 8-thread loader (4 AFM launches), the loader's ms per batch
+     at 8 and 0 threads in turns, `cli.measure_predict_e2e` over phase 18's
+     seeded p2p_fusion on 16 test tiles (its line must report 16 tiles).
 The repeat checks (ROADMAP 3.21): every prediction path predicts twice
 from the same weights on the same tiles, and the two must be bitwise equal:
 hisup_image, p2p_image and ffl_image on the first test batch of phases 5,
 6 and 14 (device outputs and polygons; FFL's ACM runs its 500 steps on the
 card), p2p_fusion's whole split in phase 18 (the prediction file byte for
-byte), and two eval forwards on 2 tiles of phase 17's hisup_lidar and of
-phase 19's p2p_lidar, hisup_fusion, ffl_lidar and ffl_fusion.
+byte), and two eval forwards on 2 tiles of phase 17's hisup_lidar and on
+1 tile of phase 19's p2p_lidar, hisup_fusion, ffl_lidar and ffl_fusion.
 Each LiDAR and fusion path sets the pillar_sums counter to 0 just before it
 and reads it just after, and fails if the kernel was launched no time.
-They run in the order 1-5, 10-15, 6-9, 16-24; each phase prints its
-seconds. The line before the last is the card's name and power limit, the
+They run in the order 1-5, 10-15, 6-9, 16-25; each phase prints its
+seconds. The run has 1,200 s, and its host-bound phases read up to a third
+slower on one machine than on another, so depth is cut where a path is
+driven at full width elsewhere: 2 train steps before phase 25
+(TRAIN_STEPS), 8 tiles for the ablation twins (ABLATION_TEST_TILES), each
+cut named beside its constant. The line before the last is the card's name and power limit, the
 one before it a JSON object with every kernel's numbers; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -264,14 +298,27 @@ AFM_OPS_PER_TERM = 2
 AFM_OPS_PER_PAIR_UNSHARED = 18
 
 B, L, S = 16, 256, 224
-TRAIN_STEPS, VAL_STEPS = 4, 1
+# the training paths before phase 25 take TRAIN_STEPS steps on the first
+# TRAIN_STEPS * B tiles of the train split (4 before phase 25 came: cut for
+# the run's time); phase 25's dense HiSup-LiDAR and its release run take
+# GRID_TRAIN_STEPS, the train split's whole TRAIN_TILES
+TRAIN_STEPS, VAL_STEPS = 2, 1
+GRID_TRAIN_STEPS = 4
+TRAIN_TILES = GRID_TRAIN_STEPS * B
 TEST_TILES = 32  # 2 batches: the predictor's one batch in flight runs
+# phase 25 (d)'s test split on the dense encoder's 512 px tiles (one batch:
+# a 32-tile split took 18 s to predict twice and 9 s to evaluate)
+DENSE_TEST_TILES = 16
+# the steady-state step and its cut by layer of phase 17 and phase 25 (d),
+# on the first STEADY_BATCHES train batches (a median of 2)
+STEADY_BATCHES = 2
 # the card's probability maps against the CPU's, on MAP_TILES tiles of a test
-# batch (the CPU's full-width HRNet forward takes about 2 s a tile): the
+# batch (the CPU's full-width HRNet forward takes about 2 s a tile; 2 tiles
+# before a cut for the run's time): the
 # training phase holds the raw outputs to 1e-3 of their range, and a softmax
 # or sigmoid moves by less than its input does
 MAP_TOL = 1e-3
-MAP_TILES = 2
+MAP_TILES = 1
 # polygonizing the ground truth's own masks and corners gives it back up to
 # merged touching buildings (tiles of row houses), so its IoU stays below 1
 ORACLE_MIN_IOU = 0.95
@@ -281,7 +328,8 @@ ORACLE_MIN_IOU = 0.95
 # may swap between the devices
 P2P_REL_TOL = 1e-3
 P2P_NEAR_TIE = 1e-3
-P2P_CPU_TILES = 2
+# (2 tiles before a cut for the run's time)
+P2P_CPU_TILES = 1
 # the early-exit check raises EOS's output bias so that every row of the
 # batch stops by this step
 P2P_EXIT_BY = 150
@@ -316,11 +364,13 @@ P2P_BF16_LOSS_TOL = 5e-2
 # P2P_BF16_MIN_DECODE decode positions and P2P_BF16_MIN_DISTINCT tokens.
 # Both compare the first P2P_BF16_CHECK_STEPS decode steps: the CPU's
 # bfloat16 decode is the script's costliest comparison (97.6 s for all 385
-# steps on 2 + 8 tiles on the card's host, PERF.md); 4 tiles of 128 steps
-# still give 512 positions, and the 8 tiles' 385 steps gave 151 tokens.
+# steps on 2 + 8 tiles on the card's host, PERF.md); 2 tiles of 128 steps
+# still give 256 positions (4 tiles, 17.3 s on the CPU, gave 512 and 104
+# distinct tokens before the cut for the run's time), and the 8 tiles' 385
+# steps gave 151 tokens.
 P2P_BF16_REL_L2 = 5e-2
 P2P_BF16_NEAR_TIE_ULPS = 8
-P2P_BF16_SUBLAYER, P2P_BF16_CHAIN_TILES = 0.5, 4
+P2P_BF16_SUBLAYER, P2P_BF16_CHAIN_TILES = 0.5, 2
 P2P_BF16_MIN_DECODE, P2P_BF16_MIN_DISTINCT = 100, 10
 P2P_BF16_CHECK_STEPS = 128
 # the pretrained-encoder files are drawn from this seed
@@ -346,8 +396,9 @@ BF16_EVAL_TILES = 1
 # float32 with TF32 off: 1e-3 of the largest value, as Pix2Poly above
 ENTRY_REL_TOL = 1e-3
 # bench_torch.py inside the smoke run: few iterations (its own defaults are
-# 20 iterations in each of 5 repeats)
-BENCH_ITERS, BENCH_REPEATS = 1, 2
+# 20 iterations in each of 5 repeats; 2 repeats before a cut for the run's
+# time)
+BENCH_ITERS, BENCH_REPEATS = 1, 1
 # FFL-image: the seeded random model's weights; its seg and crossfield on
 # FFL_CPU_TILES tiles on the card against the CPU, float32 with TF32 off on
 # both, within FFL_MAP_TOL (seg in [0, 1], crossfield in [-2, 2]: the maps
@@ -426,29 +477,36 @@ ASM_MEDIAN_PX = 0.1
 #   kept masks, per-pillar counts and decorated features bitwise equal (the
 #   same stable sort; `csrc/pillar_sums.cu` adds each pillar's centroid sum
 #   in the CPU's order);
-# - the train-mode PillarCanvas of LIDAR_CANVAS_TILES clouds and its
+# - the train-mode PillarCanvas of LIDAR_CANVAS_TILES clouds (2 before a cut
+#   for the run's time) and its
 #   running statistics within LIDAR_CANVAS_TOL of the CPU's, relative to the
 #   largest value (float32, TF32 off; the Dense and max are exact
 #   operations on the same rows, the BatchNorm statistics sum 400,000 rows
 #   in other orders: the CPU tests read 3e-7 against float64);
-# - HiSup-LiDAR training, one float32 step on HISUP_BF16_CPU_TILES tiles on
-#   the card and on the CPU: losses within LIDAR_LOSS_TOL relative, the two
-#   gradients within LIDAR_GRAD_TOL in relative L2 over all parameters (a
-#   float32 HiSup gradient through train-mode BatchNorms on a 2-tile batch
-#   lies up to 1e-2 from the exact one, tests/test_torch_slice.py);
+# - HiSup-LiDAR training, one float32 step on LIDAR_CPU_TILES tiles (phase
+#   17; 2 before a cut for the run's time: the CPU's step took 21.5 s, and
+#   the two gradients read 1.26e-4 apart) or HISUP_BF16_CPU_TILES (phase 25
+#   (d)) on the card and on the CPU: losses within LIDAR_LOSS_TOL relative,
+#   the two gradients within LIDAR_GRAD_TOL in relative L2 over all
+#   parameters (a float32 HiSup gradient through train-mode BatchNorms on a
+#   2-tile batch lies up to 1e-2 from the exact one,
+#   tests/test_torch_slice.py);
 # - its first step at bfloat16 against float32's from the same weights on
 #   the same batch: LIDAR_BF16_LOSS_TOL relative (Pix2Poly's bound; the
 #   PFN's inputs, pixel coordinates up to 224, round to 8 bits: steps of 1
 #   px above 128, as flax's `dtype=bfloat16` rounds them);
-# - one step of each other LiDAR and fusion experiment, then a forward on 2
-#   tiles on the card against the CPU: LIDAR_FWD_TOL relative to each
+# - one step of each other LiDAR and fusion experiment, then a forward on
+#   LIDAR_FWD_TILES tiles (2 before a cut for the run's time) on the card
+#   against the CPU: LIDAR_FWD_TOL relative to each
 #   output's largest value at float32 (check_against_cpu's bound), and
 #   HISUP_BF16_REL_L2 in relative L2 at bfloat16. hisup_fusion (HRNetV2-W48
 #   and the pillar ViT) runs at LIDAR_STEP_DTYPE's dtype.
 LIDAR_CAPS = (4, 64, 512)
 LIDAR_SEED = 0
-LIDAR_CANVAS_TILES = 2
+LIDAR_CANVAS_TILES = 1
 LIDAR_CANVAS_TOL = 1e-4
+LIDAR_CPU_TILES = 1
+LIDAR_FWD_TILES = 1
 LIDAR_LOSS_TOL, LIDAR_GRAD_TOL = 1e-4, 1e-2
 LIDAR_BF16_LOSS_TOL = 5e-2
 LIDAR_FWD_TOL = 1e-3
@@ -527,9 +585,12 @@ REMAT_LOSS_TOL, REMAT_GRAD_TOL, REMAT_STATS_TOL, REMAT_NOISE_FACTOR = 1e-6, 1e-5
 #   off) and on the CPU (one thread and the thread pool), printed.
 DDP_LOSS_TOL, DDP_STATS_TOL, DDP_NOISE_FACTOR = 1e-5, 1e-5, 10.0
 DDP_EXACT_ROWS, DDP_EXACT_FACTOR, DDP_EXACT_FLOOR = 4, 2.0, 1e-5
-DDP_TURNS = 4
+# 2 turns each (4 before phase 25 came, cut for the run's time)
+DDP_TURNS = 2
 DDP_TINY_SIZE, DDP_TINY_ROWS = 32, 8
 DDP64_GRAD_TOL = 1e-9
+# how long a gloo rank, started with phase 22, waits for its go file
+GLOO_WAIT_S = 1200
 DRIFT_SIZE = 64
 # The remaining encoders (phase 23), float32 with TF32 off, at the widths
 # the config tree ships:
@@ -553,9 +614,9 @@ DRIFT_SIZE = 64
 #   and `cli.csv_results_to_latex`.
 CNX_TRAIN_STEPS = 2
 DINO_GRID = 37
-# the UNet's card-against-CPU step, its gradient held against float64 on
-# the CPU, on the first UNET_EXACT_TILES of the first batch (its float64
-# step on the CPU takes about 16 s a tile); ConvNeXt's on
+# the UNet's card-against-CPU step, its gradient held against float64 (a
+# step on the card: on the CPU it took about 16 s a tile), on the first
+# UNET_EXACT_TILES of the first batch; ConvNeXt's on
 # HISUP_BF16_CPU_TILES, where its float32 gradients on one tile read 2.95e-4
 # (card, NVIDIA H100 80GB HBM3 at 700 W) and 1.56e-4 (CPU) from float64,
 # too near the bound to hold
@@ -568,8 +629,9 @@ UNET_EXACT_TILES = 1
 #   chaotic at the ulp level, ROADMAP 3.9 and 3.10; the bound of
 #   tests/test_torch_script_twins.py, the twin against JAX on the CPU);
 # - `cli.measure_predict_e2e` over phase 6's seeded Pix2Poly-image (all 385
-#   decode steps: a random model emits no EOS): the split's TEST_TILES
-#   tiles, every pass writing the same set of image ids;
+#   decode steps: a random model emits no EOS) under
+#   `run_type.test_subset=ABLATION_TEST_TILES`: it must report those tiles,
+#   every pass writing the same set of image ids;
 # - `cli.profile train` (3 traced runs) and `generate` (PROFILE_GENERATE_RUNS
 #   traced runs): the greedy decode takes one argmax a step, so the
 #   generate trace holds at least runs x max_len - 1 launches of the
@@ -600,9 +662,22 @@ REPEAT_PATHS = ("hisup_image", "p2p_image", "ffl_image", "hisup_lidar", "p2p_fus
 FUSION_STAGES = ("features", "canvas", "fusion_conv", "tokens")
 FUSION_INDEX_ADD_RUNS = 3
 PHASE23_TEST_TILES = 8
-# the ablation twins of phase 23 predict the first ABLATION_TEST_TILES of
-# the test split
-ABLATION_TEST_TILES = 16
+# the ablation twins of phases 23-25 predict the first ABLATION_TEST_TILES
+# of the test split, one batch (16 before a cut for the run's time)
+ABLATION_TEST_TILES = 8
+# The LiDAR and fusion grid (phase 25):
+# - `cli.modality_ablation` on the whole test split, `cli.lidar_density_ablation`
+#   and `cli.all_countries` on ABLATION_TEST_TILES, each row's
+#   `best_val_iou` an earlier phase's checkpoint or a model seeded from
+#   GRID_SEED;
+# - under `run_type=release`, the first RELEASE_BATCHES train batches of the
+#   8-thread loader against the 0-thread loader, and
+#   `cli.measure_predict_e2e` on RELEASE_TEST_TILES test tiles.
+GRID_SEED = 0
+RELEASE_BATCHES = 3
+# the loader timed at 8 and 0 threads in turns over its first batches
+LOADER_TURN_BATCHES = 2
+RELEASE_TEST_TILES = 16
 
 
 def fail(msg: str) -> None:
@@ -735,15 +810,17 @@ def cold_ms(fn, rounds: int, flush_bytes: int = 256 << 20) -> float:
     return statistics.median(per)
 
 
-def smoke_overrides(num_train: int, experiment: str = "hisup_image") -> list[str]:
+def smoke_overrides(train_tiles: int, experiment: str = "hisup_image") -> list[str]:
+    """`experiment` on the synthetic split (TRAIN_TILES, 16 and TEST_TILES
+    tiles) under the debug run type, training on its first `train_tiles`."""
     return [
         f"experiment={experiment}",
         "dataset=synthetic",
         "run_type=debug",
-        f"experiment.dataset.num_train={num_train}",
+        f"experiment.dataset.num_train={TRAIN_TILES}",
         "experiment.dataset.num_val=16",
         f"experiment.dataset.num_test={TEST_TILES}",
-        "run_type.train_subset=null",
+        f"run_type.train_subset={train_tiles}",
         "run_type.val_subset=null",
         "run_type.test_subset=null",
         "experiment.model.batch_size=16",
@@ -942,11 +1019,11 @@ def sums_layouts_against_plain() -> int:
     float32 and float64 at the caps LIDAR_CAPS. Returns the number of
     cases."""
     from pixelspointspolygons_torch.ops.voxelize import pillar_sums, pillar_sums_cuda
-    from pixelspointspolygons_torch.ops.pillar_layouts import large_layout, small_layouts
+    from pixelspointspolygons_torch.ops.pillar_layouts import dense_layout, large_layout, small_layouts
 
     cases = 0
     for dtype in (np.float32, np.float64):
-        layouts = {**small_layouts(dtype), "large": large_layout(dtype)}
+        layouts = {**small_layouts(dtype), "large": large_layout(dtype), "dense": dense_layout(dtype)}
         for name, (pts, pid, n_cells) in layouts.items():
             pts_s, pid_s = torch.from_numpy(pts).to(CARD), torch.from_numpy(pid).to(CARD)
             for cap in LIDAR_CAPS:
@@ -963,6 +1040,37 @@ def sums_layouts_against_plain() -> int:
     return cases
 
 
+def sums_times(pts_s: torch.Tensor, pid_s: torch.Tensor, cap: int, n_cells: int, what: str) -> dict:
+    """CUDA-event times of `pillar_sums_cuda` on sorted points warm
+    (back-to-back calls, and replayed in a CUDA graph), cold (the L2
+    flushed before each call), of the plain version and of the two
+    `index_add_` calls it replaced, and the bound."""
+    from pixelspointspolygons_torch.ops.voxelize import pillar_sums, pillar_sums_cuda
+
+    B, N, C = pts_s.shape
+    kept = int(pillar_sums(pts_s, pid_s, cap, n_cells)[1].sum())
+    ms = cuda_ms(lambda: pillar_sums_cuda(pts_s, pid_s, cap, n_cells), launches=20, rounds=5)
+    graph = graph_ms(lambda: pillar_sums_cuda(pts_s, pid_s, cap, n_cells), launches=20, rounds=5)
+    cold = cold_ms(lambda: pillar_sums_cuda(pts_s, pid_s, cap, n_cells), rounds=7)
+    plain_ms = cuda_ms(lambda: pillar_sums(pts_s, pid_s, cap, n_cells), launches=2, rounds=3)
+    library_ms = cuda_ms(lambda: index_add_pillar_sums(pts_s, pid_s, cap, n_cells), launches=10, rounds=5)
+    # the least bytes: each kept coordinate read once, the sums and counts
+    # written once (the padding and the ids past a pillar's cap need not be
+    # read); one add per kept coordinate
+    size = pts_s.element_size()
+    nbytes = kept * C * size + B * (n_cells + 1) * (C * size + 4)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, kept * C / PEAK_FP32_FLOPS * 1e3
+    bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
+    whole_ms = (pts_s.numel() * size + pid_s.numel() * 8) / PEAK_BYTES_PER_S * 1e3
+    print(f"pillar_sums {what}: kernel {ms:.5f} ms warm ({graph:.5f} ms replayed in a CUDA graph), "
+          f"{cold:.5f} ms cold (L2 flushed), plain {plain_ms:.3f} ms, the two index_add_ calls it "
+          f"replaces {library_ms:.4f} ms (CUDA events); bound {bound_ms:.5f} ms ({bound_by}: "
+          f"{nbytes / 1e6:.2f} MB of kept points and outputs; {whole_ms:.5f} ms to read all "
+          f"{(pts_s.numel() * size + pid_s.numel() * 8) / 1e6:.1f} MB of points and ids once)", flush=True)
+    return {"ms": ms, "graph_ms": graph, "cold_ms": cold, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "kept": kept, "n_cells": n_cells, "cap": cap}
+
+
 def phase_pillar_sums() -> dict:
     """Phase 3, the voxelizer's kernel: `pillar_sums_cuda` against its plain
     version `pillar_sums` on the synthetic train split's first 16 clouds at
@@ -973,8 +1081,10 @@ def phase_pillar_sums() -> dict:
     its blocks per SM; CUDA-event times of the kernel warm (back-to-back
     calls, and replayed in a CUDA graph: the device's time without the
     host's) and cold (one call after the L2 is flushed), of the plain
-    version and of the two `index_add_` calls it replaces, and the bound."""
+    version and of the two `index_add_` calls it replaces, and the bound;
+    the same times on the dense encoder's grid (65,536 pillars, cap 4)."""
     from pixelspointspolygons_torch.ops import build
+    from pixelspointspolygons_torch.ops.pillar_layouts import DENSE_CAP, dense_layout
     from pixelspointspolygons_torch.ops.voxelize import (
         pillar_sums,
         pillar_sums_cuda,
@@ -1022,28 +1132,16 @@ def phase_pillar_sums() -> dict:
             if not (equal and repeat):
                 fail(f"pillar_sums (cap {cap}, {dtype}): the kernel differs from its plain version ({equal}) or "
                      f"from itself ({repeat})")
-            if dtype != torch.float32:
-                continue
-            ms = cuda_ms(lambda: pillar_sums_cuda(pts_s, pid_s, cap, n_cells), launches=20, rounds=5)
-            graph = graph_ms(lambda: pillar_sums_cuda(pts_s, pid_s, cap, n_cells), launches=20, rounds=5)
-            cold = cold_ms(lambda: pillar_sums_cuda(pts_s, pid_s, cap, n_cells), rounds=7)
-            plain_ms = cuda_ms(lambda: pillar_sums(pts_s, pid_s, cap, n_cells), launches=2, rounds=3)
-            library_ms = cuda_ms(lambda: index_add_pillar_sums(pts_s, pid_s, cap, n_cells), launches=10, rounds=5)
-            # the least bytes: each kept coordinate read once, the sums and
-            # counts written once (the padding and the ids past a pillar's cap
-            # need not be read); one add per kept coordinate
-            size = pts_s.element_size()
-            nbytes = kept * C * size + B * (n_cells + 1) * (C * size + 4)
-            t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, kept * C / PEAK_FP32_FLOPS * 1e3
-            bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
-            whole_ms = (pts_s.numel() * size + pid_s.numel() * 8) / PEAK_BYTES_PER_S * 1e3
-            rows[cap] = {"ms": ms, "graph_ms": graph, "cold_ms": cold, "plain_ms": plain_ms,
-                         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by, "kept": kept}
-            print(f"pillar_sums cap {cap}: kernel {ms:.5f} ms warm ({graph:.5f} ms replayed in a CUDA graph), "
-                  f"{cold:.5f} ms cold (L2 flushed), plain {plain_ms:.3f} ms, the two index_add_ calls it "
-                  f"replaces {library_ms:.4f} ms (CUDA events); bound {bound_ms:.5f} ms ({bound_by}: "
-                  f"{nbytes / 1e6:.2f} MB of kept points and outputs; {whole_ms:.5f} ms to read all "
-                  f"{(pts_s.numel() * size + pid_s.numel() * 8) / 1e6:.1f} MB of points and ids once)", flush=True)
+            if dtype == torch.float32:
+                rows[cap] = sums_times(pts_s, pid_s, cap, n_cells, f"cap {cap}")
+    # the dense encoder's grid (encoder=pointpillars, phase 25): 256 x 256
+    # pillars of 2 px at cap 4, the synthetic clouds' padding share
+    pts_s, pid_s, n_cells = dense_layout()
+    pts_s, pid_s = torch.from_numpy(pts_s).to(CARD), torch.from_numpy(pid_s).to(CARD)
+    dense = sums_times(pts_s, pid_s, DENSE_CAP, n_cells, f"dense grid ({n_cells} pillars, cap {DENSE_CAP})")
+    print(f"pillar_sums on the dense grid against cap 64 on the 784-pillar grid: graph {dense['graph_ms']:.5f} "
+          f"against {rows[64]['graph_ms']:.5f} ms, cold {dense['cold_ms']:.5f} against {rows[64]['cold_ms']:.5f} ms",
+          flush=True)
     main = rows[64]  # the cap of every LiDAR and fusion encoder of the config tree
     return {
         "name": "pillar_sums",
@@ -1061,6 +1159,7 @@ def phase_pillar_sums() -> dict:
         "cold_ms": main["cold_ms"],
         "design": design,
         "by_cap": rows,
+        "dense": dense,
     }
 
 
@@ -1688,7 +1787,7 @@ def p2p_chain(model, tokenizer):
     return m
 
 
-def p2p_fixed_length(model, inputs: dict, tokenizer, dev: torch.device, rounds: int = 3, what: str = "") -> dict:
+def p2p_fixed_length(model, inputs: dict, tokenizer, dev: torch.device, rounds: int = 1, what: str = "") -> dict:
     """The fixed-length decode of `bench.py` (eos_code=None, Sinkhorn
     permutation) on one batch: tiles/s as the median of `rounds` calls of
     `greedy_generate`, synchronized at both ends; then one run cut at its
@@ -2459,14 +2558,15 @@ def ffl_seeded_model(cfg):
     the maps have contours at all depends on the draw, and without them the
     ACM optimizes nothing; so its output layer is shifted and sharpened, as
     a trained model's is sharp: the logits become FFL_SEG_SHARPEN x (logit -
-    its FFL_SEG_QUANTILE quantile over 2 test tiles on the CPU)."""
-    from pixelspointspolygons_torch.data.loader import build_loader, to_device
+    its FFL_SEG_QUANTILE quantile over 2 test tiles on the card). Returns
+    the model on the card."""
+    from pixelspointspolygons_torch.data.loader import INPUT_KEYS, build_loader, to_device
     from pixelspointspolygons_torch.models.ffl import build_ffl
 
-    model = build_ffl(cfg, generator=torch.Generator().manual_seed(FFL_SEED)).eval()
+    model = build_ffl(cfg, generator=torch.Generator().manual_seed(FFL_SEED)).to(CARD).eval()
     batch = next(iter(build_loader(cfg, "test", eval_mode=True)))
     with torch.inference_mode():
-        seg = model(to_device({"images": batch["images"][:2]}, torch.device("cpu"), ("images",)))["seg"]
+        seg = model(to_device({k: v[:2] for k, v in batch.items()}, CARD, INPUT_KEYS))["seg"]
     shift = float(torch.quantile(torch.logit(seg.double()).flatten(), FFL_SEG_QUANTILE))
     with torch.no_grad():
         model.seg_out.weight.mul_(FFL_SEG_SHARPEN)
@@ -2554,18 +2654,34 @@ def ffl_acm_against_cpu(predictor, maps: tuple) -> dict:
 
 
 def ffl_acm_profile(args: tuple, kw: dict) -> dict:
-    """What one ACM step costs on the card, from runs of 1 and 11 steps
-    (their difference over 10 steps, so the set-up drops out): the step's
-    time unprofiled (host clock, synchronized), and from torch.profiler
-    traces the host's top-level aten calls, the kernels launched and their
-    summed device time; the card's busy share is that time over the step."""
+    """The ACM's steps replayed from their CUDA graph against the loop of
+    `acm_step` on the same packing, bitwise, and both timed; then what one
+    step of the loop costs on the card, from runs of 1 and 11 steps (their
+    difference over 10 steps, so the set-up drops out): the step's time
+    unprofiled (host clock, synchronized), and from torch.profiler traces
+    the host's top-level aten calls, the kernels launched and their summed
+    device time; the card's busy share is that time over the step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from pixelspointspolygons_torch.predict.ffl_polygonize import acm_optimize
 
+    runs = {}
+    for graph in (False, True, False, True):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = acm_optimize(*args, **{**kw, "graph": graph})
+        torch.cuda.synchronize()
+        runs.setdefault(graph, []).append(((time.perf_counter() - t) * 1e3, got))
+    same = all(torch.equal(got, runs[False][0][1]) for r in runs.values() for _, got in r)
+    print(f"ffl ACM, {kw['steps']} steps at {len(args[0])} positions: replayed from one captured step "
+          f"{[round(ms, 1) for ms, _ in runs[True]]} ms, the loop {[round(ms, 1) for ms, _ in runs[False]]} ms "
+          f"(host clock, in turns); all four bitwise equal {same}", flush=True)
+    if not same:
+        fail("the ACM's steps replayed from their CUDA graph differ from the loop's")
+
     def run(steps):
-        acm_optimize(*args, **{**kw, "steps": steps})
+        acm_optimize(*args, **{**kw, "steps": steps, "graph": False})
         torch.cuda.synchronize()
 
     run(2)  # warm-up
@@ -2593,7 +2709,8 @@ def ffl_acm_profile(args: tuple, kw: dict) -> dict:
     t_ops = n * steps * ACM_OPS_PER_VERTEX_STEP / PEAK_FP32_FLOPS * 1e3
     bound_ms, bound_by = max((t_ops, "operations"), (nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"))
     out = {"aten_per_step": per[0], "kernels_per_step": per[1], "kernel_us_per_step": per[2],
-           "step_ms": ms_per_step, "loop_bound_ms": bound_ms, "loop_bound_by": bound_by}
+           "step_ms": ms_per_step, "loop_bound_ms": bound_ms, "loop_bound_by": bound_by,
+           "graph_ms": [ms for ms, _ in runs[True]], "loop_ms": [ms for ms, _ in runs[False]]}
     print(f"ffl ACM loop bound at {n} positions: {bound_ms:.4f} ms for {steps} steps ({bound_by}; "
           f"{nbytes / 1e6:.2f} MB, {n * steps * ACM_OPS_PER_VERTEX_STEP / 1e9:.3f} GFLOP)", flush=True)
     if per[1] <= 0:
@@ -2796,8 +2913,9 @@ def ffl_train_card_against_cpu(cfg, first: dict, name: str = "ffl", exact: bool 
     the card and on the CPU with fresh Adam states: the losses and the
     gradients (the CPU path is
     held to the JAX package by tests/test_torch_train_ffl.py). With
-    `exact`, the gradients are held against the same step in float64 on
-    the CPU instead: the card's no farther from it than
+    `exact`, the gradients are held against the same step in float64,
+    taken on the card (as phase 22's float64 gradients are), instead: the
+    card's float32 no farther from it than
     DDP_EXACT_FACTOR times the CPU's float32, plus DDP_EXACT_FLOOR (a deep
     trunk of train-mode BatchNorms on 2 tiles makes either float32 gradient
     stray from the exact one, as HiSup's does: ROADMAP 3.16). Returns the
@@ -2835,13 +2953,14 @@ def ffl_train_card_against_cpu(cfg, first: dict, name: str = "ffl", exact: bool 
           + ("" if exact else f" (tol {FFL_GRAD_TOL})"), flush=True)
     grads_ok = grad_err <= FFL_GRAD_TOL
     if exact:
-        ref = state_on(torch.device("cpu"), torch.float64)
-        step(ref, {k: v.double() if v.is_floating_point() else v for k, v in first["batch"].items()},
+        ref = state_on(CARD, torch.float64)
+        step(ref, {k: (v.double() if v.is_floating_point() else v).to(CARD) for k, v in first["batch"].items()},
              weights_for_epoch(0))
         g_exact = grads(ref)
+        del ref
         card_err, cpu_err = grad_rel_l2(g_card, g_exact), grad_rel_l2(g_cpu, g_exact)
         tol = DDP_EXACT_FACTOR * cpu_err + DDP_EXACT_FLOOR
-        print(f"{name} train step gradients against float64 on the CPU, relative L2: card {card_err:.3g}, CPU "
+        print(f"{name} train step gradients against float64 on the card, relative L2: card {card_err:.3g}, CPU "
               f"float32 {cpu_err:.3g} (tol {tol:.3g})", flush=True)
         grads_ok = card_err <= tol
     if not all(e <= FFL_LOSS_TOL for e in loss_err.values()) or not grads_ok:
@@ -3236,7 +3355,7 @@ def lidar_overrides(experiment: str) -> list[str]:
     tiles as the image phases (country CH, which the fusion experiments'
     `country: all` would otherwise regenerate), each cloud padded to the
     encoder's max_num_points (200,000)."""
-    return smoke_overrides(num_train=TRAIN_STEPS * B, experiment=experiment) + ["experiment.dataset.country=CH"]
+    return smoke_overrides(TRAIN_STEPS * B, experiment=experiment) + ["experiment.dataset.country=CH"]
 
 
 def phase_voxelizer(overrides: list[str]) -> dict:
@@ -3330,8 +3449,9 @@ def phase_voxelizer(overrides: list[str]) -> dict:
 def lidar_step_parts(trainer, batch: dict) -> dict:
     """One HiSup-LiDAR train step cut by CUDA events on the stream into the
     targets (with the AFM kernel), voxelization with the PillarFeatureNet,
-    the ViT, the map head with HiSup's heads, the losses, the backward and
-    AdamW; the calls of train/hisup_step.py::make_train_step."""
+    the ViT (the conv pyramid of the dense encoder), the map head with
+    HiSup's heads, the losses, the backward and AdamW; the calls of
+    train/hisup_step.py::make_train_step."""
     from pixelspointspolygons_torch.models.hisup.model import encode_targets, hisup_losses
     from pixelspointspolygons_torch.models.vit import token_map_head
 
@@ -3339,16 +3459,20 @@ def lidar_step_parts(trainer, batch: dict) -> dict:
     model, enc = state.model, state.model.encoder
     weights = {k: float(v) for k, v in trainer.cfg.experiment.model.loss_weights.items()}
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+    dense = not hasattr(enc, "pp_vit")  # PointPillarsDenseEncoder: the canvas, then its conv pyramid
     model.train()
     ev[0].record()
     targets = encode_targets(batch, S)
     ev[1].record()
-    canvas = enc.pp_vit.pillar_canvas(batch["lidar"], batch["lidar_mask"])
+    canvas = (enc if dense else enc.pp_vit).pillar_canvas(batch["lidar"], batch["lidar_mask"])
     ev[2].record()
-    b, ny, nx, c = canvas.shape
-    tokens = enc.pp_vit.vit(tokens=canvas.reshape(b, ny * nx, c))[:, 1:]
+    if dense:
+        feats = enc.pyramid(canvas)
+    else:
+        b, ny, nx, c = canvas.shape
+        tokens = enc.pp_vit.vit(tokens=canvas.reshape(b, ny * nx, c))[:, 1:]
     ev[3].record()
-    outputs = model.heads(token_map_head(tokens, enc.conv0, enc.bn0, enc.out_size))
+    outputs = model.heads(feats if dense else token_map_head(tokens, enc.conv0, enc.bn0, enc.out_size))
     ev[4].record()
     total = sum(weights[k] * v for k, v in hisup_losses(outputs, targets).items())
     ev[5].record()
@@ -3358,13 +3482,13 @@ def lidar_step_parts(trainer, batch: dict) -> dict:
     state.optimizer.step()
     ev[7].record()
     torch.cuda.synchronize()
-    names = ("targets", "voxelize_pfn", "vit", "head", "losses", "backward", "optimizer")
+    names = ("targets", "voxelize_pfn", "pyramid" if dense else "vit", "head", "losses", "backward", "optimizer")
     return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
 
 
-def lidar_train_card_against_cpu(cfg, first: dict) -> dict:
-    """One float32 train step on HISUP_BF16_CPU_TILES tiles of the first
-    batch, from the first step's weights, on the card and on the CPU with
+def lidar_train_card_against_cpu(cfg, first: dict, name: str = "hisup_lidar") -> dict:
+    """One float32 train step on the tiles of `first` (of the first batch),
+    from the first step's weights, on the card and on the CPU with
     fresh AdamW states: losses within LIDAR_LOSS_TOL relative, the two
     gradients within LIDAR_GRAD_TOL of each other in relative L2 over all
     parameters (the CPU path is held to the JAX package by
@@ -3377,21 +3501,21 @@ def lidar_train_card_against_cpu(cfg, first: dict) -> dict:
     lr = float(m.learning_rate)
     step = make_train_step({k: float(v) for k, v in m.loss_weights.items()}, S)
     res = {}
-    for name, dev in (("card", CARD), ("cpu", torch.device("cpu"))):
+    for where, dev in (("card", CARD), ("cpu", torch.device("cpu"))):
         model = build_hisup(cfg, device=dev)
         model.load_state_dict(first["state"])
         opt = make_optimizer("adamw", model.parameters(), lr, weight_decay=float(m.weight_decay))
         state = TrainState(model, opt, make_scheduler(opt, lambda n: lr, lr))
         t = time.perf_counter()
         metrics = step(state, {k: v.to(dev) for k, v in first["batch"].items()})
-        res[name] = ({k: float(v) for k, v in metrics.items()},
+        res[where] = ({k: float(v) for k, v in metrics.items()},
                      {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()},
                      time.perf_counter() - t)
     (got, g_card, _), (want, g_cpu, cpu_s) = res["card"], res["cpu"]
     loss_err = {k: abs(got[k] / want[k] - 1.0) for k in want}
     grad_err = (sum(float(((g_card[k] - g_cpu[k]) ** 2).sum()) for k in g_cpu)
                 / sum(float((g_cpu[k] ** 2).sum()) for k in g_cpu)) ** 0.5
-    print(f"hisup_lidar train step card vs CPU on {len(first['batch']['lidar'])} tiles from the first step's weights "
+    print(f"{name} train step card vs CPU on {len(first['batch']['lidar'])} tiles from the first step's weights "
           f"(float32; CPU {cpu_s:.1f} s): losses {want}, rel err {loss_err} (tol {LIDAR_LOSS_TOL}); gradients rel L2 "
           f"{grad_err:.3g} (tol {LIDAR_GRAD_TOL})", flush=True)
     if not all(e <= LIDAR_LOSS_TOL for e in loss_err.values()):
@@ -3401,15 +3525,20 @@ def lidar_train_card_against_cpu(cfg, first: dict) -> dict:
     return {"loss_err": loss_err, "grad_err": grad_err}
 
 
-def phase_hisup_lidar_train(overrides: list[str]) -> dict:
+def phase_hisup_lidar_train(overrides: list[str], name: str = "hisup_lidar",
+                            encoder: str = "PointPillarsViTCNNEncoder", bf16_step: bool = True,
+                            steps: int = TRAIN_STEPS, cpu_tiles: int = LIDAR_CPU_TILES) -> dict:
     """Phase 17: HiSup-LiDAR training at full width (pointpillars_vit_cnn:
     ViT-S/8 on a 28 x 28 pillar canvas, cap 64, heads of width 256, batch
     16, 200,000 points a cloud) through the trainer that `cli/train.py`
-    builds: 4 train + 1 val steps and the val-IoU pass with the kernel
-    counters set to 0 just before and read just after (5 AFM launches);
-    then the steady-state step, its parts, the host loader, one step on 2
-    tiles on the card against the CPU, and one bfloat16 step on the first
-    batch from the same weights against the float32 run's first step."""
+    builds: `steps` train + 1 val steps and the val-IoU pass with the
+    kernel counters set to 0 just before and read just after (AFM once a
+    step, the pillar sums once a forward); then the steady-state step and
+    its parts on the first STEADY_BATCHES batches, the host loader, one
+    step on `cpu_tiles` tiles on the card against the CPU, two eval
+    forwards held bitwise (`name`), and with `bf16_step` one bfloat16 step
+    on the first batch from the same weights against the float32 run's
+    first step. Phase 25 runs it for the dense encoder (`encoder`)."""
     from pixelspointspolygons_torch.config import compose
     from pixelspointspolygons_torch.data.loader import device_prefetch
     from pixelspointspolygons_torch.models.hisup.factory import build_hisup
@@ -3435,32 +3564,33 @@ def phase_hisup_lidar_train(overrides: list[str]) -> dict:
     n_train, n_val = len(trainer.train_loader), len(trainer.val_loader)
     model = trainer.state.model
     losses = [{k: float(v) for k, v in m.items()} for m in step_losses]
-    print(f"hisup_lidar train path (float32): {n_train} train + {n_val} val steps and the val-IoU pass in {wall:.1f} s "
+    print(f"{name} train path (float32): {n_train} train + {n_val} val steps and the val-IoU pass in {wall:.1f} s "
           f"(set-up included), peak memory {peak / 2**30:.2f} GiB; afm launches {launches}, pillar_sums launches "
           f"{pillar_launches}; encoder {type(model.encoder).__name__}", flush=True)
-    print("hisup_lidar history: " + json.dumps(history), flush=True)
-    print("hisup_lidar step losses: " + json.dumps(losses), flush=True)
-    if (n_train, n_val) != (TRAIN_STEPS, VAL_STEPS) or len(losses) != n_train:
-        fail(f"hisup_lidar: expected {TRAIN_STEPS} train and {VAL_STEPS} val steps, got {n_train}, {n_val}, "
+    print(f"{name} history: " + json.dumps(history), flush=True)
+    print(f"{name} step losses: " + json.dumps(losses), flush=True)
+    if (n_train, n_val) != (steps, VAL_STEPS) or len(losses) != n_train:
+        fail(f"{name}: expected {steps} train and {VAL_STEPS} val steps, got {n_train}, {n_val}, "
              f"{len(losses)}")
     if not all(np.isfinite(v) for k, v in history.items() if k != "epoch"):
-        fail(f"hisup_lidar: non-finite losses: {history}")
+        fail(f"{name}: non-finite losses: {history}")
     if launches != n_train + n_val:
         fail(f"afm launched {launches} times in HiSup-LiDAR training, expected {n_train + n_val}")
-    if not pillar_launches:
-        fail("HiSup-LiDAR training launched the pillar_sums kernel no time")
-    if type(model.encoder).__name__ != "PointPillarsViTCNNEncoder" or first["batch"].get("images") is not None:
-        fail("hisup_lidar: not the LiDAR encoder on a LiDAR-only batch")
+    # a forward a train and a val step, and a batch of the val-IoU pass
+    if pillar_launches != n_train + 2 * n_val:
+        fail(f"{name}: the pillar_sums kernel launched {pillar_launches} times, expected {n_train + 2 * n_val}")
+    if type(model.encoder).__name__ != encoder or first["batch"].get("images") is not None:
+        fail(f"{name}: not the {encoder} on a LiDAR-only batch")
     if not trainer.manager.exists("latest") or not trainer.manager.exists("best_val_loss"):
         fail("the HiSup-LiDAR trainer wrote no latest/best_val_loss checkpoint")
     val_iou = history.get("val_iou")
     if val_iou is None or not 0.0 <= val_iou <= 1.0 or len(iou_pass_s) != 1:
         fail(f"the HiSup-LiDAR val-IoU pass gave no IoU in [0, 1]: {val_iou}")
-    print(f"hisup_lidar val-IoU pass: {n_val * B} val tiles polygonized in {iou_pass_s[0] * 1e3:.1f} ms (wall), "
+    print(f"{name} val-IoU pass: {n_val * B} val tiles polygonized in {iou_pass_s[0] * 1e3:.1f} ms (wall), "
           f"val IoU {val_iou:.4f}", flush=True)
 
     trainer.train_loader.set_epoch(0)
-    host = list(trainer.train_loader)
+    host = [b for _, b in zip(range(STEADY_BATCHES), trainer.train_loader)]
     batches = list(device_prefetch(host, trainer.device, _DEV_KEYS))
     trainer._train_step(trainer.state, batches[0])
     torch.cuda.synchronize()
@@ -3478,13 +3608,22 @@ def phase_hisup_lidar_train(overrides: list[str]) -> dict:
     parts = [lidar_step_parts(trainer, batch) for batch in batches]
     breakdown = {k: statistics.median(p[k] for p in parts) for k in parts[0]}
     loader = statistics.median(run_loader_ms)
-    print(f"hisup_lidar train step (float32) {step_ms:.1f} ms (median of {len(times)}: "
+    print(f"{name} train step (float32) {step_ms:.1f} ms (median of {len(times)}: "
           f"{[round(x, 1) for x in times]}), val step {val_ms:.1f} ms; host loader {loader:.1f} ms per batch of {B} "
           f"(median of the run's {len(run_loader_ms)}: {[round(x, 1) for x in run_loader_ms]})", flush=True)
-    print(f"hisup_lidar train step by layer (ms, CUDA events, median of {len(parts)}): {json.dumps(breakdown)}",
+    print(f"{name} train step by layer (ms, CUDA events, median of {len(parts)}): {json.dumps(breakdown)}",
           flush=True)
-    card_cpu = lidar_train_card_against_cpu(cfg, first)
-    forward_repeat("hisup_lidar", model, "hisup", {k: v[:2] for k, v in batches[0].items()})
+    small = {**first, "batch": {k: v[:cpu_tiles] for k, v in first["batch"].items()}}
+    card_cpu = lidar_train_card_against_cpu(cfg, small, name)
+    if bf16_step:
+        forward_repeat(name, model, "hisup", {k: v[:2] for k, v in batches[0].items()})
+    out = {"step_ms": step_ms, "val_ms": val_ms, "peak_bytes": peak, "iou_pass_ms": iou_pass_s[0] * 1e3,
+           "val_iou": val_iou, "losses": losses, "breakdown": breakdown, "launches": launches,
+           "pillar_launches": pillar_launches, "loader_ms": loader, "card_cpu": card_cpu}
+    if not bf16_step:
+        out["forward_err"] = forward_against_cpu(name, model, "hisup", {k: v[:2] for k, v in batches[0].items()},
+                                                 "float32")
+        return out
 
     # one bfloat16 step from the same initial weights on the same first batch
     bcfg = compose(overrides + ["host.compute_dtype=bfloat16"])
@@ -3505,9 +3644,7 @@ def phase_hisup_lidar_train(overrides: list[str]) -> dict:
           f"{bf16_peak / 2**30:.2f} GiB", flush=True)
     if not all(e <= LIDAR_BF16_LOSS_TOL for e in loss_err.values()):
         fail(f"the bfloat16 HiSup-LiDAR step's losses differ from float32's by {loss_err}")
-    return {"step_ms": step_ms, "val_ms": val_ms, "peak_bytes": peak, "iou_pass_ms": iou_pass_s[0] * 1e3,
-            "val_iou": val_iou, "losses": losses, "breakdown": breakdown, "launches": launches,
-            "pillar_launches": pillar_launches, "loader_ms": loader, "card_cpu": card_cpu, "bf16_loss_err": loss_err}
+    return {**out, "bf16_loss_err": loss_err}
 
 
 def phase_p2p_fusion_predict(overrides: list[str]) -> dict:
@@ -3596,16 +3733,40 @@ def model_outputs(model, name: str, batch: dict, y_input=None) -> dict:
         return dict(model.eval()(inputs))
 
 
+def forward_against_cpu(path: str, model, name: str, small: dict, dtype: str) -> dict:
+    """An eval forward of `model` (family `name`) on the tiles of `small`
+    on the card against a copy on the CPU: LIDAR_FWD_TOL relative to each
+    output's largest value at float32, HISUP_BF16_REL_L2 in relative L2 at
+    bfloat16; and two forwards on the card held bitwise (`forward_repeat`)."""
+    import copy
+
+    y_input = small["y"][:, :-1] if name == "pix2poly" else None
+    cpu_model = copy.deepcopy(model).cpu()
+    got = model_outputs(model, name, small, y_input)
+    forward_repeat(path, model, name, small, y_input)
+    want = model_outputs(cpu_model, name, {k: v.cpu() for k, v in small.items()},
+                         None if y_input is None else y_input.cpu())
+    if dtype == "float32":
+        errs = {k: float((got[k].cpu().float() - v.float()).abs().max() / v.float().abs().max().clamp(min=1e-12))
+                for k, v in want.items()}
+    else:
+        errs = {k: rel_l2(got[k].cpu(), v) for k, v in want.items()}
+    tol = LIDAR_FWD_TOL if dtype == "float32" else HISUP_BF16_REL_L2
+    print(f"{path}: eval forward on {len(small['lidar'])} tiles card vs CPU {errs} (tol {tol}, "
+          + ("max relative" if dtype == "float32" else "relative L2") + ")", flush=True)
+    if not all(e <= tol for e in errs.values()):
+        fail(f"{path}: the forward differs between the card and the CPU: {errs}")
+    return errs
+
+
 def phase_lidar_steps() -> dict:
     """Phase 19: one train step at batch 16 through the trainers' set-up
     for p2p_lidar, hisup_fusion (at LIDAR_STEP_DTYPE's dtype), ffl_lidar
     and ffl_fusion, with the counters set to 0 just before and read just
     after (hisup_fusion's targets launch the AFM once), a second step
-    timed, the peak memory of both, and a forward on 2 tiles from the
-    stepped weights on the card against the CPU (LIDAR_FWD_TOL relative
+    timed, the peak memory of both, and a forward on LIDAR_FWD_TILES tiles
+    from the stepped weights on the card against the CPU (LIDAR_FWD_TOL relative
     to each output's largest value)."""
-    import copy
-
     from pixelspointspolygons_torch.config import compose
     from pixelspointspolygons_torch.data.loader import device_prefetch
     from pixelspointspolygons_torch.ops.afm import afm_cuda
@@ -3644,28 +3805,15 @@ def phase_lidar_steps() -> dict:
             fail(f"{experiment}: the step gave {metrics} with {launches} afm launches (expected {want_launches}) and "
                  f"{pillar_launches} pillar_sums launches")
 
-        small = {k: v[:2] for k, v in batch.items()}
-        y_input = small["y"][:, :-1] if name == "pix2poly" else None
         model = trainer.state.model
-        cpu_model = copy.deepcopy(model).cpu()
-        got = model_outputs(model, name, small, y_input)
-        forward_repeat(experiment, model, name, small, y_input)
-        want = model_outputs(cpu_model, name, {k: v.cpu() for k, v in small.items()},
-                             None if y_input is None else y_input.cpu())
-        errs = {k: float((got[k].cpu().float() - v.float()).abs().max() / v.float().abs().max().clamp(min=1e-12))
-                for k, v in want.items()}
-        tol = LIDAR_FWD_TOL if dtype == "float32" else HISUP_BF16_REL_L2
-        if dtype != "float32":
-            errs = {k: rel_l2(got[k].cpu(), v) for k, v in want.items()}
         print(f"{experiment} ({dtype}, encoder {type(model.encoder).__name__}): one train step at batch {B}: losses "
               f"{ {k: round(v, 6) for k, v in metrics.items()} }, afm launches {launches}; the next step {step_ms:.1f} "
-              f"ms; peak {peak / 2**30:.2f} GiB; forward on 2 tiles card vs CPU {errs} (tol {tol}, "
-              + ("max relative" if dtype == "float32" else "relative L2") + ")", flush=True)
-        if not all(e <= tol for e in errs.values()):
-            fail(f"{experiment}: the forward differs between the card and the CPU: {errs}")
+              f"ms; peak {peak / 2**30:.2f} GiB", flush=True)
+        errs = forward_against_cpu(experiment, model, name, {k: v[:LIDAR_FWD_TILES] for k, v in batch.items()},
+                                   dtype)
         out[experiment] = {"step_ms": step_ms, "peak_bytes": peak, "launches": launches, "losses": metrics,
                            "errs": errs, "dtype": dtype, "pillar_launches": pillar_launches}
-        del trainer, model, cpu_model, batch, small
+        del trainer, model, batch
     return out
 
 
@@ -3865,7 +4013,7 @@ def ffl_cache_train(overrides: list[str], dtype: str, smi: str) -> dict:
     batches = [{k: b[k] for k in FFL_BATCH_KEYS if k in b} for b in cache.epoch_batches(0)]
     step_ms = steady_step_ms(trainer, batches, weights, None)
     turns = []
-    for source in ("cache", "host", "host", "cache"):
+    for source in ("cache", "host"):
         saved = trainer.cache
         trainer.cache = saved if source == "cache" else None
         turns.append((source, epoch_wall_ms(trainer, trainer.epoch_batches("train", 1, FFL_BATCH_KEYS), weights, None)))
@@ -4298,13 +4446,6 @@ def ddp_hisup(overrides: list[str], smi: str, dev: torch.device = CARD) -> dict:
     for _ in range(DDP_TURNS):
         turns["ddp"].append(ddp_turn(trainer, batch, args))
         turns["plain"].append(plain_turn(trainer, batch, args))
-    with world_of_one(dev):
-        trainer.state.wrap()
-        profiles = {"ddp": profile_call(lambda: trainer._train_step(trainer.state, batch, *args),
-                                        "hisup_image DDP step (world size 1)", top=12)}
-        unwrap(trainer.state)
-    profiles["plain"] = profile_call(lambda: trainer._train_step(trainer.state, batch, *args),
-                                     "hisup_image plain step", top=12)
     coll = turns["ddp"][-1]["collectives"]
     launches = sum(t["launches"] for t in turns["ddp"])
     out = {kind: {"ms": [t["ms"] for t in ts], "peak": max(t["peak"] for t in ts)} for kind, ts in turns.items()}
@@ -4319,8 +4460,7 @@ def ddp_hisup(overrides: list[str], smi: str, dev: torch.device = CARD) -> dict:
     if launches != (2 * DDP_TURNS if dev.type == "cuda" else 0):
         fail(f"hisup DDP steps launched the afm kernel {launches} times, expected {2 * DDP_TURNS}")
     del trainer, batch
-    return {**out, "median_ms": med, "collectives": coll, "n_norms": n_norms, "launches": launches, "check": check,
-            "profiles": profiles}
+    return {**out, "median_ms": med, "collectives": coll, "n_norms": n_norms, "launches": launches, "check": check}
 
 
 def ddp_one_step(name: str, overrides: list[str], smi: str, dev: torch.device = CARD) -> dict:
@@ -4392,44 +4532,78 @@ def tiny_step(family: str, batch: dict, dev: torch.device, dtype: torch.dtype = 
             {n: b.detach().cpu() for n, b in model.named_buffers()})
 
 
-def _gloo_rank(rank: int, init_method: str, out_file: str, dev_type: str) -> None:
-    """One of two gloo ranks on card 0 (or the CPU): each tiny case's DDP
-    step on this rank's half; rank 0 saves the results."""
+def _gloo_rank(rank: int, go: str, out_file: str, dev_type: str, spawned: float) -> None:
+    """One of two gloo ranks on card 0 (or the CPU): it reaches the device,
+    waits for the file `go` (which names the group's address), then takes
+    each tiny case's DDP step on this rank's half; rank 0 saves the
+    results, with the seconds from its spawn (`spawned`, the parent's
+    clock) to this call, to the device reached, to `go`, to the group
+    formed and to the steps done."""
     import torch.distributed as dist
 
     from pixelspointspolygons_torch.device import set_tf32
 
+    marks = {"entered": time.time() - spawned}
     set_tf32(False)
     dev = torch.device(dev_type, 0) if dev_type == "cuda" else torch.device(dev_type)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
+    torch.zeros(1, device=dev)
+    marks["ready"] = time.time() - spawned
+    deadline = time.time() + GLOO_WAIT_S
+    while not os.path.isfile(go):
+        if time.time() > deadline:
+            raise TimeoutError(f"gloo rank {rank}: no {go} after {GLOO_WAIT_S} s")
+        time.sleep(0.05)
+    with open(go) as f:
+        init_method = f.read().strip()
+    marks["released"] = time.time() - spawned
     dist.init_process_group("gloo", init_method=init_method, world_size=2, rank=rank)
     try:
+        marks["group"] = time.time() - spawned
         half = DDP_TINY_ROWS // 2
         results = {(name, dtype): tiny_step(family, {k: v[rank * half:(rank + 1) * half] for k, v in batch.items()},
                                             dev, dtype)
                    for name, (family, batch) in tiny_cases().items() for dtype in (torch.float32, torch.float64)}
+        marks["steps"] = time.time() - spawned
         if rank == 0:
-            torch.save(results, out_file)
+            torch.save({"results": results, "seconds": marks}, out_file)
     finally:
         dist.destroy_process_group()
 
 
-def gloo_on_the_card(smi: str, dev: torch.device = CARD) -> dict:
+def start_gloo_ranks(dev: torch.device = CARD) -> dict:
+    """Spawn the two ranks of `gloo_on_the_card` (daemons: they end with
+    this process) at the start of phase 22, so that their start, about
+    9 s to the card, runs beside the phase's first steps; each waits for
+    its go file before it takes a step."""
+    go = os.path.join(WORK, "gloo_go.txt")
+    out_file = os.path.join(WORK, "gloo_ranks.pt")
+    for path in (go, out_file):
+        if os.path.exists(path):
+            os.remove(path)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_gloo_rank, args=(r, go, out_file, dev.type, time.time()), daemon=True)
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    return {"procs": procs, "go": go, "out_file": out_file}
+
+
+def gloo_on_the_card(smi: str, ranks: dict, dev: torch.device = CARD) -> dict:
     """Two gloo ranks on the one card (NCCL refuses two ranks on one
-    device), spawned here: the tiny HRNet HiSup's and the tiny fusion
+    device), spawned by `start_gloo_ranks` and released here with the
+    group's address: the tiny HRNet HiSup's and the tiny fusion
     Pix2Poly's DDP steps on the two halves, with the synchronised
     BatchNorms' and DDP's collectives on CUDA tensors, against the
     one-process step on the whole batch on the card (twice: the atomics'
     own spread)."""
     from pixelspointspolygons_torch.parallel import free_port
 
-    out_file = os.path.join(WORK, "gloo_ranks.pt")
-    ctx = multiprocessing.get_context("spawn")
-    init_method = f"tcp://127.0.0.1:{free_port()}"
-    procs = [ctx.Process(target=_gloo_rank, args=(r, init_method, out_file, dev.type)) for r in range(2)]
-    for p in procs:
-        p.start()
+    procs, out_file = ranks["procs"], ranks["out_file"]
+    with open(ranks["go"] + ".tmp", "w") as f:
+        f.write(f"tcp://127.0.0.1:{free_port()}")
+    os.replace(ranks["go"] + ".tmp", ranks["go"])
     try:
         for p in procs:
             p.join(600)
@@ -4440,8 +4614,11 @@ def gloo_on_the_card(smi: str, dev: torch.device = CARD) -> dict:
                 p.join()
     if any(p.exitcode for p in procs):
         fail(f"gloo ranks on the card exited with {[p.exitcode for p in procs]}")
-    got = torch.load(out_file, weights_only=False)
-    out = {}
+    saved = torch.load(out_file, weights_only=False)
+    got = saved["results"]
+    print(f"gloo rank 0, seconds from its spawn: {json.dumps({k: round(v, 2) for k, v in saved['seconds'].items()})}",
+          flush=True)
+    out = {"rank0_s": saved["seconds"]}
     for name, (family, batch) in tiny_cases().items():
         what = f"{name}, 2 gloo ranks on the card"
         plain, again = tiny_step(family, batch, dev), tiny_step(family, batch, dev)
@@ -4488,9 +4665,10 @@ def float64_drift(smi: str, dev: torch.device = CARD) -> dict:
 
 def phase_data_parallel(overrides: list[str], p2p_overrides: list[str], ffl_overrides: list[str], smi: str) -> dict:
     """Phase 22: data-parallel training on the one card."""
+    ranks = start_gloo_ranks()
     hisup = ddp_hisup(overrides, smi)
     others = {name: ddp_one_step(name, o, smi) for name, o in (("pix2poly", p2p_overrides), ("ffl", ffl_overrides))}
-    gloo = gloo_on_the_card(smi)
+    gloo = gloo_on_the_card(smi, ranks)
     drift = float64_drift(smi)
     return {"hisup": hisup, **others, "gloo": gloo, "drift": drift}
 
@@ -4684,7 +4862,7 @@ def phase_remaining_encoders(smi: str) -> dict:
     twins on the card."""
     t0 = time.perf_counter()
     out = {}
-    ffl = smoke_overrides(num_train=TRAIN_STEPS * B, experiment="ffl_image")
+    ffl = smoke_overrides(TRAIN_STEPS * B, experiment="ffl_image")
     for enc, exact_tiles in (("unetresnet101", UNET_EXACT_TILES), ("convnext", HISUP_BF16_CPU_TILES)):
         over = ffl + [f"encoder={enc}", f"experiment.encoder.in_size={S}", f"run_type.train_subset={CNX_TRAIN_STEPS * B}",
                       f"host.model_root={os.path.join(WORK, 'outputs_' + enc)}"]
@@ -4711,7 +4889,7 @@ def phase_remaining_encoders(smi: str) -> dict:
         t.pop("first")
         gc.collect()
         torch.cuda.empty_cache()
-    p2p = smoke_overrides(num_train=TRAIN_STEPS * B, experiment="p2p_image") + [
+    p2p = smoke_overrides(TRAIN_STEPS * B, experiment="p2p_image") + [
         "encoder=vit_dinov2", f"run_type.train_subset={CNX_TRAIN_STEPS * B}",
         f"host.model_root={os.path.join(WORK, 'outputs_vit_dinov2')}"]
     out["vit_dinov2"] = phase_dinov2(p2p, smi)
@@ -4799,7 +4977,9 @@ def twin_oracle() -> dict:
 
 def twin_predict_timer(seeded_latest: str, smi: str) -> dict:
     """`cli.measure_predict_e2e experiment=p2p_image checkpoint=latest` over
-    phase 6's seeded model in a model root of its own: the split's tiles, and
+    phase 6's seeded model in a model root of its own, on the split's first
+    ABLATION_TEST_TILES tiles (the whole split before phase 25 came, cut
+    for the run's time; ROADMAP 3.22: it reports the tiles it predicted),
     every pass's prediction file holding the same image ids."""
     from pixelspointspolygons_torch.cli import measure_predict_e2e
     from pixelspointspolygons_torch.config import compose
@@ -4808,7 +4988,8 @@ def twin_predict_timer(seeded_latest: str, smi: str) -> dict:
     from pixelspointspolygons_torch.utils.coco import CocoIndex
 
     args = smoke_overrides(TRAIN_STEPS * B, "p2p_image") + [
-        f"host.model_root={os.path.join(WORK, 'twins_p2p')}", "evaluation=test", "checkpoint=latest"]
+        f"host.model_root={os.path.join(WORK, 'twins_p2p')}", "evaluation=test", "checkpoint=latest",
+        f"run_type.test_subset={ABLATION_TEST_TILES}"]
     cfg = compose(args)
     os.makedirs(os.path.join(cfg.output_dir, "checkpoints"), exist_ok=True)
     shutil.copyfile(seeded_latest, os.path.join(cfg.output_dir, "checkpoints", "latest.pt"))
@@ -4840,7 +5021,7 @@ def twin_predict_timer(seeded_latest: str, smi: str) -> dict:
           f"{report['warm_tiles_per_s']} tiles/s warm, cold {report['cold_s']} s against a warm median "
           f"of {report['warm_s_median']} s; {len(ids)} passes wrote {[len(i) for i in ids]} image ids; afm launches "
           f"{launches}; card {smi}", flush=True)
-    if report["tiles"] != TEST_TILES or len(ids) != 4 or any(i != ids[0] for i in ids) or not set(ids[0]) <= test_ids:
+    if report["tiles"] != ABLATION_TEST_TILES or len(ids) != 4 or any(i != ids[0] for i in ids) or not set(ids[0]) <= test_ids:
         fail(f"cli.measure_predict_e2e: {report['tiles']} tiles, image ids per pass {ids}")
     return {"report": report, "launches": launches}
 
@@ -4923,7 +5104,7 @@ def twin_gather_and_droplidar(fusion_latest: str, smi: str) -> dict:
         fail(f"cli.gather_pretrained_models gathered {gathered} ({copied} copied); the earlier phases wrote {present}")
 
     root = os.path.join(WORK, "twins_droplidar")
-    args = ablation_overrides(root) + ["experiment.dataset.country=CH"]
+    args = ablation_overrides(root) + ["experiment.dataset.country=CH", f"run_type.test_subset={ABLATION_TEST_TILES}"]
     as_best_val_iou(compose(["experiment=p2p_fusion", "experiment.lidar_dropout=0.5", "evaluation=test",
                              "checkpoint=best_val_iou"] + args), fusion_latest)
     t0 = time.perf_counter()
@@ -4932,7 +5113,7 @@ def twin_gather_and_droplidar(fusion_latest: str, smi: str) -> dict:
         df = droplidar50_ablation.main(args)
     wall = time.perf_counter() - t0
     launches, pillar_launches = afm_cuda.launches, pillar_sums_cuda.launches
-    if list(df.get("variant", [])) != ["with_lidar", "no_lidar"] or set(df["num_images"]) != {TEST_TILES}:
+    if list(df.get("variant", [])) != ["with_lidar", "no_lidar"] or set(df["num_images"]) != {ABLATION_TEST_TILES}:
         fail(f"cli.droplidar50_ablation did not score both rows on the split: {df}")
     rows = df.drop(columns=["variant", "prediction_time"]).to_dict("records")
     differ = {k: (a, rows[1][k]) for k, a in rows[0].items() if not (a == rows[1][k] or a != a and rows[1][k] != rows[1][k])}
@@ -4956,18 +5137,414 @@ def phase_script_twins(seeded_p2p: str, fusion_latest: str, smi: str) -> dict:
     return out
 
 
+# --- the LiDAR and fusion grid (phase 25) ------------------------------------------
+
+
+@contextlib.contextmanager
+def counted_predictions(module, rows: dict, repeat: tuple[str, ...] = (), prefix: str = "grid"):
+    """While the block runs, each predictor that `module.get_predictor` gives
+    sets the kernel counters to 0 just before each `predict_dataset` and
+    reads them just after; records by experiment its tiles, batches,
+    tiles/s (the predictor's `*_time.json`), wall seconds and launches in
+    `rows`; and, for the experiments in `repeat`, predicts the split a
+    second time and holds the prediction file to the first byte for byte
+    (`hold_repeat`, path `<prefix>_<experiment>`)."""
+    from pixelspointspolygons_torch.ops.afm import afm_cuda
+    from pixelspointspolygons_torch.ops.voxelize import pillar_sums_cuda
+
+    get_predictor = module.get_predictor
+
+    def counted(cfg, *args, **kwargs):
+        predictor = get_predictor(cfg, *args, **kwargs)
+        predict = predictor.predict_dataset
+        exp = str(cfg.experiment.name)
+
+        def predict_dataset(split):
+            afm_cuda.launches = pillar_sums_cuda.launches = 0
+            t0 = time.perf_counter()
+            path = predict(split)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            with open(path.replace(".json", "_time.json")) as f:
+                timing = json.load(f)
+            row = {"tiles": timing["num_images"], "batches": math.ceil(timing["num_images"] / B),
+                   "tiles_s": 1.0 / timing["prediction_time"], "wall_s": wall, "afm": afm_cuda.launches,
+                   "pillar_sums": [pillar_sums_cuda.launches], "country": str(cfg.experiment.dataset.country),
+                   "encoder": type(predictor.model.encoder).__name__}
+            if exp in repeat:
+                with open(path, "rb") as f:
+                    first = f.read()
+                afm_cuda.launches = pillar_sums_cuda.launches = 0
+                predict(split)
+                torch.cuda.synchronize()
+                row["afm"] += afm_cuda.launches
+                row["pillar_sums"].append(pillar_sums_cuda.launches)
+                with open(path, "rb") as f:
+                    hold_repeat(f"{prefix}_{exp}", first, f.read(), row["pillar_sums"])
+            rows[exp] = row
+            return path
+
+        predictor.predict_dataset = predict_dataset
+        return predictor
+
+    module.get_predictor = counted
+    try:
+        yield rows
+    finally:
+        module.get_predictor = get_predictor
+
+
+def rounded(metrics: dict) -> dict:
+    return {k: round(float(v), 4) if isinstance(v, (int, float, np.number)) else v for k, v in metrics.items()}
+
+
+def hold_rows(what: str, df, column: str, want: list, rows: dict, lidar: set, smi: str) -> None:
+    """Fail unless the twin's DataFrame has a row for each of `want` in
+    order, each with finite IoU and C-IoU, no AFM launch, and the pillar
+    sums launched once a batch on each LiDAR or fusion row (every
+    prediction of it) and no time on an image row; print each row."""
+    got = [str(v) for v in df.get(column, [])]
+    if got != [str(w) for w in want]:
+        fail(f"{what}: rows {got}, expected every one of {want} (a [skip] line is a failure here)")
+    for record in df.to_dict("records"):
+        exp = str(record[column]) if column == "experiment" else f"lidar_density_mnv{record[column]}"
+        row = rows.get(exp)
+        metrics = {k: v for k, v in record.items() if k != column}
+        if row is None or not all(np.isfinite(metrics.get(k, np.nan)) for k in ("IoU", "C-IoU")):
+            fail(f"{what} {exp}: no prediction recorded, or non-finite metrics {metrics}")
+        per_pass = row["batches"] if exp in lidar else 0
+        print(f"{what} {exp} ({row['encoder']}, country {row['country']}): {row['tiles']} tiles, {row['tiles_s']:.2f} "
+              f"tiles/s (its *_time.json), {row['wall_s']:.1f} s; afm launches {row['afm']}, pillar_sums launches "
+              f"{row['pillar_sums']} (expected {per_pass} a prediction); metrics "
+              f"{json.dumps(rounded(metrics))}; card {smi}", flush=True)
+        if row["afm"] or any(n != per_pass for n in row["pillar_sums"]):
+            fail(f"{what} {exp}: {row['afm']} afm launches, pillar_sums {row['pillar_sums']} (expected {per_pass} a "
+                 f"prediction)")
+
+
+def grid_checkpoints(root: str, earlier: dict) -> dict:
+    """Each experiment of the modality grid written as `best_val_iou` under
+    `root`: an earlier phase's checkpoint where `earlier` names one, else a
+    seeded random model of its own (FFL's seg head shifted so its maps have
+    contours, `ffl_seeded_model`). Returns the source of each."""
+    from pixelspointspolygons_torch.cli import modality_ablation
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.models.hisup.factory import build_hisup
+    from pixelspointspolygons_torch.models.pix2poly import Tokenizer, build_pix2poly
+
+    sources = {}
+    for exp in modality_ablation.EXPERIMENTS:
+        cfg = compose([f"experiment={exp}", "evaluation=test", "checkpoint=best_val_iou"] + ablation_overrides(root))
+        path = earlier.get(exp)
+        if path:
+            as_best_val_iou(cfg, path)
+            sources[exp] = os.path.relpath(path, WORK)
+            continue
+        family = cfg.experiment.model.name
+        gen = torch.Generator(device=CARD).manual_seed(GRID_SEED)
+        if family == "ffl":
+            model = ffl_seeded_model(cfg)
+        elif family == "hisup":
+            model = build_hisup(cfg, device=CARD, generator=gen)
+        else:
+            model = build_pix2poly(cfg, Tokenizer(cfg), device=CARD, generator=gen)
+        as_best_val_iou(cfg, model=model)
+        sources[exp] = "seeded"
+        del model
+    return sources
+
+
+def grid_modality(root: str, earlier: dict, smi: str) -> dict:
+    """(a) `cli.modality_ablation` over its nine experiments at their own
+    configs (the fusion rows at `country: all`): the six LiDAR and fusion
+    rows on the whole test split, each predicted twice and held byte for
+    byte, then the three image rows on the first ABLATION_TEST_TILES."""
+    from pixelspointspolygons_torch.cli import _ablation, modality_ablation
+    from pixelspointspolygons_torch.config import compose
+
+    t0 = time.perf_counter()
+    sources = grid_checkpoints(root, earlier)
+    print(f"modality grid checkpoints (best_val_iou): {json.dumps(sources)}", flush=True)
+    experiments = list(modality_ablation.EXPERIMENTS)
+    lidar = {e for e in experiments if compose([f"experiment={e}", "run_type=debug"]).experiment.encoder.use_lidar}
+    rows, frames = {}, []
+    # the image rows on ABLATION_TEST_TILES: phases 5, 6 and 14 predict their whole splits
+    runs = ((e for e in experiments if e in lidar), []), ((e for e in experiments if e not in lidar),
+                                                          [f"run_type.test_subset={ABLATION_TEST_TILES}"])
+    with counted_predictions(_ablation, rows, tuple(lidar), "modality"), contextlib.chdir(root):
+        for subset, extra in runs:
+            modality_ablation.EXPERIMENTS = list(subset)
+            try:
+                frames.append(modality_ablation.main(ablation_overrides(root) + extra))
+            finally:
+                modality_ablation.EXPERIMENTS = experiments
+    import pandas as pd
+
+    df = pd.concat(frames, ignore_index=True)
+    order = [e for e in experiments if e in lidar] + [e for e in experiments if e not in lidar]
+    hold_rows("modality_ablation", df, "experiment", order, rows, lidar, smi)
+    fusion = {e: rows[e]["country"] for e in modality_ablation.EXPERIMENTS if e.endswith("_fusion")}
+    tiles = {e: rows[e]["tiles"] for e in experiments}
+    if set(fusion.values()) != {"all"} or any(n != (TEST_TILES if e in lidar else ABLATION_TEST_TILES)
+                                               for e, n in tiles.items()):
+        fail(f"modality_ablation: the fusion rows' countries {fusion}, or tiles by row {tiles}")
+    wall = time.perf_counter() - t0
+    print(f"phase 25 (a) cli.modality_ablation: 9 rows in {wall:.1f} s; card {smi}", flush=True)
+    return {"rows": rows, "sources": sources, "wall_s": wall}
+
+
+def grid_density(root: str, smi: str) -> dict:
+    """(b) `cli.lidar_density_ablation`: one seeded FFL-LiDAR written as the
+    `best_val_iou` of each of the eight caps (a cap changes the pillars'
+    grouping, not the parameters: each cap's model loads the weights
+    strictly), on the first ABLATION_TEST_TILES test tiles."""
+    from pixelspointspolygons_torch.cli import _ablation, lidar_density_ablation
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.models.ffl import build_ffl
+
+    t0 = time.perf_counter()
+    over = ablation_overrides(root) + [f"run_type.test_subset={ABLATION_TEST_TILES}"]
+    cfgs = {m: compose([f"experiment=lidar_density_ablation{m}", "evaluation=test", "checkpoint=best_val_iou"] + over)
+            for m in lidar_density_ablation.DENSITIES}
+    model = ffl_seeded_model(cfgs[lidar_density_ablation.DENSITIES[0]])
+    weights = model.state_dict()
+    for m, cfg in cfgs.items():
+        if int(cfg.experiment.encoder.max_num_points_per_voxel) != m:
+            fail(f"lidar_density_ablation{m}: its encoder's cap is {cfg.experiment.encoder.max_num_points_per_voxel}")
+        try:
+            build_ffl(cfg, device=CARD).load_state_dict(weights)
+        except RuntimeError as e:
+            fail(f"lidar_density_ablation{m}: the seeded weights do not load: {e}")
+        as_best_val_iou(cfg, model=model)
+    del model, weights
+    rows = {}
+    with counted_predictions(_ablation, rows), contextlib.chdir(root):
+        df = lidar_density_ablation.main(over)
+    hold_rows("lidar_density_ablation", df, "max_num_points_per_voxel", lidar_density_ablation.DENSITIES, rows,
+              set(rows), smi)
+    by_cap = {m: {"IoU": float(r["IoU"]), "s": rows[f"lidar_density_mnv{m}"]["wall_s"]}
+              for m, r in zip(df["max_num_points_per_voxel"], df.to_dict("records"))}
+    wall = time.perf_counter() - t0
+    print(f"phase 25 (b) cli.lidar_density_ablation: IoU and prediction seconds by cap {json.dumps(by_cap)}; "
+          f"{wall:.1f} s; card {smi}", flush=True)
+    return {"rows": rows, "by_cap": by_cap, "wall_s": wall}
+
+
+def grid_countries(root: str, smi: str) -> dict:
+    """(c) `cli.all_countries`: its three fusion rows at `country=all` on the
+    first ABLATION_TEST_TILES test tiles, from (a)'s checkpoints; each
+    predicted twice and held byte for byte."""
+    from pixelspointspolygons_torch.cli import _ablation, all_countries
+
+    t0 = time.perf_counter()
+    rows = {}
+    over = ablation_overrides(root) + [f"run_type.test_subset={ABLATION_TEST_TILES}"]
+    with counted_predictions(_ablation, rows, tuple(all_countries.EXPERIMENTS), "countries"), contextlib.chdir(root):
+        df = all_countries.main(over)
+    hold_rows("all_countries", df, "experiment", all_countries.EXPERIMENTS, rows, set(all_countries.EXPERIMENTS), smi)
+    if {r["country"] for r in rows.values()} != {"all"}:
+        fail(f"all_countries: rows at {[r['country'] for r in rows.values()]}, not all at country=all")
+    wall = time.perf_counter() - t0
+    print(f"phase 25 (c) cli.all_countries: 3 rows in {wall:.1f} s; card {smi}", flush=True)
+    return {"rows": rows, "wall_s": wall}
+
+
+def grid_dense(smi: str) -> dict:
+    """(d) `experiment=hisup_lidar encoder=pointpillars` (the dense encoder on
+    512 px synthetic tiles, 256 x 256 pillars at cap 4) through phase 17's
+    path, then its test split predicted from `latest` twice, the two files
+    held byte for byte, and evaluated."""
+    from pixelspointspolygons_torch.cli.evaluate import evaluate
+    from pixelspointspolygons_torch.cli.predict import get_predictor
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.ops.afm import afm_cuda
+    from pixelspointspolygons_torch.ops.voxelize import pillar_sums_cuda
+
+    t0 = time.perf_counter()
+    over = smoke_overrides(GRID_TRAIN_STEPS * B, "hisup_lidar") + [
+        "encoder=pointpillars", f"experiment.dataset.num_test={DENSE_TEST_TILES}"]
+    enc = compose(over).experiment.encoder
+    print(f"hisup_lidar_dense: {enc.name} at {enc.in_size} px, pillars of {enc.in_voxel_size.x} px, cap "
+          f"{enc.max_num_points_per_voxel}, {enc.max_num_points} points a cloud", flush=True)
+    train = phase_hisup_lidar_train(over, "hisup_lidar_dense", "PointPillarsDenseEncoder", bf16_step=False,
+                                    steps=GRID_TRAIN_STEPS, cpu_tiles=HISUP_BF16_CPU_TILES)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = compose(over + ["evaluation=test", "checkpoint=latest"])
+    predictor = get_predictor(cfg, CARD)
+    files, launches = [], []
+    for _ in range(2):
+        afm_cuda.launches = pillar_sums_cuda.launches = 0
+        path = predictor.predict_dataset(cfg.evaluation.split)
+        torch.cuda.synchronize()
+        launches.append((afm_cuda.launches, pillar_sums_cuda.launches))
+        with open(path, "rb") as f:
+            files.append(f.read())
+    hold_repeat("hisup_lidar_dense_split", files[0], files[1], [p for _, p in launches])
+    with open(path.replace(".json", "_time.json")) as f:
+        timing = json.load(f)
+    results = evaluate(cfg, path)
+    batches = math.ceil(timing["num_images"] / B)
+    print(f"hisup_lidar_dense predict path: {timing['num_images']} tiles at {1.0 / timing['prediction_time']:.2f} "
+          f"tiles/s; (afm, pillar_sums) launches per prediction {launches}; metrics "
+          f"{json.dumps(rounded(results))}; card {smi}", flush=True)
+    if timing["num_images"] != DENSE_TEST_TILES or any(lp != (0, batches) for lp in launches) or not all(
+            np.isfinite(results.get(k, np.nan)) for k in ("IoU", "C-IoU")):
+        fail(f"hisup_lidar_dense prediction: {timing['num_images']} tiles, launches {launches}, metrics {results}")
+    del predictor
+    wall = time.perf_counter() - t0
+    print(f"phase 25 (d) hisup_lidar with the dense encoder: train step {train['step_ms']:.1f} ms, by layer "
+          f"{json.dumps({k: round(v, 2) for k, v in train['breakdown'].items()})}, peak "
+          f"{train['peak_bytes'] / 2**30:.2f} GiB, val IoU {train['val_iou']:.4f}, host loader {train['loader_ms']:.1f} "
+          f"ms per batch; {wall:.1f} s; card {smi}", flush=True)
+    return {**train, "predict_launches": launches, "tiles_s": 1.0 / timing["prediction_time"], "results": results,
+            "wall_s": wall}
+
+
+def release_overrides(experiment: str) -> list[str]:
+    """`experiment` under the config tree's default run type (release: 8
+    loader threads, the train split shuffled, no subsets), with only the
+    overrides that bound the synthetic split and the run's steps, the
+    split's counts the other phases'."""
+    return [f"experiment={experiment}", "dataset=synthetic", f"experiment.dataset.num_train={TRAIN_TILES}",
+            "experiment.dataset.num_val=16", f"experiment.dataset.num_test={TEST_TILES}",
+            "experiment.model.num_epochs=1", "training.save_every=0"]
+
+
+def grid_release(fusion_latest: str, smi: str) -> dict:
+    """(e) `run_type=release` on the card's host: the first RELEASE_BATCHES
+    train batches of hisup_lidar and p2p_fusion from the 8-thread loader
+    and a 0-thread loader of the same seed, bitwise equal; hisup_lidar
+    trained GRID_TRAIN_STEPS steps through the trainer from the 8-thread loader
+    (AFM once a step); the loader's ms per batch at 8 and 0 threads in
+    turns; `cli.measure_predict_e2e` on the seeded p2p_fusion under
+    release with `run_type.test_subset=RELEASE_TEST_TILES`."""
+    from pixelspointspolygons_torch.cli import measure_predict_e2e
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.data.loader import build_loader, device_prefetch
+    from pixelspointspolygons_torch.models.pix2poly import Tokenizer
+    from pixelspointspolygons_torch.ops.afm import afm_cuda
+    from pixelspointspolygons_torch.ops.voxelize import pillar_sums_cuda
+    from pixelspointspolygons_torch.train.trainer_hisup import _DEV_KEYS, HiSupTrainer
+
+    t0 = time.perf_counter()
+    out = {}
+    for exp in ("hisup_lidar", "p2p_fusion"):
+        cfg = compose(release_overrides(exp))
+        tok = {"tokenizer": Tokenizer(cfg)} if exp.startswith("p2p") else {}
+        threaded = build_loader(cfg, "train", **tok)
+        plain = build_loader(compose(release_overrides(exp) + ["run_type.num_workers=0"]), "train", **tok)
+        if (cfg.run_type.name, threaded.num_workers, plain.num_workers, threaded.shuffle) != ("release", 8, 0, True):
+            fail(f"{exp} under release: run type {cfg.run_type.name}, threads {threaded.num_workers} and "
+                 f"{plain.num_workers}, shuffle {threaded.shuffle}")
+        got = [b for _, b in zip(range(RELEASE_BATCHES), threaded)]
+        want = [b for _, b in zip(range(RELEASE_BATCHES), plain)]
+        a, b = [(p, leaf_bits(x)) for p, x in leaves(got)], [(p, leaf_bits(x)) for p, x in leaves(want)]
+        differ = [p for (p, x), (q, y) in zip(a, b) if p != q or x != y] + ([] if len(a) == len(b) else ["length"])
+        ids = [batch["image_id"].tolist() for batch in got]
+        print(f"{exp} under release (country {cfg.experiment.dataset.country}): the first {len(got)} train batches "
+              f"from 8 threads and from 0, {len(a)} leaves, bitwise equal {not differ}; image ids {ids}", flush=True)
+        if differ or len(got) != RELEASE_BATCHES:
+            fail(f"{exp} under release: the 8-thread batches differ from the 0-thread ones at {differ[:8]}")
+        out[exp] = {"ids": ids}
+
+    cfg = compose(release_overrides("hisup_lidar"))
+    trainer = HiSupTrainer(cfg, device=CARD)
+    trainer.generator = torch.Generator(device=CARD).manual_seed(int(cfg.get("seed", 42)))
+    trainer.setup()
+    loader_ms = {8: [], 0: []}
+    for turn in (8, 0, 8, 0):
+        trainer.train_loader.num_workers = turn
+        batches = iter(trainer.train_loader)
+        t = time.perf_counter()
+        for _ in range(LOADER_TURN_BATCHES):
+            next(batches)
+        loader_ms[turn].append((time.perf_counter() - t) * 1e3 / LOADER_TURN_BATCHES)
+        del batches  # its threads finish the batches in flight
+    trainer.train_loader.num_workers = 8
+    afm_cuda.launches = pillar_sums_cuda.launches = 0
+    losses, step_ms = [], []
+    t = time.perf_counter()
+    for batch in device_prefetch(trainer.train_loader, CARD, _DEV_KEYS):
+        metrics = trainer._train_step(trainer.state, batch)
+        torch.cuda.synchronize()
+        losses.append({k: float(v) for k, v in metrics.items()})
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+    launches = (afm_cuda.launches, pillar_sums_cuda.launches)
+    print(f"hisup_lidar under release: {len(losses)} train steps from the 8-thread loader, wall ms a step (loader "
+          f"included) {[round(x, 1) for x in step_ms]}; (afm, pillar_sums) launches {launches}; losses {losses}; the "
+          f"loader alone {json.dumps({k: [round(x, 1) for x in v] for k, v in loader_ms.items()})} ms per batch at 8 "
+          f"and 0 threads, in turns; card {smi}", flush=True)
+    if len(losses) != GRID_TRAIN_STEPS or launches != (GRID_TRAIN_STEPS, GRID_TRAIN_STEPS) or not all(
+            np.isfinite(v) for m in losses for v in m.values()):
+        fail(f"hisup_lidar under release: {len(losses)} steps, launches {launches}, losses {losses}")
+    out["hisup_lidar"].update(losses=losses, step_ms=step_ms, loader_ms=loader_ms, launches=launches)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    args = release_overrides("p2p_fusion") + [f"host.model_root={os.path.join(WORK, 'release')}", "evaluation=test",
+                                              "checkpoint=latest", f"run_type.test_subset={RELEASE_TEST_TILES}"]
+    cfg = compose(args)
+    os.makedirs(os.path.join(cfg.output_dir, "checkpoints"), exist_ok=True)
+    shutil.copyfile(fusion_latest, os.path.join(cfg.output_dir, "checkpoints", "latest.pt"))
+    afm_cuda.launches = pillar_sums_cuda.launches = 0
+    report = measure_predict_e2e.main(args)
+    launches = (afm_cuda.launches, pillar_sums_cuda.launches)
+    per_pass = math.ceil(RELEASE_TEST_TILES / B)
+    print(f"cli.measure_predict_e2e p2p_fusion under release (8 loader threads, test subset {RELEASE_TEST_TILES}): "
+          f"{json.dumps(report)}; (afm, pillar_sums) launches {launches}; card {smi}", flush=True)
+    if report["tiles"] != RELEASE_TEST_TILES or launches != (0, 4 * per_pass):
+        fail(f"cli.measure_predict_e2e under release: {report['tiles']} tiles, launches {launches} (expected "
+             f"{RELEASE_TEST_TILES} tiles and (0, {4 * per_pass}))")
+    out["predict_e2e"] = {"report": report, "launches": launches}
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"phase 25 (e) run_type=release: {out['wall_s']:.1f} s; card {smi}", flush=True)
+    return out
+
+
+def phase_grid(earlier: dict, fusion_latest: str, smi: str) -> dict:
+    """Phase 25: the LiDAR and fusion grid through the port's entry points,
+    each part failing the run on its own and printing its seconds, the
+    kernel counters set to 0 just before each prediction or training and
+    read just after."""
+    root = os.path.join(WORK, "grid")
+    out = {"modality": grid_modality(root, earlier, smi)}
+    out["density"] = grid_density(root, smi)
+    out["countries"] = grid_countries(root, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["dense"] = grid_dense(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["release"] = grid_release(fusion_latest, smi)
+    return out
+
+
 # phase label -> its seconds, and when the last phase ended
 PHASE_S: dict[str, float] = {}
 PHASE_END = [T0]
 
 
+def host_peak_gib() -> float:
+    """The process's peak resident memory so far (getrusage's maxrss, KiB on
+    Linux), GiB."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
 def phase_done(label: str) -> None:
-    """Print the seconds since the previous phase ended on a line of the
-    phase's own, and keep them for the run's table."""
+    """Print the seconds since the previous phase ended, and the host's
+    peak resident memory so far, on a line of the phase's own, and keep the
+    seconds for the run's table."""
     now = time.perf_counter()
     PHASE_S[label] = now - PHASE_END[0]
     PHASE_END[0] = now
-    print(f"phase {label} took {PHASE_S[label]:.1f} s ({now - T0:.1f} s into the run)", flush=True)
+    gc.collect()
+    print(f"phase {label} took {PHASE_S[label]:.1f} s ({now - T0:.1f} s into the run); host peak resident memory "
+          f"{host_peak_gib():.1f} GiB", flush=True)
 
 
 def main() -> None:
@@ -4983,7 +5560,7 @@ def main() -> None:
     set_tf32(False)
     phase_build()
     phase_done("1-2")
-    overrides = smoke_overrides(num_train=TRAIN_STEPS * B)
+    overrides = smoke_overrides(TRAIN_STEPS * B)
     afm_row = phase_afm(compose(overrides))
     pillar_row = phase_pillar_sums()
     phase_done("3")
@@ -5001,7 +5578,7 @@ def main() -> None:
           f"host stage {statistics.median(pred['host_ms']):.2f} ms per batch of {B} (medians), "
           f"host stage on the ground truth {statistics.median(pred['oracle_host_ms']):.2f} ms per batch, "
           f"IoU {pred['results']['IoU']:.4f}, card {smi}", flush=True)
-    p2p_overrides = smoke_overrides(num_train=TRAIN_STEPS * B, experiment="p2p_image")
+    p2p_overrides = smoke_overrides(TRAIN_STEPS * B, experiment="p2p_image")
     launches_bf16, train_bf16 = phase_train(overrides, "bfloat16")
     phase_done("10")
     loss_err = {k: abs(train_bf16["losses"][0][k] / train["losses"][0][k] - 1.0) for k in train["losses"][0]}
@@ -5024,7 +5601,7 @@ def main() -> None:
     phase_done("12")
     phase_entry()
     phase_done("13")
-    ffl_overrides = smoke_overrides(num_train=TRAIN_STEPS * B, experiment="ffl_image")
+    ffl_overrides = smoke_overrides(TRAIN_STEPS * B, experiment="ffl_image")
     ffl = phase_ffl(ffl_overrides)
     phase_done("14")
     bt = ffl["batch_times"]
@@ -5115,6 +5692,11 @@ def main() -> None:
     phase_done("23")
     twins = phase_script_twins(p2p_seeded, fusion_seeded, smi)
     phase_done("24")
+    latest = {exp: os.path.join(compose(over).output_dir, "checkpoints", "latest.pt") for exp, over in (
+        ("p2p_image", p2p_overrides), ("ffl_image", ffl_overrides), ("hisup_lidar", lidar_overrides("hisup_lidar")))}
+    grid = phase_grid({"hisup_image": float32_latest, "p2p_fusion": fusion_seeded, **latest}, fusion_seeded, smi)
+    phase_done("25")
+    rows = {part: grid[part]["rows"] for part in ("modality", "density", "countries")}
     missing = [p for p in REPEAT_PATHS if p not in REPEATS]
     print(f"repeat checks: {len(REPEATS)} prediction paths held bitwise equal from one prediction to the next; "
           f"pillar_sums launches of each prediction {json.dumps(REPEATS)}", flush=True)
@@ -5145,6 +5727,11 @@ def main() -> None:
         "measure_predict_e2e": twins["predict_e2e"]["launches"],
         "profile": twins["profile"]["launches"],
         "gather_and_droplidar50": twins["gather_droplidar"]["launches"],
+        **{f"grid_{part}": sum(r["afm"] for r in rs.values()) for part, rs in rows.items()},
+        "hisup_lidar_dense_train": grid["dense"]["launches"],
+        "hisup_lidar_dense_predict": sum(a for a, _ in grid["dense"]["predict_launches"]),
+        "release_hisup_lidar_train": grid["release"]["hisup_lidar"]["launches"][0],
+        "release_measure_predict_e2e": grid["release"]["predict_e2e"]["launches"][0],
     }
     pillar_row["launches_by_path"] = {
         "hisup_lidar_train": lidar["pillar_launches"], "p2p_fusion_predict": fusion["pillar_launches"],
@@ -5152,6 +5739,12 @@ def main() -> None:
         "hisup_lidar_train_cache_remat": hl["pillar_launches"],
         "hisup_fusion_step_remat": cached["hisup_fusion"]["pillar_launches"],
         "droplidar50_ablation": twins["gather_droplidar"]["pillar_launches"],
+        **{f"{part}_{exp}": sum(r["pillar_sums"]) for part, rs in rows.items() for exp, r in rs.items()
+           if sum(r["pillar_sums"])},
+        "hisup_lidar_dense_train": grid["dense"]["pillar_launches"],
+        "hisup_lidar_dense_predict": sum(p for _, p in grid["dense"]["predict_launches"]),
+        "release_hisup_lidar_train": grid["release"]["hisup_lidar"]["launches"][1],
+        "release_measure_predict_e2e": grid["release"]["predict_e2e"]["launches"][1],
         **{f"repeat_{p}": n for p, n in REPEATS.items()},
     }
     pillar_row["launches"] = lidar["pillar_launches"]

@@ -1,7 +1,8 @@
 """Time `predict_dataset` end to end, from the loader to the COCO file —
 twin of scripts/measure_predict_e2e.py: the split predicted once cold and
 three times warm in one process, and one JSON line with the median warm
-pass's tiles per second.
+pass's tiles per second. It counts the tiles the passes predicted, where
+the script counts the config's `num_{split}` (ROADMAP 3.22).
 
 `predict_dataset` returns once the host holds every prediction and has
 written the file, so each pass's host clock covers the card's work; no
@@ -39,11 +40,11 @@ def main(argv: list[str] | None = None) -> dict:
             t0 = time.time()
             predictor.predict_dataset(split)
             times.append(time.time() - t0)
-    n = int(cfg.experiment.dataset.get(f"num_{split}") or 0)
-    if not n:
-        # num_{split} exists only in the synthetic dataset's config; the
-        # real datasets report the split's tile count
-        n = len(P3Dataset(cfg, split, eval_mode=True))
+    # the tiles each pass predicted: the split as the dataset holds it, cut
+    # to `run_type.{split}_subset`. The script divides the config's
+    # `num_{split}` instead, which overstates the rate under a subset
+    # (ROADMAP 3.22, a standing divergence)
+    n = len(P3Dataset(cfg, split, eval_mode=True))
     warm = sorted(times)[len(times) // 2]
     report = {
         "experiment": str(cfg.experiment.name),

@@ -191,7 +191,13 @@ class P3Dataset:
         out = np.zeros((self.max_points, 3), np.float32)
         mask = np.zeros((self.max_points,), bool)
         if self.split == "train" and not self.eval_mode:  # PointShuffle (o3d parity)
-            rng.shuffle(pts)
+            # the rows in the order JAX's `rng.shuffle(pts)` leaves them, from
+            # the same draws: numpy moves a 2-D array's rows one at a time
+            # under the GIL (most of a LiDAR batch's time, and no loader
+            # thread runs beside it), a 1-D index in one pass
+            order = np.arange(len(pts))
+            rng.shuffle(order)
+            pts = pts[order]
         n = min(len(pts), self.max_points)
         out[:n] = pts[:n]
         mask[:n] = True

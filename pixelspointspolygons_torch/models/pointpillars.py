@@ -141,7 +141,11 @@ class PointPillarsDenseEncoder(nn.Module):
         self.add_module(f"bn{last}", BatchNorm(out_dim, **kw))
 
     def forward(self, points: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-        x = self.pillar_canvas(points, valid).permute(0, 3, 1, 2)
+        return self.pyramid(self.pillar_canvas(points, valid))
+
+    def pyramid(self, canvas: torch.Tensor) -> torch.Tensor:
+        """The conv pyramid over the (B, ny, nx, 64) pillar canvas."""
+        x = canvas.permute(0, 3, 1, 2)
         feats = []
         for j in range(2 * self.n_levels):
             x = F.relu(getattr(self, f"bn{j}")(getattr(self, f"conv{j}")(x)))

@@ -11,7 +11,10 @@ and int64 pillar ids (B, N) sorted within each sample, every pillar a run,
 the padding's id n_cells last. The points span nine orders of magnitude
 with either sign, so a sum taken in any other order than the run's gives
 other bits; the padding holds such points too, so a sum that reads past a
-run or past its cap gives other values. numpy only: the CPU tests
+run or past its cap gives other values. `dense_layout` is the dense
+PointPillars encoder's grid (`config/encoder/pointpillars.yaml`): 512 px
+tiles in 2 px pillars, 65,536 cells at cap 4, where every other layout
+has at most 784. numpy only: the CPU tests
 (tests/test_torch_pillar_sums.py against JAX's scatter-add), the card tests
 (tests/test_torch_kernels.py) and chip_smoke.py phase 3 share them; the
 port's own path never calls them.
@@ -26,6 +29,10 @@ CHUNK_POINTS = 245
 # run past both is searched
 TILE_ROWS, AHEAD_ROWS = 2048, 256
 CAPS = (4, 64, 512)
+# the dense encoder: 256 x 256 pillars at cap 4; data/synthetic.py draws
+# 30,000 to 60,000 points a tile at any size, padded to 200,000 rows
+DENSE_CELLS, DENSE_CAP = 256 * 256, 4
+SYNTHETIC_POINTS = (30_000, 60_000)
 # run lengths around every cap and one and two float32 chunks
 EDGE_RUNS = (3, 4, 5, 63, 64, 65, 244, 245, 246, 489, 490, 491, 511, 512, 513)
 
@@ -93,3 +100,16 @@ def large_layout(dtype=np.float32, B: int = 16, n_points: int = 200_000, n_cells
     runs[3, :100] = 0
     runs[3, -100:] = 0
     return sorted_layout(runs, n_points, 8, dtype)
+
+
+def dense_layout(dtype=np.float32, B: int = 16, n_points: int = 200_000, n_cells: int = DENSE_CELLS):
+    """The dense encoder's layout at the main path's size: each sample's
+    points, as many as data/synthetic.py draws for a tile (30,000 to
+    60,000, scaled by n_points / 200,000), fall uniformly on the n_cells
+    pillars, about 0.7 a pillar at full size: most runs hold 0, 1 or 2
+    points, a few reach the cap of 4 or pass it, and about three quarters
+    of the rows are padding, as on the synthetic train split."""
+    r = np.random.RandomState(9)
+    lo, hi = (k * n_points // 200_000 for k in SYNTHETIC_POINTS)
+    runs = np.stack([np.bincount(r.randint(0, n_cells, r.randint(lo, hi + 1)), minlength=n_cells) for _ in range(B)])
+    return sorted_layout(runs, n_points, 10, dtype)

@@ -11,7 +11,9 @@ of pixelspointspolygons_tpu/predict/ffl_polygonize.py.
   rounded midpoint, the level-set data term, the squared edge lengths) by
   torch autograd, on the device the maps are on. JAX runs the same updates
   as `jax.grad` under `lax.scan`; the bucketing that bounds its jit shapes
-  is kept so that the work and the dropped rings are the same.
+  is kept so that the work and the dropped rings are the same. On a card
+  one step is captured in a CUDA graph and replayed `steps` times: the
+  loop's kernels, without the host's ~200 launches a step.
 - Post-processing (corner detection from the u/v alignment XOR, splitting
   at corners, Douglas-Peucker per polyline, the image-border face union,
   the area and probability filters) is JAX's host code, copied.
@@ -205,11 +207,14 @@ def acm_optimize(
     data_coef: float = 0.1,
     length_coef: float = 0.4,
     crossfield_coef: float = 0.5,
+    graph: bool = True,
 ) -> torch.Tensor:
     """`steps` SGD updates of the packed positions with the reference's
     warmup (polygonize_acm.py:186-199; JAX :198-241): padding and pinned
     endpoints do not move. All tensors on one device (the maps' float32
-    values); returns the optimized (N, 2) positions there."""
+    values); returns the optimized (N, 2) positions there. On a card, with
+    `graph`, the steps are replays of one captured step (`_graph_steps`),
+    else a loop of `acm_step`."""
     # float32 values, as JAX traces them
     params = {
         "data_level": float(np.float32(data_level)),
@@ -223,9 +228,34 @@ def acm_optimize(
         fm = fm * (1.0 - pinned.to(torch.float32))[..., None]
     rates = torch.from_numpy(warmup_rates(steps, poly_lr, warmup_iters, warmup_factor)).to(dev)
     p = pos.detach().clone().requires_grad_(True)
+    if graph and dev.type == "cuda" and steps > 0:
+        _graph_steps(p, rates, fm, vmask, next_idx, point_batch, indicator, c0c2, params)
+        return p.detach()
     for it in range(steps):
         acm_step(p, rates[it], fm, vmask, next_idx, point_batch, indicator, c0c2, params)
     return p.detach()
+
+
+def _graph_steps(p, rates, *args) -> None:
+    """`acm_step` on the card for each rate of `rates`, as replays of one
+    step captured in a CUDA graph, its rate copied in before each: the same
+    kernels on the same values as the loop, so the same bits. The capture
+    follows two steps on a copy of `p` on a side stream (the warm-up that
+    capture asks for)."""
+    rate = rates[0].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        scratch = p.detach().clone().requires_grad_(True)
+        for _ in range(2):
+            acm_step(scratch, rate, *args)
+    torch.cuda.current_stream().wait_stream(side)
+    step = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(step):
+        acm_step(p, rate, *args)
+    for it in range(len(rates)):
+        rate.copy_(rates[it])
+        step.replay()
 
 
 def acm_kwargs(acm_cfg) -> dict:

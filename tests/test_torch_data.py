@@ -201,10 +201,55 @@ def test_pix2poly_loader_batches(datasets):
     assert batches[0]["y"].shape == (3, 386) and batches[0]["y_perm"].shape == (3, 192, 192)
 
 
-@pytest.mark.parametrize("num_workers", [0, 2])
-def test_loader_matches_jax(datasets, num_workers):
+def _lidar_loaders(root, experiment: str, num_workers: int, side: str):
+    """The train loader of `experiment`'s tiny split under
+    `run_type.name=release` (the split shuffled by epoch, as `run_type=release`
+    shuffles it) with `num_workers` threads, built by each package's
+    `build_loader` (`side` "jax" or "port") in that package's root."""
+    args = [f"experiment={experiment}"] + _tiny(root / side)[1:] + [
+        "run_type.name=release", f"run_type.num_workers={num_workers}", "experiment.model.batch_size=2"]
+    if side == "jax":
+        cfg = jax_compose(args)
+        tok = {"tokenizer": JaxTokenizer(cfg)} if experiment.startswith("p2p") else {}
+        from pixelspointspolygons_tpu.data import build_loader as jax_build_loader
+
+        return cfg, jax_build_loader(cfg, "train", **tok)
+    cfg = compose(args)
+    return cfg, build_loader(cfg, "train", **({"tokenizer": Tokenizer(cfg)} if experiment.startswith("p2p") else {}))
+
+
+@pytest.mark.parametrize("num_workers,lidar", [pytest.param(0, None, id="0"), pytest.param(2, None, id="2"),
+                                               pytest.param(8, None, id="8"),
+                                               pytest.param(8, "hisup_lidar", id="8-hisup_lidar-release"),
+                                               pytest.param(8, "p2p_fusion", id="8-p2p_fusion-release")])
+def test_loader_matches_jax(datasets, num_workers, lidar):
     """Epoch-seeded shuffle, per-item augmentation seeds and the padded last
-    batch with its `sample_valid` mask."""
+    batch with its `sample_valid` mask, with 0, 2 and 8 loader threads. With
+    `lidar`, the LiDAR items of that experiment's tiny split (p2p_fusion at
+    its own `country: all`) through each package's `build_loader` under
+    `run_type.name=release` and 8 threads: the port's batches equal JAX's and
+    the port's own with no thread, bit for bit, in epochs 0 and 1."""
+    if lidar:
+        root = datasets[2]
+        cfg, got8 = _lidar_loaders(root, lidar, num_workers, "port")
+        jcfg, want = _lidar_loaders(root, lidar, num_workers, "jax")
+        _, got0 = _lidar_loaders(root, lidar, 0, "port")
+        assert got8.num_workers == want.num_workers == 8 and got0.num_workers == 0
+        assert got8.shuffle and want.shuffle and cfg.run_type.name == "release"
+        assert str(cfg.experiment.dataset.country) == ("all" if lidar == "p2p_fusion" else "CH")
+        orders = []
+        for epoch in (0, 1):
+            for loader in (got8, want, got0):
+                loader.set_epoch(epoch)
+            jb, pb, p0 = list(want), list(got8), list(got0)
+            assert len(pb) == len(jb) == len(p0) == 3
+            for got, zero, expect in zip(pb, p0, jb):
+                assert {"lidar", "lidar_mask"} <= set(got)
+                _assert_items_equal(got, expect)
+                _assert_items_equal(got, zero)
+            orders.append(np.concatenate([b["image_id"] for b in pb]).tolist())
+        assert orders[0] != orders[1]  # the epochs' shuffles differ
+        return
     jcfg, pcfg, _ = datasets
     jl = JaxLoader(JaxDataset(jcfg, "train"), 2, shuffle=True, seed=7, num_workers=num_workers,
                    process_index=0, process_count=1)
@@ -218,3 +263,36 @@ def test_loader_matches_jax(datasets, num_workers):
         for got, want in zip(pb, jb):
             _assert_items_equal(got, want)
         assert pb[-1]["sample_valid"].tolist() == [True, False]
+
+
+def test_fusion_experiment_at_its_own_country_matches_jax(datasets):
+    """hisup_fusion composed as it ships (`country: all`) on a tiny synthetic
+    tree: each package writes the per-country files (`annotations_all_*.json`,
+    `ffl/*/stats-all.npz`) with the same bytes beside the CH ones, the tiles
+    are the CH tree's own, and the first train batch equals JAX's."""
+    root = datasets[2]
+    args = ["experiment=hisup_fusion"] + _tiny(root / "port")[1:]
+    cfg, jcfg = compose(args), jax_compose(["experiment=hisup_fusion"] + _tiny(root / "jax")[1:])
+    ds = cfg.experiment.dataset
+    assert str(ds.country) == "all" and ds.annotations["train"].endswith("annotations_all_train.json")
+    assert ds.ffl_stats["test"].endswith(os.path.join("ffl", "test", "stats-all.npz"))
+    tiles = {}
+    for split in ("train", "test"):
+        with open(datasets[1].experiment.dataset.annotations[split]) as f:
+            tiles[split] = json.load(f)["images"]
+    ensure_synthetic_dataset(cfg)
+    jax_ensure(jcfg)
+    for split in ("train", "val", "test"):
+        for name in (ds.annotations[split], ds.ffl_stats[split]):
+            other = name.replace(str(root / "port"), str(root / "jax"))
+            with open(name, "rb") as a, open(other, "rb") as b:
+                assert a.read() == b.read(), name
+    for split in ("train", "test"):
+        with open(ds.annotations[split]) as f:
+            assert json.load(f)["images"] == tiles[split]
+    from pixelspointspolygons_tpu.data import build_loader as jax_build_loader
+
+    got, want = next(iter(build_loader(cfg, "train"))), next(iter(jax_build_loader(jcfg, "train")))
+    assert {"images", "lidar", "lidar_mask", "mask"} <= set(got)
+    _assert_items_equal(got, want)
+

@@ -5,9 +5,12 @@ scripts and modules, on the CPU:
   `all_countries`, `dino_v2_ablation`, `image_res_ablation`,
   `droplidar50_ablation`): each run's
   overrides, its `[skip]` line and its CSV equal the script's, with every
-  checkpoint missing; one twin end to end on a tiny synthetic split with
-  `device=cpu`, its list cut to one experiment here, and refusing to
-  start without a card otherwise;
+  checkpoint missing; three twins end to end on a tiny synthetic split
+  with `device=cpu`: `modality_ablation` cut to one experiment (and
+  refusing to start without a card otherwise), `lidar_density_ablation`
+  at two caps from one set of weights and a third cap's `[skip]`,
+  `all_countries` with one fusion row at `country=all` and a second row's
+  `[skip]`, their rows in the scripts' order;
 - `cli.csv_results_to_latex` against the script's table; `cli.evaluate_gt`
   reports the perfect scores on the ground truth;
 - `cli.preprocess_ffl`: the stats equal the JAX dataset's interior
@@ -175,6 +178,68 @@ def test_modality_ablation_end_to_end_on_cpu(tiny_vit_cnn, tmp_path, monkeypatch
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             modality_ablation.main(args)
+
+
+def _skip_lines(printed: str) -> list[str]:
+    return [line for line in printed.splitlines() if line.startswith("[skip] ")]
+
+
+def test_lidar_density_ablation_end_to_end_on_cpu(tiny_vit_cnn, tmp_path, monkeypatch, capsys):
+    """The twin cut to three caps: one seeded tiny FFL-LiDAR written as
+    `best_val_iou` of caps 4 and 64 (a cap changes the grouping, not the
+    parameters: the cap-64 model loads the cap-4 weights strictly), none of
+    cap 8. Caps 4 and 64 are predicted and scored in the script's order, and
+    cap 8 prints the script's `[skip] mnv=8: ...` line."""
+    caps = [4, 8, 64]
+    monkeypatch.setattr(lidar_density_ablation, "DENSITIES", caps)
+    monkeypatch.chdir(tmp_path)
+    args = _synthetic(tmp_path, ["experiment.model.decoder.in_feature_dim=32", "experiment.encoder.max_num_points=256",
+                                 "experiment.polygonization.acm_method.steps=20", "evaluation.modes=[iou,coco]"])
+    cfgs = {mnv: compose([f"experiment=lidar_density_ablation{mnv}", "evaluation=test", "checkpoint=best_val_iou"]
+                         + args) for mnv in caps}
+    assert {mnv: int(c.experiment.encoder.max_num_points_per_voxel) for mnv, c in cfgs.items()} == {m: m for m in caps}
+    torch.manual_seed(0)
+    weights = build_ffl(cfgs[4]).state_dict()
+    build_ffl(cfgs[64]).load_state_dict(weights)
+    for mnv in (4, 64):
+        os.makedirs(os.path.join(cfgs[mnv].output_dir, "checkpoints"))
+        torch.save({"model": weights, "epoch": 0, "cfg": cfgs[mnv].to_dict()},
+                   os.path.join(cfgs[mnv].output_dir, "checkpoints", "best_val_iou.pt"))
+    df = lidar_density_ablation.main(args + ["device=cpu"])
+    script_runs = [mnv for mnv in _script("lidar_density_ablation").DENSITIES if mnv in (4, 64)]
+    assert list(df["max_num_points_per_voxel"]) == script_runs == [4, 64]
+    assert list(df["num_images"]) == [4, 4] and all(0.0 <= float(v) <= 1.0 for v in df["IoU"])
+    assert [line.split(":")[0] for line in _skip_lines(capsys.readouterr().out)] == ["[skip] mnv=8"]
+    with open(tmp_path / "lidar_density_ablation.csv") as f:
+        assert f.readline().strip().split(",")[0] == "max_num_points_per_voxel"
+
+
+def test_all_countries_end_to_end_on_cpu(tiny_vit, tmp_path, monkeypatch, capsys):
+    """The twin with a seeded tiny p2p_fusion as `best_val_iou` and no
+    ffl_fusion checkpoint: the p2p_fusion row predicts and scores the test
+    split of `country=all` (the per-country files written beside the CH
+    tree), and ffl_fusion prints the script's `[skip] ffl_fusion: ...`
+    line."""
+    from test_torch_script_twins import _seeded_checkpoint
+    from test_torch_slice_lidar import P2P_ARGS
+    from test_torch_slice_lidar import overrides as lidar_overrides
+
+    monkeypatch.setattr(all_countries, "EXPERIMENTS", ["p2p_fusion", "ffl_fusion"])
+    monkeypatch.chdir(tmp_path)
+    args = [o for o in lidar_overrides(tmp_path, "p2p_fusion", P2P_ARGS)
+            if not o.startswith(("experiment=", "experiment.dataset.country="))]
+    run = all_countries.runs()[0][1]
+    cfg = compose(run + args)
+    assert str(cfg.experiment.dataset.country) == "all"
+    ensure_synthetic_dataset(cfg)
+    _seeded_checkpoint(cfg, "best_val_iou")
+    df = all_countries.main(args + ["device=cpu"])
+    script_runs = [e for e in _script("all_countries").EXPERIMENTS if e == "p2p_fusion"]
+    assert list(df["experiment"]) == script_runs == ["p2p_fusion"] and df["num_images"][0] == 2
+    assert 0.0 <= float(df["IoU"][0]) <= 1.0
+    assert cfg.evaluation.pred_file.startswith(cfg.output_dir) and os.path.isfile(cfg.evaluation.pred_file)
+    assert cfg.experiment.dataset.annotations["test"].endswith("annotations_all_test.json")
+    assert [line.split(":")[0] for line in _skip_lines(capsys.readouterr().out)] == ["[skip] ffl_fusion"]
 
 
 # --- the paper table and the ground truth's scores -----------------------------

@@ -24,6 +24,7 @@ from pixelspointspolygons_torch.ops.pillar_layouts import (
     CAPS,
     CHUNK_POINTS,
     TILE_ROWS,
+    dense_layout,
     large_layout,
     small_layouts,
 )
@@ -235,15 +236,16 @@ def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("layout", ["long_run", "run_lengths", "empty_pillars", "all_padding", "cap_above_n",
-                                    "grid_5x7", "large"])
+                                    "grid_5x7", "large", "dense"])
 def test_pillar_sums_kernel_on_layouts(cuda_device, layout, dtype):
     """On every layout the kernel splits its work on (runs over many chunks
     and a tile, runs of cap and chunk size +-1, empty pillars, a sample of
     padding only, a cap above N, a grid that leaves the kernel's pass
-    short; "large": all of them at 16 x 200,000 points), at caps 4,
-    64 and 512: bit for bit the plain version, ten calls in a row the same
-    bits, one launch a call."""
-    pts, pid, n_cells = large_layout(dtype) if layout == "large" else small_layouts(dtype)[layout]
+    short; "large": all of them at 16 x 200,000 points; "dense": the dense
+    encoder's 65,536 pillars), at caps 4, 64 and 512: bit for bit the
+    plain version, ten calls in a row the same bits, one launch a call."""
+    whole = {"large": large_layout, "dense": dense_layout}
+    pts, pid, n_cells = whole[layout](dtype) if layout in whole else small_layouts(dtype)[layout]
     pts_s, pid_s = torch.from_numpy(pts).to(cuda_device), torch.from_numpy(pid).to(cuda_device)
     for cap in CAPS:
         before = pillar_sums_cuda.launches

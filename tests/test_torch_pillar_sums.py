@@ -26,7 +26,10 @@ from pixelspointspolygons_torch.ops.pillar_layouts import (
     CAPS,
     CHUNK_POINTS,
     EDGE_RUNS,
+    DENSE_CAP,
+    DENSE_CELLS,
     TILE_ROWS,
+    dense_layout,
     small_layouts,
 )
 from pixelspointspolygons_torch.ops.segment import rank_in_run, segment_sum
@@ -162,7 +165,13 @@ def jax_pillar_sums(pts_s: np.ndarray, pid_s: np.ndarray, cap: int, n_cells: int
         return np.asarray(sums), np.asarray(cnts)
 
 
-LAYOUTS = ("long_run", "run_lengths", "empty_pillars", "all_padding", "cap_above_n", "grid_5x7")
+LAYOUTS = ("long_run", "run_lengths", "empty_pillars", "all_padding", "cap_above_n", "grid_5x7", "dense")
+
+
+def layout_arrays(name: str, dtype):
+    """A layout of `small_layouts`, or the dense encoder's grid at the main
+    path's 16 x 200,000 points (a few seconds a case)."""
+    return dense_layout(dtype) if name == "dense" else small_layouts(dtype)[name]
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
@@ -172,8 +181,9 @@ def test_pillar_sums_equal_jax_on_kernel_layouts(layout, cap, dtype):
     """Bit for bit against JAX's CPU scatter-add on every layout the kernel
     treats in its own way: runs over many chunks, runs of cap and chunk
     size +-1, empty pillars at the ends and between, a sample of padding
-    only, a cap above N, a grid that leaves the kernel's pass short."""
-    pts, pid, n_cells = small_layouts(dtype)[layout]
+    only, a cap above N, a grid that leaves the kernel's pass short; and
+    the dense encoder's 65,536 pillars of 16 x 200,000 points."""
+    pts, pid, n_cells = layout_arrays(layout, dtype)
     sums, counts = voxelize.pillar_sums(torch.from_numpy(pts), torch.from_numpy(pid), cap, n_cells)
     want_sums, want_counts = jax_pillar_sums(pts, pid, cap, n_cells)
     assert sums.dtype == torch.from_numpy(pts).dtype and want_sums.dtype == dtype
@@ -202,3 +212,7 @@ def test_kernel_layouts_hold_their_edge_cases():
     assert lay["grid_5x7"][2] == 35
     for pts, pid, n_cells in lay.values():
         assert (np.diff(pid, axis=1) >= 0).all() and pid.max() == n_cells
+    pts, pid, n_cells = dense_layout()
+    runs = np.stack([np.bincount(p, minlength=n_cells + 1)[:n_cells] for p in pid])
+    assert pts.shape == (16, 200_000, 3) and n_cells == DENSE_CELLS == 256 * 256
+    assert (runs > DENSE_CAP).any() and (runs == 0).any() and 0.7 < (pid == n_cells).mean() < 0.85

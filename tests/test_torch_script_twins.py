@@ -11,7 +11,9 @@ at tiny sizes:
   Pix2Poly branch reading the environment's dataset root in both
   packages;
 - `cli.measure_predict_e2e`: the script's keys in its order, the tile
-  count, and the same prediction file from every pass;
+  count, and the same prediction file from every pass; under a test
+  subset the tiles it predicted, where the script counts the config's
+  (ROADMAP 3.22);
 - `cli.profile`: a trace of each mode that holds the decode's operations;
 - `cli.gather_pretrained_models`: the script's lines for two present and
   seven missing checkpoints;
@@ -214,6 +216,36 @@ def test_measure_predict_e2e_prints_the_scripts_line(tiny_vit, tmp_path, monkeyp
     assert list(report) == list(want)
     assert {k: report[k] for k in ("experiment", "split", "tiles", "batch_size", "checkpoint")} == {
         k: want[k] for k in ("experiment", "split", "tiles", "batch_size", "checkpoint")}
+
+
+def test_measure_predict_e2e_counts_the_tiles_it_predicted(tiny_vit, tmp_path, monkeypatch, capsys):
+    """ROADMAP 3.22: under `run_type.test_subset=2` of a 3-tile split each
+    pass predicts 2 tiles, and the twin reports 2 and a rate over them;
+    the script reports the config's `num_test`, 3."""
+    args = ["experiment=p2p_image", "dataset=synthetic", "run_type=debug", f"host.dataset_root={tmp_path}/data",
+            f"host.model_root={tmp_path}/out", "experiment.dataset.num_train=2", "experiment.dataset.num_val=2",
+            "experiment.dataset.num_test=3", "run_type.test_subset=2", "experiment.model.batch_size=2",
+            "evaluation=test", "checkpoint=latest", *E2E_ARGS]
+    cfg = compose(args)
+    ensure_synthetic_dataset(cfg)
+    _seeded_checkpoint(cfg, "latest")
+    files = []
+    monkeypatch.setattr(measure_predict_e2e, "get_predictor", _recording(measure_predict_e2e.get_predictor, files))
+    report = measure_predict_e2e.main(args + ["device=cpu"])
+    capsys.readouterr()
+    assert len(files) == 4 and all(len({a["image_id"] for a in json.loads(f)}) <= 2 for f in files)
+    assert report["tiles"] == 2
+    warm = report["warm_s_median"]
+    assert 2 / (warm + 0.005) <= report["warm_tiles_per_s"] <= 2 / max(warm - 0.005, 1e-9)
+
+    class Idle:
+        def predict_dataset(self, split):
+            return None
+
+    monkeypatch.setattr(_script("predict"), "get_predictor", lambda cfg: Idle())
+    monkeypatch.setattr(sys, "argv", ["measure_predict_e2e.py"] + args)
+    _script("measure_predict_e2e").main()
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["tiles"] == 3
 
 
 # --- the profiler trace --------------------------------------------------------------
