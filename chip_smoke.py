@@ -117,22 +117,21 @@ fails:
      bound); `cli.predict_demo` on one tile;
  15. FFL-image training at full width (batch 16) through the trainer of
      `cli/train.py`, from a seeded model drawn on the CPU and taken up by
-     `init_weights_from`: at float32 (the ground-truth cache emptied first,
-     so the loader is cold) and at bfloat16, each 2 train steps, 1 val step
-     and the val-IoU pass (the ACM on the model's maps) with the counters
-     set to 0 just before and read just after (0 AFM launches); step time,
-     the step cut by CUDA events into forward, losses, backward and Adam,
-     one forward traced, peak memory, the host loader's ms per batch cold
-     and warm, each loss term of the first step, the val IoU with its ACM's
-     rings, vertices and bucket; one float32 step on 2 tiles on the card
-     against the CPU (losses and gradients); bfloat16's first-step losses
-     against float32's; the bfloat16 maps on the card against the CPU on
-     1 tile; FFL
-     prediction at bfloat16 of the first 16 test tiles from that training's
-     `latest` (0 AFM launches, 0 failed batches); ASM on the ground truth's
-     maps of one test batch (IoU bound; skeleton, optimization and
-     post-processing ms), its optimization on 2 tiles on the card against
-     the CPU, and one ASM step profiled;
+     `init_weights_from`, at float32 (the ground-truth cache emptied first,
+     so the loader is cold): 2 train steps, 1 val step and the val-IoU pass
+     (the ACM on the model's maps) with the counters set to 0 just before
+     and read just after (0 AFM launches); step time, the step cut by CUDA
+     events into forward, losses, backward and Adam, one forward traced,
+     peak memory, the host loader's ms per batch cold and warm, each loss
+     term of the first step, the val IoU with its ACM's rings, vertices and
+     bucket; one float32 step on 2 tiles on the card against the CPU
+     (losses and gradients); ASM on the ground truth's maps of one test
+     batch (IoU bound; skeleton, optimization and post-processing ms), its
+     optimization on 2 tiles on the card against the CPU, and one ASM step
+     profiled. (Its bfloat16 half, the first step's losses against
+     float32's and the bfloat16 maps on the card against the CPU on 1 tile,
+     and its bfloat16 prediction moved into phase 26, from the same seeded
+     weights);
  16. the LiDAR voxelizer and PillarFeatureNet on the synthetic train split's
      first batch of 16 clouds at 200,000 points, at the per-pillar caps 4,
      64 and 512: the assignment on the card against the CPU (points, pillar
@@ -201,42 +200,70 @@ fails:
      predicted), Pix2Poly
      over DINOv2 ViT-S/14 grafted from a seeded file (training, the val
      figure, the split predicted, the card against the CPU), then the
-     DINOv2 and image-resolution ablation twins on 8 test tiles and their
+     DINOv2 and image-resolution ablation twins on 4 test tiles and their
      LaTeX tables;
  24. the last script twins, each through its `main`: `cli.postprocess_oracle`
      (every family's post-processing on the ground truth's outputs, on the
      card and the CPU, each row above its quality floor),
-     `cli.measure_predict_e2e` over phase 6's seeded Pix2Poly-image on 8
+     `cli.measure_predict_e2e` over phase 6's seeded Pix2Poly-image on 4
      test tiles (its JSON line), `cli.profile train` and `generate` (each trace's size,
      its export's seconds and the decode's kernels in it),
      `cli.gather_pretrained_models` over the earlier phases' checkpoints
      and `cli.droplidar50_ablation` over phase 18's seeded fusion model
-     on 8 test tiles (its two rows must be equal);
+     on 4 test tiles (its two rows must be equal);
  25. the LiDAR and fusion grid, each part failing the run on its own and
      printing its seconds, the counters set to 0 just before each
      prediction or training and read just after: (a) `cli.modality_ablation`
      over its nine experiments at their own configs (the fusion rows at
-     `country: all`), the six LiDAR and fusion rows on the whole test
-     split and the three image rows on 8 tiles, each row's `best_val_iou` an
+     `country: all`), the six LiDAR and fusion rows on the first 16 test
+     tiles and the three image rows on 4, each row's `best_val_iou` an
      earlier phase's checkpoint or a seeded model; every row present with
      finite IoU and C-IoU, 0 AFM launches, the pillar sums once a batch on
      the LiDAR and fusion rows and never on the image rows; each LiDAR and
      fusion row's split predicted again and its file held byte for byte;
      (b) `cli.lidar_density_ablation`, its eight caps over one seeded
-     FFL-LiDAR whose weights every cap's model loads strictly, on 8 test
+     FFL-LiDAR whose weights every cap's model loads strictly, on 4 test
      tiles; (c) `cli.all_countries`, its three fusion rows at `country=all`
-     on 8 test tiles, as (a); (d) `experiment=hisup_lidar
+     on 4 test tiles, as (a); (d) `experiment=hisup_lidar
      encoder=pointpillars` (the dense encoder at 512 px, 256 x 256 pillars
      at cap 4) through phase 17's path (5 AFM launches, the pillar sums
-     once a forward, one float32 step on 2 tiles on the card against the
+     once a forward, one float32 step on 1 tile on the card against the
      CPU, an eval forward on 2 tiles card against CPU), its 16-tile test
      split predicted twice from `latest` (the files byte for byte) and
-     evaluated; (e) `run_type=release` (8 loader threads, the train split
+     evaluated, and FFL over the same encoder (`experiment=ffl_lidar
+     encoder=pointpillars`) one train step at batch 16 through its
+     trainer's set-up (the pillar sums once, 0 AFM launches; step time,
+     peak) and an eval forward on 2 tiles on the card against the CPU and
+     against itself; (e) `run_type=release` (8 loader threads, the train split
      shuffled): the first 3 train batches of hisup_lidar and p2p_fusion
      from 8 threads and from 0 bitwise equal, hisup_lidar trained 4 steps
      from the 8-thread loader (4 AFM launches), the loader's ms per batch
      at 8 and 0 threads in turns, `cli.measure_predict_e2e` over phase 18's
      seeded p2p_fusion on 16 test tiles (its line must report 16 tiles).
+ 26. a trained FFL: FFL-image (ViT-S/8 at 224 px) trained from FFL_SEED's
+     weights through `cli.train`'s `main` at bfloat16 from the device
+     cache on the synthetic split at its own counts (256 train, 32 val, 32
+     test tiles) for 11 epochs of 16 steps, the AFM and pillar-sums
+     counters set to 0 just before and read just after (0 launches of
+     each): every epoch's loss terms, val loss, the LR of its last step,
+     the loss weights its steps used and its seconds; the val IoU and
+     C-IoU at epochs 4, 9 and 10; the peak at epochs 0 and 10; the
+     ground-truth and pack seconds and the upload's. It fails unless every
+     loss is finite, each epoch's last LR is the schedule's, the weights at
+     epochs 0, 5 and 10 are `weights_for_epoch`'s, `best_val_iou`,
+     `latest` and `epoch_10` exist and the val IoU at epoch 10 is at least
+     0.6. Then a 12th epoch resumed from `latest` through `cli.train`
+     (start epoch 11, steps 176 before and 192 after), and the 32-tile test
+     split predicted from `best_val_iou` at bfloat16 through
+     `cli/predict.py`'s functions twice (0 AFM launches, 0 failed batches,
+     the two files byte for byte, IoU at least 0.6), beside phase 14's
+     seeded model. Its split is written and packed (`cli.prebuild_caches`)
+     by a process of its own started with phase 1 and joined here. It
+     holds phase 15's bfloat16 checks, which moved here:
+     its first step's losses against a float32 step from the same weights
+     on the same batch (FFL_BF16_LOSS_TOL), the bfloat16 maps of those
+     weights on the card against the CPU on 1 tile, and its prediction's
+     (compute dtype, float16 maps, failed batches, launches).
 The repeat checks (ROADMAP 3.21): every prediction path predicts twice
 from the same weights on the same tiles, and the two must be bitwise equal:
 hisup_image, p2p_image and ffl_image on the first test batch of phases 5,
@@ -246,12 +273,14 @@ byte), and two eval forwards on 2 tiles of phase 17's hisup_lidar and on
 1 tile of phase 19's p2p_lidar, hisup_fusion, ffl_lidar and ffl_fusion.
 Each LiDAR and fusion path sets the pillar_sums counter to 0 just before it
 and reads it just after, and fails if the kernel was launched no time.
-They run in the order 1-5, 10-15, 6-9, 16-25; each phase prints its
+They run in the order 1-5, 10-15, 6-9, 16-26; each phase prints its
 seconds. The run has 1,200 s, and its host-bound phases read up to a third
 slower on one machine than on another, so depth is cut where a path is
 driven at full width elsewhere: 2 train steps before phase 25
-(TRAIN_STEPS), 8 tiles for the ablation twins (ABLATION_TEST_TILES), each
-cut named beside its constant. The line before the last is the card's name and power limit, the
+(TRAIN_STEPS), 4 tiles for the ablation twins (ABLATION_TEST_TILES), 16
+for the modality ablation's LiDAR and fusion rows (GRID_LIDAR_TEST_TILES),
+1 tile for the dense HiSup step on the CPU (DENSE_CPU_TILES), each cut
+named beside its constant. The line before the last is the card's name and power limit, the
 one before it a JSON object with every kernel's numbers; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -450,12 +479,13 @@ FFL_ORACLE_MIN_IOU = 0.95
 #   roughness (0.263 apart on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md);
 # - the card's bfloat16 maps against the CPU's on BF16_EVAL_TILES, from the
 #   first step's weights in eval mode: 5e-2 in relative L2, as HiSup's;
-# - prediction at bfloat16 on the first FFL_BF16_TEST_TILES test tiles.
+# - prediction at bfloat16: phase 26's trained model on the whole test
+#   split (phase 15's 2-step model on the first 16 test tiles before phase
+#   26 came).
 FFL_LOSS_TOL, FFL_GRAD_TOL = 1e-4, 2e-3
 FFL_BF16_LOSS_TOL = {"loss": 1e-2, "seg": 1e-2, "crossfield_align": 1e-2, "crossfield_align90": 1e-2,
                      "seg_interior_crossfield": 5e-2, "crossfield_smooth": 0.5}
 FFL_BF16_REL_L2 = 5e-2
-FFL_BF16_TEST_TILES = 16
 # ASM on the ground truth's maps of one test batch: IoU at least
 # ASM_ORACLE_MIN_IOU (0.8380 on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md:
 # the skeleton merges touching buildings). Its optimization on
@@ -657,27 +687,58 @@ PROFILE_GENERATE_RUNS = 1
 # prediction file byte for byte). Training is not held so: its backward
 # sums atomically in no fixed order (the notes on phases 21 and 22).
 REPEAT_PATHS = ("hisup_image", "p2p_image", "ffl_image", "hisup_lidar", "p2p_fusion", "p2p_lidar",
-                "hisup_fusion", "ffl_lidar", "ffl_fusion")
+                "hisup_fusion", "ffl_lidar", "ffl_fusion", "ffl_lidar_dense", "ffl_image_trained_split")
 # the fusion encoder's stages, in order, for the isolation in phase 18
 FUSION_STAGES = ("features", "canvas", "fusion_conv", "tokens")
 FUSION_INDEX_ADD_RUNS = 3
 PHASE23_TEST_TILES = 8
 # the ablation twins of phases 23-25 predict the first ABLATION_TEST_TILES
-# of the test split, one batch (16 before a cut for the run's time)
-ABLATION_TEST_TILES = 8
+# of the test split, one batch (16, then 8 before phase 26 came: cuts
+# for the run's time; every path runs the whole split elsewhere)
+ABLATION_TEST_TILES = 4
 # The LiDAR and fusion grid (phase 25):
-# - `cli.modality_ablation` on the whole test split, `cli.lidar_density_ablation`
-#   and `cli.all_countries` on ABLATION_TEST_TILES, each row's
+# - `cli.modality_ablation`'s LiDAR and fusion rows on the first
+#   GRID_LIDAR_TEST_TILES test tiles, one batch (the whole 32-tile split
+#   before phase 26 came, cut for the run's time: phase 18 predicts
+#   p2p_fusion's whole split twice, phase 26 a trained FFL's);
+#   `cli.lidar_density_ablation` and `cli.all_countries` on
+#   ABLATION_TEST_TILES, each row's
 #   `best_val_iou` an earlier phase's checkpoint or a model seeded from
 #   GRID_SEED;
 # - under `run_type=release`, the first RELEASE_BATCHES train batches of the
 #   8-thread loader against the 0-thread loader, and
 #   `cli.measure_predict_e2e` on RELEASE_TEST_TILES test tiles.
 GRID_SEED = 0
+GRID_LIDAR_TEST_TILES = 16
 RELEASE_BATCHES = 3
 # the loader timed at 8 and 0 threads in turns over its first batches
 LOADER_TURN_BATCHES = 2
 RELEASE_TEST_TILES = 16
+# phase 25 (d)'s dense HiSup step on the card against the CPU on
+# DENSE_CPU_TILES tiles (2 before phase 26 came: the CPU step at 512 px
+# took 19.8 s; phase 17 holds HiSup-LiDAR's on 1 tile too)
+DENSE_CPU_TILES = 1
+# phase 25 (d) also steps FFL over the dense encoder once (`ffl_lidar
+# encoder=pointpillars`), its eval forward on DENSE_FFL_CPU_TILES tiles on
+# the card against the CPU (LIDAR_FWD_TOL)
+DENSE_FFL_CPU_TILES = 2
+# Phase 26, a trained FFL: FFL-image at bfloat16 from FFL_SEED's weights
+# through `cli.train` on the synthetic split at its own counts (256 train,
+# 32 val and 32 test tiles, in a dataset root of its own) from the device
+# cache, TRAINED_EPOCHS epochs of 16 steps: epochs 0-10 cross both of the
+# loss weights' switches (5 and 10), the val IoU runs at epochs 4, 9 and 10
+# and `save_every` writes epoch_10. The val IoU at the last epoch and the
+# test split's IoU from `best_val_iou` must reach TRAINED_MIN_IOU (the JAX
+# package's run on this data passed 0.69 at epoch 4; the BatchNorm fault it
+# once had pinned its val IoU at the ground truth's coverage, 0.085); the
+# LR of each epoch's last step equals the schedule's to TRAINED_LR_RTOL;
+# the peak device memory of the last epoch is within TRAINED_PEAK_RTOL of
+# the first's. Then one more epoch resumed from `latest`.
+TRAINED_EPOCHS = 11
+TRAINED_WEIGHT_EPOCHS = (0, 5, 10)
+TRAINED_MIN_IOU = 0.6
+TRAINED_LR_RTOL = 1e-6
+TRAINED_PEAK_RTOL = 0.05
 
 
 def fail(msg: str) -> None:
@@ -3001,17 +3062,16 @@ def ffl_bf16_card_against_cpu(cfg, first: dict) -> None:
         fail(f"bfloat16 FFL on the card differs from the CPU: {apart}")
 
 
-def phase_ffl_predict_tiles(overrides: list[str], dtype: str = "bfloat16", name: str = "ffl",
-                            tiles: int = FFL_BF16_TEST_TILES) -> dict:
-    """FFL prediction at `dtype` (bfloat16 from the bfloat16 training's
-    `latest`), through the functions `cli/predict.py::main` calls, on the
-    first `tiles` test tiles."""
+def phase_ffl_predict_tiles(overrides: list[str], dtype: str, name: str, tiles: int,
+                            checkpoint: str = "latest") -> dict:
+    """FFL prediction at `dtype` from `checkpoint`, through the functions
+    `cli/predict.py::main` calls, on the first `tiles` test tiles."""
     from pixelspointspolygons_torch.cli.evaluate import evaluate
     from pixelspointspolygons_torch.cli.predict import get_predictor
     from pixelspointspolygons_torch.config import compose
     from pixelspointspolygons_torch.ops.afm import afm_cuda
 
-    cfg = compose(overrides + [f"host.compute_dtype={dtype}", "evaluation=test", "checkpoint=latest",
+    cfg = compose(overrides + [f"host.compute_dtype={dtype}", "evaluation=test", f"checkpoint={checkpoint}",
                                f"run_type.test_subset={tiles}"])
     afm_cuda.launches = 0
     t0 = time.perf_counter()
@@ -3040,7 +3100,8 @@ def phase_ffl_predict_tiles(overrides: list[str], dtype: str = "bfloat16", name:
               f"ACM {t['acm_ms']:.2f} ms ({t['acm_steps']} steps, CUDA events) over {t['rings']} rings, "
               f"{t['vertices']} vertices, bucket {t['bucket']}, {t['dropped']} rings dropped; post-processing "
               f"{t['post_ms']:.2f} ms (host); host stage {t['host_ms']:.2f} ms; wall {t['wall_ms']:.2f} ms", flush=True)
-    return {"tiles_s": tiles_s, "batch_times": predictor.batch_times, "launches": launches, "results": results}
+    return {"tiles_s": tiles_s, "batch_times": predictor.batch_times, "launches": launches, "results": results,
+            "pred_file": pred_file}
 
 
 def ffl_asm_oracle(overrides: list[str], device: torch.device) -> dict:
@@ -3176,9 +3237,11 @@ def ffl_asm_profile(tensors: list, maps: list, schedule: torch.Tensor, kw: dict)
 
 
 def phase_ffl_training(overrides: list[str], smi: str) -> dict:
-    """Phase 15: FFL-image training at float32 and bfloat16 from the same
-    weights (FFL_SEED's, drawn on the CPU, taken up through
-    `init_weights_from`), bfloat16 prediction from its `latest`, and ASM."""
+    """Phase 15: FFL-image training at float32 from FFL_SEED's weights
+    (drawn on the CPU, taken up through `init_weights_from`), and ASM. Its
+    bfloat16 half (the first step against float32's, the maps on the card
+    against the CPU) and its bfloat16 prediction are phase 26's, from the
+    same weights."""
     from pixelspointspolygons_torch.config import compose
     from pixelspointspolygons_torch.models.ffl import build_ffl
 
@@ -3187,26 +3250,13 @@ def phase_ffl_training(overrides: list[str], smi: str) -> dict:
     torch.save({"model": model.state_dict()}, init)
     del model
     overrides = overrides + [f"init_weights_from={init}"]
-    trained = {dtype: phase_ffl_train(overrides, dtype) for dtype in ("float32", "bfloat16")}
-    first = {dtype: t["losses"][0] for dtype, t in trained.items()}
-    loss_err = {k: abs(first["bfloat16"][k] / first["float32"][k] - 1.0) for k in first["float32"]}
-    print(f"ffl first train step from the same weights on the same batch: float32 {first['float32']}, bfloat16 "
-          f"{first['bfloat16']}; rel diff {loss_err} (tol {FFL_BF16_LOSS_TOL})", flush=True)
-    if set(loss_err) != set(FFL_BF16_LOSS_TOL) or any(e > FFL_BF16_LOSS_TOL[k] for k, e in loss_err.items()):
-        fail(f"the bfloat16 FFL step's losses differ from float32's by {loss_err}")
-    for dtype, t in trained.items():
-        print(f"ffl train path ({dtype}): train step {t['step_ms']:.1f} ms, val step {t['val_ms']:.1f} ms, val-IoU "
-              f"pass {t['iou_pass_ms']:.1f} ms (val IoU {t['val_iou']:.4f}), peak {t['peak_bytes']} bytes, loader "
-              f"cold {t['loader_cold_ms']} and warm {t['loader_warm_ms']:.1f} ms per batch, by layer "
-              f"{json.dumps({k: round(v, 2) for k, v in t['breakdown'].items()})}, card {smi}", flush=True)
-    pred = phase_ffl_predict_tiles(overrides)
-    bt = pred["batch_times"]
-    med = {k: statistics.median(t[k] for t in bt) for k in ("device_ms", "contours_ms", "acm_ms", "post_ms")}
-    print(f"ffl predict path (bfloat16): {pred['tiles_s']:.2f} tiles/s; per batch of {B} (medians): forward "
-          f"{med['device_ms']:.2f} ms, contours {med['contours_ms']:.2f} ms, ACM {med['acm_ms']:.2f} ms, "
-          f"post-processing {med['post_ms']:.2f} ms; card {smi}", flush=True)
+    t = phase_ffl_train(overrides, "float32")
+    print(f"ffl train path (float32): train step {t['step_ms']:.1f} ms, val step {t['val_ms']:.1f} ms, val-IoU "
+          f"pass {t['iou_pass_ms']:.1f} ms (val IoU {t['val_iou']:.4f}), peak {t['peak_bytes']} bytes, loader "
+          f"cold {t['loader_cold_ms']} and warm {t['loader_warm_ms']:.1f} ms per batch, by layer "
+          f"{json.dumps({k: round(v, 2) for k, v in t['breakdown'].items()})}, card {smi}", flush=True)
     asm = phase_ffl_asm(overrides)
-    return {"trained": trained, "predict_bf16": pred, "asm": asm}
+    return {"float32": t, "asm": asm}
 
 
 # --- LiDAR and early fusion (phases 16-20) -------------------------------------
@@ -5257,8 +5307,9 @@ def grid_checkpoints(root: str, earlier: dict) -> dict:
 def grid_modality(root: str, earlier: dict, smi: str) -> dict:
     """(a) `cli.modality_ablation` over its nine experiments at their own
     configs (the fusion rows at `country: all`): the six LiDAR and fusion
-    rows on the whole test split, each predicted twice and held byte for
-    byte, then the three image rows on the first ABLATION_TEST_TILES."""
+    rows on the first GRID_LIDAR_TEST_TILES test tiles, each predicted
+    twice and held byte for byte, then the three image rows on the first
+    ABLATION_TEST_TILES."""
     from pixelspointspolygons_torch.cli import _ablation, modality_ablation
     from pixelspointspolygons_torch.config import compose
 
@@ -5269,8 +5320,8 @@ def grid_modality(root: str, earlier: dict, smi: str) -> dict:
     lidar = {e for e in experiments if compose([f"experiment={e}", "run_type=debug"]).experiment.encoder.use_lidar}
     rows, frames = {}, []
     # the image rows on ABLATION_TEST_TILES: phases 5, 6 and 14 predict their whole splits
-    runs = ((e for e in experiments if e in lidar), []), ((e for e in experiments if e not in lidar),
-                                                          [f"run_type.test_subset={ABLATION_TEST_TILES}"])
+    runs = (((e for e in experiments if e in lidar), [f"run_type.test_subset={GRID_LIDAR_TEST_TILES}"]),
+            ((e for e in experiments if e not in lidar), [f"run_type.test_subset={ABLATION_TEST_TILES}"]))
     with counted_predictions(_ablation, rows, tuple(lidar), "modality"), contextlib.chdir(root):
         for subset, extra in runs:
             modality_ablation.EXPERIMENTS = list(subset)
@@ -5285,7 +5336,7 @@ def grid_modality(root: str, earlier: dict, smi: str) -> dict:
     hold_rows("modality_ablation", df, "experiment", order, rows, lidar, smi)
     fusion = {e: rows[e]["country"] for e in modality_ablation.EXPERIMENTS if e.endswith("_fusion")}
     tiles = {e: rows[e]["tiles"] for e in experiments}
-    if set(fusion.values()) != {"all"} or any(n != (TEST_TILES if e in lidar else ABLATION_TEST_TILES)
+    if set(fusion.values()) != {"all"} or any(n != (GRID_LIDAR_TEST_TILES if e in lidar else ABLATION_TEST_TILES)
                                                for e, n in tiles.items()):
         fail(f"modality_ablation: the fusion rows' countries {fusion}, or tiles by row {tiles}")
     wall = time.perf_counter() - t0
@@ -5367,7 +5418,7 @@ def grid_dense(smi: str) -> dict:
     print(f"hisup_lidar_dense: {enc.name} at {enc.in_size} px, pillars of {enc.in_voxel_size.x} px, cap "
           f"{enc.max_num_points_per_voxel}, {enc.max_num_points} points a cloud", flush=True)
     train = phase_hisup_lidar_train(over, "hisup_lidar_dense", "PointPillarsDenseEncoder", bf16_step=False,
-                                    steps=GRID_TRAIN_STEPS, cpu_tiles=HISUP_BF16_CPU_TILES)
+                                    steps=GRID_TRAIN_STEPS, cpu_tiles=DENSE_CPU_TILES)
     gc.collect()
     torch.cuda.empty_cache()
     cfg = compose(over + ["evaluation=test", "checkpoint=latest"])
@@ -5518,8 +5569,275 @@ def phase_grid(earlier: dict, fusion_latest: str, smi: str) -> dict:
     out["dense"] = grid_dense(smi)
     gc.collect()
     torch.cuda.empty_cache()
+    out["dense_ffl"] = grid_dense_ffl(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     out["release"] = grid_release(fusion_latest, smi)
     return out
+
+
+def grid_dense_ffl(smi: str) -> dict:
+    """(d), FFL: `experiment=ffl_lidar encoder=pointpillars` (the dense
+    encoder at 512 px, `decoder.in_feature_dim` 32 by `config/model/ffl.yaml`)
+    one train step at batch 16 through its trainer's set-up with the
+    counters set to 0 just before and read just after (the pillar sums
+    once, 0 AFM launches), the next step timed, the peak, and an eval
+    forward on DENSE_FFL_CPU_TILES tiles on the card against the CPU and
+    against a second forward on the card (`forward_against_cpu`)."""
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.data.loader import device_prefetch
+    from pixelspointspolygons_torch.ops.afm import afm_cuda
+    from pixelspointspolygons_torch.ops.voxelize import pillar_sums_cuda
+    from pixelspointspolygons_torch.train.trainer_ffl import FFL_BATCH_KEYS, FFLTrainer
+
+    t0 = time.perf_counter()
+    cfg = compose(smoke_overrides(GRID_TRAIN_STEPS * B, "ffl_lidar") + ["encoder=pointpillars"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = FFLTrainer(cfg, device=CARD)
+    trainer.generator = torch.Generator(device=CARD).manual_seed(int(cfg.get("seed", 42)))
+    trainer.setup()
+    model = trainer.state.model
+    batch = next(iter(device_prefetch(trainer.train_loader, CARD, FFL_BATCH_KEYS)))
+    weights = trainer._weights_for_epoch(0)
+    afm_cuda.launches = pillar_sums_cuda.launches = 0
+    metrics = {k: float(v) for k, v in trainer._train_step(trainer.state, batch, weights).items()}
+    torch.cuda.synchronize()
+    launches, pillar_launches = afm_cuda.launches, pillar_sums_cuda.launches
+    t = time.perf_counter()
+    trainer._train_step(trainer.state, batch, weights)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    print(f"ffl_lidar_dense (float32, encoder {type(model.encoder).__name__} at {cfg.experiment.encoder.in_size} px, "
+          f"decoder width {cfg.experiment.model.decoder.in_feature_dim}): one train step at batch {B}: losses "
+          f"{ {k: round(v, 6) for k, v in metrics.items()} }, afm launches {launches}, pillar_sums launches "
+          f"{pillar_launches}; the next step {step_ms:.1f} ms; peak {peak / 2**30:.2f} GiB", flush=True)
+    if not all(np.isfinite(v) for v in metrics.values()) or launches or pillar_launches != 1:
+        fail(f"ffl_lidar_dense: the step gave {metrics} with {launches} afm launches (expected 0) and "
+             f"{pillar_launches} pillar_sums launches (expected 1)")
+    if type(model.encoder).__name__ != "PointPillarsDenseEncoder":
+        fail(f"ffl_lidar_dense: the encoder is {type(model.encoder).__name__}")
+    errs = forward_against_cpu("ffl_lidar_dense", model, "ffl",
+                               {k: v[:DENSE_FFL_CPU_TILES] for k, v in batch.items()}, "float32")
+    wall = time.perf_counter() - t0
+    print(f"phase 25 (d) ffl_lidar with the dense encoder: step {step_ms:.1f} ms, peak {peak / 2**30:.2f} GiB; "
+          f"{wall:.1f} s; card {smi}", flush=True)
+    del trainer, model, batch
+    return {"step_ms": step_ms, "peak_bytes": peak, "launches": launches, "pillar_launches": pillar_launches,
+            "losses": metrics, "errs": errs, "wall_s": wall}
+
+
+def _prebuild_trained(out_file: str) -> None:
+    """Phase 26's synthetic split written and its train and val splits
+    packed for the device cache (`cli.prebuild_caches`, host only), in a
+    process of its own held to one core, so that the phases it runs beside
+    keep the others (on all of them it slowed phase 4 by about 10 s); its
+    seconds and rows to `out_file`."""
+    import cv2
+
+    os.sched_setaffinity(0, {max(os.sched_getaffinity(0))})
+    cv2.setNumThreads(1)
+    torch.set_num_threads(1)
+    from pixelspointspolygons_torch.cli import prebuild_caches
+
+    t = time.perf_counter()
+    rows = prebuild_caches.main(["ffl_image", "train", "val", *trained_overrides()])
+    with open(out_file, "w") as f:
+        json.dump({"s": time.perf_counter() - t, "rows": rows}, f)
+
+
+def start_trained_prebuild() -> dict:
+    """Start `_prebuild_trained` beside the first phases (a daemon: it ends
+    with this process); phase 26 joins it."""
+    os.makedirs(WORK, exist_ok=True)
+    out_file = os.path.join(WORK, "trained_prebuild.json")
+    if os.path.exists(out_file):
+        os.remove(out_file)
+    proc = multiprocessing.get_context("spawn").Process(target=_prebuild_trained, args=(out_file,), daemon=True)
+    proc.start()
+    return {"proc": proc, "out_file": out_file, "t0": time.perf_counter()}
+
+
+@contextlib.contextmanager
+def first_step(trainer_cls, first: dict):
+    """While open, the first train step of a `trainer_cls` run leaves in
+    `first` its weights before the step (on the host), its batch (on the
+    card) and its losses."""
+    saved = trainer_cls.setup
+
+    def setup(self):
+        saved(self)
+        step = self._train_step
+
+        def recorded(state, batch, *args):
+            if first:
+                return step(state, batch, *args)
+            first["state"] = {k: v.detach().to("cpu", copy=True) for k, v in state.model.state_dict().items()}
+            first["batch"] = {k: v.clone() for k, v in batch.items()}
+            metrics = step(state, batch, *args)
+            first["losses"] = {k: float(v) for k, v in metrics.items()}
+            return metrics
+
+        self._train_step = recorded
+
+    trainer_cls.setup = setup
+    try:
+        yield first
+    finally:
+        trainer_cls.setup = saved
+
+
+def trained_overrides(extra: tuple[str, ...] = ()) -> list[str]:
+    """Phase 26's run: FFL-image at bfloat16 from the device cache on the
+    synthetic split at its own counts, in a dataset and model root of its
+    own (the 64-tile tree of the other phases is not rebuilt)."""
+    return ["experiment=ffl_image", "dataset=synthetic", "run_type=debug",
+            f"host.dataset_root={os.path.join(WORK, 'trained', 'data')}",
+            f"host.model_root={os.path.join(WORK, 'trained', 'outputs')}",
+            "run_type.train_subset=null", "run_type.val_subset=null", "run_type.test_subset=null",
+            "experiment.model.batch_size=16", "host.compute_dtype=bfloat16", "training.device_cache=true",
+            f"experiment.model.num_epochs={TRAINED_EPOCHS}",
+            f"init_weights_from={os.path.join(WORK, 'ffl_seeded_init.pt')}", *extra]
+
+
+def phase_trained_ffl(seeded: dict, prebuild: dict, smi: str) -> dict:
+    """Phase 26: FFL-image trained for TRAINED_EPOCHS epochs through
+    `cli.train`'s `main` (its epochs recorded by `trained_run.record_epochs`)
+    from the split that `prebuild` (`start_trained_prebuild`) wrote and
+    packed, one epoch more resumed from `latest`, and the test split
+    predicted from `best_val_iou` twice; `seeded` is phase 14's prediction
+    of the same split by a seeded model, printed beside."""
+    from pixelspointspolygons_torch.cli import train as cli_train
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.models.ffl.losses import make_ffl_loss
+    from pixelspointspolygons_torch.ops.afm import afm_cuda
+    from pixelspointspolygons_torch.ops.voxelize import pillar_sums_cuda
+    from pixelspointspolygons_torch.train.state import cosine_with_warmup
+    from pixelspointspolygons_torch.train.trainer_ffl import FFLTrainer
+    from trained_run import epoch_line, record_epochs
+
+    t0 = time.perf_counter()
+    prebuild["proc"].join()
+    if prebuild["proc"].exitcode != 0 or not os.path.exists(prebuild["out_file"]):
+        fail(f"phase 26: the split's prebuild process ended with {prebuild['proc'].exitcode}")
+    with open(prebuild["out_file"]) as f:
+        prep = json.load(f)
+    print(f"trained ffl: the split written and its train and val splits packed by cli.prebuild_caches in "
+          f"{prep['s']:.1f} s ({prep['rows']} rows), in a process started {t0 - prebuild['t0']:.1f} s before this "
+          f"phase; waited {time.perf_counter() - t0:.1f} s for it", flush=True)
+    overrides = trained_overrides()
+    cfg = compose(overrides)
+    ds = cfg.experiment.dataset
+    epochs, trainers, first = [], [], {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    afm_cuda.launches = pillar_sums_cuda.launches = 0
+    with record_epochs(FFLTrainer, epochs, trainers), first_step(FFLTrainer, first):
+        history = cli_train.main(overrides)
+    torch.cuda.synchronize()
+    launches = (afm_cuda.launches, pillar_sums_cuda.launches)
+    train_s = time.perf_counter() - t0
+    trainer = trainers[0]
+    if trainer.cache is None:
+        fail("phase 26: the FFL trainer took the host loader, not the device cache")
+    steps = len(trainer.cache["train"])
+    print(f"trained ffl: {ds.num_train} train, {ds.num_val} val tiles, batch {B}, {cfg.host.compute_dtype}, "
+          f"{len(epochs)} epochs of {steps} steps (the host loader's {len(trainer.train_loader)}) in {train_s:.1f} s "
+          f"(set-up included); ground truth and pack, then upload: {cache_setup_line(trainer)}; (afm, pillar_sums) "
+          f"launches {launches}", flush=True)
+    for rec in epochs:
+        print("  " + epoch_line(rec), flush=True)
+    _, weights_for_epoch = make_ffl_loss(cfg)
+    base_lr = float(cfg.experiment.model.learning_rate)
+    schedule = cosine_with_warmup(base_lr, steps * TRAINED_EPOCHS)
+    lr_err = [abs(r["lr_last"] / schedule(r["step"] - 1) - 1.0) for r in epochs]
+    weights_ok = all(epochs[e]["weights"] == weights_for_epoch(e) and epochs[e]["weights_constant"]
+                     for e in TRAINED_WEIGHT_EPOCHS)
+    losses_ok = all(np.isfinite(v) for r in epochs for k, v in r.items()
+                    if k == "loss" or k.startswith(("val_", "seg", "crossfield")))
+    val = {r["epoch"]: (r["val_iou"], r["val_ciou"]) for r in epochs if "val_iou" in r}
+    peaks = (epochs[0]["peak_bytes"], epochs[-1]["peak_bytes"])
+    names = ("best_val_iou", "latest", f"epoch_{TRAINED_EPOCHS - 1}")
+    written = {n: trainer.manager.exists(n) for n in names}
+    print(f"trained ffl: val IoU and C-IoU by epoch {json.dumps(val)}; LR at each epoch's last step against the "
+          f"schedule, largest relative difference {max(lr_err):.3g} (tol {TRAINED_LR_RTOL}); weights at epochs "
+          f"{TRAINED_WEIGHT_EPOCHS} as `weights_for_epoch`: {weights_ok}; peak at epochs 0 and "
+          f"{TRAINED_EPOCHS - 1}: {peaks[0] / 2**30:.3f} and {peaks[1] / 2**30:.3f} GiB; checkpoints {written}; "
+          f"card {smi}", flush=True)
+    if len(epochs) != TRAINED_EPOCHS or steps != len(trainer.train_loader) or steps * B != ds.num_train:
+        fail(f"phase 26: {len(epochs)} epochs of {steps} steps (the host loader's {len(trainer.train_loader)})")
+    if launches != (0, 0) or not losses_ok or not np.isfinite(history["loss"]):
+        fail(f"phase 26: launches {launches}, finite losses {losses_ok}")
+    if max(lr_err) > TRAINED_LR_RTOL or not weights_ok or not all(written.values()):
+        fail(f"phase 26: LR error {max(lr_err)}, weights {weights_ok}, checkpoints {written}")
+    if sorted(val) != [4, 9, TRAINED_EPOCHS - 1] or val[TRAINED_EPOCHS - 1][0] < TRAINED_MIN_IOU:
+        fail(f"phase 26: the val IoU at epoch {TRAINED_EPOCHS - 1} is below {TRAINED_MIN_IOU}: {val}")
+    if abs(peaks[1] / peaks[0] - 1.0) > TRAINED_PEAK_RTOL:
+        fail(f"phase 26: the peak at the last epoch {peaks[1]} is not within {TRAINED_PEAK_RTOL} of the first's "
+             f"{peaks[0]}")
+    step_before = int(trainer.state.step)
+    del trainer, trainers[:]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 15's bfloat16 checks: the first step against a float32 step from the same weights on the same batch,
+    # and the maps on the card against the CPU from those weights
+    f32 = ffl_step_losses(compose(overrides + ["host.compute_dtype=float32"]), first["state"], first["batch"],
+                          weights_for_epoch(0))
+    loss_err = {k: abs(first["losses"][k] / f32[k] - 1.0) for k in f32}
+    print(f"trained ffl: the first step (bfloat16, from the cache) against a float32 step from the same weights on "
+          f"the same batch: bfloat16 {first['losses']}, float32 {f32}; rel diff {loss_err} (tol {FFL_BF16_LOSS_TOL})",
+          flush=True)
+    if set(loss_err) != set(FFL_BF16_LOSS_TOL) or any(e > FFL_BF16_LOSS_TOL[k] for k, e in loss_err.items()):
+        fail(f"the bfloat16 FFL step's losses differ from float32's by {loss_err}")
+    ffl_bf16_card_against_cpu(cfg, {"state": first["state"],
+                                    "batch": {k: v[:BF16_EVAL_TILES].cpu() for k, v in first["batch"].items()}})
+    del first
+
+    # one more epoch, resumed from `latest` at full width
+    t = time.perf_counter()
+    resumed_epochs, resumed = [], []
+    afm_cuda.launches = 0
+    with record_epochs(FFLTrainer, resumed_epochs, resumed):
+        more = cli_train.main(overrides + ["checkpoint=latest", f"experiment.model.num_epochs={TRAINED_EPOCHS + 1}"])
+    torch.cuda.synchronize()
+    trainer = resumed[0]
+    print(f"trained ffl resumed from latest: start epoch {trainer.start_epoch}, steps {step_before} before and "
+          f"{trainer.state.step} after, {time.perf_counter() - t:.1f} s; "
+          + "; ".join(epoch_line(r) for r in resumed_epochs), flush=True)
+    if (trainer.start_epoch, step_before, int(trainer.state.step), len(resumed_epochs)) != (
+            TRAINED_EPOCHS, steps * TRAINED_EPOCHS, steps * (TRAINED_EPOCHS + 1), 1) or afm_cuda.launches or not all(
+            np.isfinite(v) for k, v in more.items() if k != "epoch"):
+        fail(f"phase 26: the resume started at epoch {trainer.start_epoch} from step {step_before} and ended at "
+             f"{trainer.state.step}; afm launches {afm_cuda.launches}; {more}")
+    del trainer, resumed[:]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the test split from best_val_iou, twice
+    preds, files = [], []
+    for _ in range(2):
+        preds.append(phase_ffl_predict_tiles(overrides, "bfloat16", "trained ffl", ds.num_test, "best_val_iou"))
+        with open(preds[-1]["pred_file"], "rb") as f:
+            files.append(f.read())
+    hold_repeat("ffl_image_trained_split", files[0], files[1], [0, 0])
+    pred = preds[0]
+    iou = pred["results"]["IoU"]
+    for what, p in (("trained (best_val_iou, bfloat16)", pred), ("seeded (phase 14, float32)", seeded)):
+        bt = p["batch_times"]
+        print(f"ffl test split, {what}: {p['tiles_s']:.2f} tiles/s; per batch ACM "
+              f"{[round(t['acm_ms'], 1) for t in bt]} ms, rings {[t['rings'] for t in bt]}, vertices "
+              f"{[t['vertices'] for t in bt]}; IoU {p['results']['IoU']:.4f}, C-IoU {p['results']['C-IoU']:.4f}",
+              flush=True)
+    if iou < TRAINED_MIN_IOU or any(p["launches"] for p in preds):
+        fail(f"phase 26: the test split's IoU from best_val_iou is {iou} (floor {TRAINED_MIN_IOU}); afm launches "
+             f"{[p['launches'] for p in preds]}")
+    wall = time.perf_counter() - t0
+    print(f"phase 26 trained ffl: val IoU {val[TRAINED_EPOCHS - 1][0]:.4f} at epoch {TRAINED_EPOCHS - 1}, test IoU "
+          f"{iou:.4f}; {wall:.1f} s; card {smi}", flush=True)
+    return {"epochs": epochs, "val": val, "launches": launches, "predict_launches": pred["launches"], "test_iou": iou,
+            "wall_s": wall}
 
 
 # phase label -> its seconds, and when the last phase ended
@@ -5559,6 +5877,7 @@ def main() -> None:
     print(f"card: {smi}", flush=True)
     set_tf32(False)
     phase_build()
+    trained_prebuild = start_trained_prebuild()
     phase_done("1-2")
     overrides = smoke_overrides(TRAIN_STEPS * B)
     afm_row = phase_afm(compose(overrides))
@@ -5696,6 +6015,8 @@ def main() -> None:
         ("p2p_image", p2p_overrides), ("ffl_image", ffl_overrides), ("hisup_lidar", lidar_overrides("hisup_lidar")))}
     grid = phase_grid({"hisup_image": float32_latest, "p2p_fusion": fusion_seeded, **latest}, fusion_seeded, smi)
     phase_done("25")
+    trained_ffl = phase_trained_ffl(ffl, trained_prebuild, smi)
+    phase_done("26")
     rows = {part: grid[part]["rows"] for part in ("modality", "density", "countries")}
     missing = [p for p in REPEAT_PATHS if p not in REPEATS]
     print(f"repeat checks: {len(REPEATS)} prediction paths held bitwise equal from one prediction to the next; "
@@ -5708,9 +6029,9 @@ def main() -> None:
         "pix2poly_train_bfloat16": trained["bfloat16"]["launches"], "pix2poly_predict_bfloat16": pbf["launches"],
         "hisup_train_bfloat16": launches_bf16["afm"], "hisup_predict_bfloat16": pred_bf16["launches"],
         "ffl_predict": ffl["launches"],
-        "ffl_train_float32": ffl_train["trained"]["float32"]["launches"],
-        "ffl_train_bfloat16": ffl_train["trained"]["bfloat16"]["launches"],
-        "ffl_predict_bfloat16": ffl_train["predict_bf16"]["launches"],
+        "ffl_train_float32": ffl_train["float32"]["launches"],
+        "ffl_train_bfloat16": trained_ffl["launches"][0],
+        "ffl_predict_bfloat16": trained_ffl["predict_launches"],
         "hisup_lidar_train": lidar["launches"], "p2p_fusion_predict": fusion["launches"],
         **{f"{e}_step": t["launches"] for e, t in steps.items()},
         "hisup_lidar_train_cache_remat": hl["launches"], "hisup_fusion_step_remat": cached["hisup_fusion"]["launches"],
@@ -5730,6 +6051,7 @@ def main() -> None:
         **{f"grid_{part}": sum(r["afm"] for r in rs.values()) for part, rs in rows.items()},
         "hisup_lidar_dense_train": grid["dense"]["launches"],
         "hisup_lidar_dense_predict": sum(a for a, _ in grid["dense"]["predict_launches"]),
+        "ffl_lidar_dense_step": grid["dense_ffl"]["launches"],
         "release_hisup_lidar_train": grid["release"]["hisup_lidar"]["launches"][0],
         "release_measure_predict_e2e": grid["release"]["predict_e2e"]["launches"][0],
     }
@@ -5743,6 +6065,7 @@ def main() -> None:
            if sum(r["pillar_sums"])},
         "hisup_lidar_dense_train": grid["dense"]["pillar_launches"],
         "hisup_lidar_dense_predict": sum(p for _, p in grid["dense"]["predict_launches"]),
+        "ffl_lidar_dense_step": grid["dense_ffl"]["pillar_launches"],
         "release_hisup_lidar_train": grid["release"]["hisup_lidar"]["launches"][1],
         "release_measure_predict_e2e": grid["release"]["predict_e2e"]["launches"][1],
         **{f"repeat_{p}": n for p, n in REPEATS.items()},

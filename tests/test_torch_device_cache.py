@@ -31,11 +31,17 @@ Tolerances and why:
   within 3 % of each sample's sigma (over ≥ 3,000 pixels a sample);
 - a train step's losses: 1e-5 relative (float32 sums in another order;
   ROADMAP 3.11); BatchNorm statistics 5e-4 relative (+1e-5,
-  tests/test_torch_slice_lidar.py); the HiSup-fusion gradient 2e-3 in
-  relative L2: on one thread torch's CPU convolution sums each weight
-  gradient over B·H·W in one float32 chain, so the port's float32 gradient
-  lies 1.2e-3 from its float64 one on this model (2.4e-5 with torch's
-  thread pool), JAX's 1.4e-5;
+  tests/test_torch_slice_lidar.py);
+- the HiSup-fusion gradient, relative L2 over all parameters (ROADMAP
+  3.16): the port's float32 gradient within 2e-3 of JAX's (reads 1.2e-3);
+  the step itself with the model, its weights and the batch in float64
+  (JAX under x64; both packages take the loss terms in float32), the
+  port's gradient within 1e-5 of JAX's (reads 3.4e-6); and each package's
+  float32 gradient within 2e-3 of its own float64 one (reads 1.5e-3 for
+  the port on one thread, where torch's CPU convolution sums each weight
+  gradient over B·H·W in one float32 chain, and 8.6e-4 for JAX): HiSup's
+  float32 gradient is ill-conditioned, and the 2e-3 between the packages
+  measures each one's float32 rounding, not a difference of their steps;
 - remat against no remat (the port): equal losses, gradients and BatchNorm
   buffers (the recompute runs the same CPU kernels on the same inputs);
 - the PillarFeatureNet at each pad: 2e-5 absolute (tests/test_torch_lidar.py);
@@ -93,6 +99,7 @@ from test_torch_hisup import TOPO
 from test_torch_lidar import _canvas_variables
 
 S, DIM, LR, WD = 64, 16, 1e-4, 1e-4
+GRAD64_TOL, GRAD32_TOL = 1e-5, 2e-3
 CPU = torch.device("cpu")
 IMAGE_TOL = 1e-5
 AUGS = "[D4,ColorJitter,Normalize]"
@@ -517,28 +524,47 @@ def hisup_fusion(roots):
     weights = {k: float(v) for k, v in jcfg.experiment.model.loss_weights.items()}
     jm = JaxHiSup(encoder_cfg={"name": "fusion_hrnet", **HR}, dim=DIM, pred_size=S)
     variables = flax_init(jm, {k: jb[k] for k in ("images", "lidar", "lidar_mask")})
-    fwd = jax.checkpoint(lambda params, batch_stats, inputs: jm.apply(
-        {"params": params, "batch_stats": batch_stats}, inputs, train=True, mutable=["batch_stats"]))
 
-    @jax.jit
-    def step(params, batch):
-        def loss_fn(p):
-            outputs, mut = fwd(p, variables["batch_stats"], {k: batch[k] for k in ("images", "lidar", "lidar_mask")})
-            losses = hisup_losses(outputs, encode_targets(batch, S))
-            return sum(weights[k] * v for k, v in losses.items()), (losses, mut["batch_stats"])
+    def make_step(model):
+        fwd = jax.checkpoint(lambda params, batch_stats, inputs: model.apply(
+            {"params": params, "batch_stats": batch_stats}, inputs, train=True, mutable=["batch_stats"]))
 
-        (total, (losses, stats)), grads = jax.value_and_grad(loss_fn, has_aux=True)(params)
-        return {"loss": total, **losses}, stats, grads
+        @jax.jit
+        def step(params, batch_stats, batch):
+            def loss_fn(p):
+                outputs, mut = fwd(p, batch_stats, {k: batch[k] for k in ("images", "lidar", "lidar_mask")})
+                losses = hisup_losses(outputs, encode_targets(batch, S))
+                return sum(weights[k] * v for k, v in losses.items()), (losses, mut["batch_stats"])
+
+            (total, (losses, stats)), grads = jax.value_and_grad(loss_fn, has_aux=True)(params)
+            return {"loss": total, **losses}, stats, grads
+
+        return step
+
+    step = make_step(jm)
 
     def run(batch):
-        metrics, stats, grads = jax.device_get(step(variables["params"], {k: jnp.asarray(_np(v)) for k, v in batch.items()}))
+        metrics, stats, grads = jax.device_get(step(variables["params"], variables["batch_stats"],
+                                                    {k: jnp.asarray(_np(v)) for k, v in batch.items()}))
         return metrics, flax_to_state_dict({}, stats), flax_to_state_dict(grads)
 
-    return {"jb": jb, "pb": pb, "variables": variables, "weights": weights, "run": run}
+    def grads64(batch):
+        """JAX's gradient of the same step with the model, its weights and
+        the batch's floats in float64 (x64 on; both packages' loss terms
+        stay float32)."""
+        with jax.enable_x64(True):
+            wide = lambda tree: jax.tree_util.tree_map(lambda x: jnp.asarray(x, jnp.float64), tree)  # noqa: E731
+            b = {k: jnp.asarray(_np(v), jnp.float64 if np.issubdtype(_np(v).dtype, np.floating) else None)
+                 for k, v in batch.items()}
+            _, _, grads = jax.device_get(make_step(jm.clone(dtype=jnp.float64))(
+                wide(variables["params"]), wide(variables["batch_stats"]), b))
+        return flax_to_state_dict(grads)
+
+    return {"jb": jb, "pb": pb, "variables": variables, "weights": weights, "run": run, "grads64": grads64}
 
 
-def _port_hisup_state(variables):
-    model = HiSup(FusionHRNetEncoder(out_dim=DIM, **HR), dim=DIM, pred_size=S)
+def _port_hisup_state(variables, dtype: torch.dtype = torch.float32):
+    model = HiSup(FusionHRNetEncoder(out_dim=DIM, **HR, dtype=dtype), dim=DIM, pred_size=S, dtype=dtype).to(dtype)
     model.load_state_dict(flax_to_state_dict(variables["params"], variables["batch_stats"]))
     opt = make_optimizer("adamw", model.parameters(), LR, weight_decay=WD)
     return TrainState(model, opt, make_scheduler(opt, cosine_with_warmup(LR, 10), LR))
@@ -566,7 +592,10 @@ def test_hisup_remat_step_matches_the_plain_step_and_jax(hisup_fusion):
     port's cache batch: equal losses, gradients, updated weights and
     BatchNorm buffers (a recompute that updated the running statistics a
     second time would show here); the remat step against JAX's checkpointed
-    step on the same batch: losses, gradient, BatchNorm statistics."""
+    step on the same batch: losses, gradient, BatchNorm statistics; the
+    same two steps in float64, their gradients against each other, and each
+    package's float32 gradient against its own float64 one (ROADMAP
+    3.16)."""
     s = hisup_fusion
     assert set(s["pb"]) == set(HISUP_KEYS)
     want, want_stats, want_grads = s["run"](s["pb"])
@@ -587,6 +616,15 @@ def test_hisup_remat_step_matches_the_plain_step_and_jax(hisup_fusion):
     assert all(torch.equal(g0[k], g1[k]) for k in g0)
     assert all(torch.equal(w0[k], w1[k]) for k in w0)
     assert set(g1) == set(want_grads) and _rel_l2(g1, want_grads) <= 2e-3
+    # ROADMAP 3.16: the step itself held in float64, each package's float32 gradient against its own
+    state64 = _port_hisup_state(s["variables"], torch.float64)
+    hisup_step.make_train_step(s["weights"], S, remat=True)(
+        state64, {k: v.double() if v.is_floating_point() else v for k, v in s["pb"].items()})
+    port64 = {n: p.grad for n, p in state64.model.named_parameters()}
+    jax64 = s["grads64"](s["pb"])
+    assert set(port64) == set(jax64) == set(g1)
+    assert _rel_l2(port64, jax64) <= GRAD64_TOL
+    assert _rel_l2(g1, port64) <= GRAD32_TOL and _rel_l2(want_grads, jax64) <= GRAD32_TOL
     assert set(want_stats) == set(before)
     for k, v in want_stats.items():
         np.testing.assert_allclose(w1[k].numpy(), v.numpy(), rtol=5e-4, atol=1e-5, err_msg=k)

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no file of `pixelspointspolygons_torch/`
 and not `chip_smoke.py`, `afm_bench.py`, `bench_torch.py`,
-`hisup_resize_bench.py` or `graft_entry_torch.py` imports JAX, flax, optax, orbax or the JAX package,
+`hisup_resize_bench.py`, `graft_entry_torch.py` or `trained_run.py` imports JAX, flax, optax, orbax or the JAX package,
 and a fresh process that imports every module of the port, takes a HiSup
 and a Pix2Poly train step and decodes with a Pix2Poly on the CPU has none
 of them loaded. Every `NotImplementedError` the port raises names a ROADMAP
@@ -22,7 +22,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pixelspointspolygons_tp
 def _sources():
     files = [os.path.join(ROOT, name)
              for name in ("chip_smoke.py", "afm_bench.py", "bench_torch.py", "hisup_resize_bench.py",
-                          "graft_entry_torch.py")]
+                          "graft_entry_torch.py", "trained_run.py")]
     for d, _, names in os.walk(PORT):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
