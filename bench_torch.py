@@ -55,11 +55,12 @@ def run(batch: int = 16, iters: int = 20, repeats: int = 5, device: str = "cuda"
     """Time the bfloat16 fixed-length decode and its no-cache baseline;
     returns bench.py's JSON object (plus the device and the batch)."""
     from pixelspointspolygons_torch.config import compose
-    from pixelspointspolygons_torch.device import resolve_device, set_tf32
+    from pixelspointspolygons_torch.device import resolve_device, set_deterministic, set_tf32
     from pixelspointspolygons_torch.models.pix2poly import Tokenizer, build_pix2poly, greedy_generate
 
     dev = resolve_device(device)
     set_tf32(False)
+    set_deterministic(dev)
     cfg = compose(["experiment=p2p_image", "run_type=debug", *overrides])
     tokenizer = Tokenizer(cfg)
     model = build_pix2poly(cfg, tokenizer, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED),

@@ -23,7 +23,16 @@ fails:
      kernel's registers, shared memory and spills (ptxas) and blocks per
      SM; timed warm (back-to-back calls, and in a CUDA graph) and cold (the
      L2 flushed by a 256 MB write before each call) beside the two
-     `index_add_` calls they replace;
+     `index_add_` calls they replace; the PillarFeatureNet's ordered
+     backward (`csrc/run_sums.cu`) bitwise equal to its plain version at 64
+     channels on those layouts flattened as `PillarCanvas` flattens them
+     (dump cells included; float32, float64 and bfloat16 at every cap on the
+     small ones, float32 on the 16 x 200,000-point one at cap 64 and float64
+     on the dense grid at cap 4) and over three calls, its ptxas usage
+     and blocks per SM, timed warm, in a CUDA graph and cold on the main
+     path's ids (cap 64) beside its plain version and the `index_put_` it
+     replaced, at 384 channels too, and on the dense grid; on the main
+     path's ids bitwise equal to its plain version at 64 and 384 channels;
   4. the training path: HiSup-image training (HRNetV2-W48, 224 px, head
      width 256, batch 16) through the trainer for 2 train steps, 1 val step
      and the val-IoU pass (the val split polygonized), with every kernel
@@ -48,8 +57,9 @@ fails:
      decode loop and ScoreNets (CUDA events), the decode loop's host time
      and steps, host-stage and wall time, the metric dict; the fixed-length
      decode of `bench.py` (385 steps, Sinkhorn) on a batch of 16, timed and
-     cut at its stages, and one decode step profiled (aten calls, kernels,
-     the card's busy share); on 1 tile the card against the CPU (encoder
+     cut at its stages, its steps replayed from their CUDA graph held
+     bitwise to the step run as it is, and one replayed decode step profiled
+     (aten calls, kernels, the card's busy share); on 1 tile the card against the CPU (encoder
      tokens, teacher-forced logits and their argmax, raw scores) and the
      KV-cached decode against a full re-forward, for the model and for a
      copy whose embeddings are redrawn at unit scale and whose
@@ -264,6 +274,29 @@ fails:
      on the same batch (FFL_BF16_LOSS_TOL), the bfloat16 maps of those
      weights on the card against the CPU on 1 tile, and its prediction's
      (compute dtype, float16 maps, failed batches, launches).
+ 27. repeatable training (ROADMAP 3.25): every phase runs on the card under
+     the entry points' set-up (`device.set_deterministic`: deterministic
+     algorithms that raise, cuDNN deterministic, cuBLAS's fixed workspace;
+     printed at the start and again here), and each training path runs
+     twice in one process from one seed, the same weights, optimizer,
+     schedule and data, for 2 steps (REPEAT_STEPS), its kernel counters set
+     to 0 just before each run and read just after: the batches, every
+     step's losses, every gradient of the first step, every parameter and
+     buffer (the BatchNorm running statistics) and the optimizer's state
+     must be bitwise equal, and so must the AFM, pillar-sums and run-sums
+     launches; on a mismatch the first module in forward order whose
+     gradient differs is printed. The phases that build a path's trainer
+     run it (`train_twice`): hisup_image at float32 and bfloat16 (phases 4
+     and 10), p2p_image at both (7-8) and ffl_image at float32 (15), batch
+     16 at full width, from the host loader; ffl_image from the device cache
+     at float32 and bfloat16 (21: its bfloat16 path, batch 16 at full width,
+     takes the cache's batches); hisup_lidar from the host loader (17),
+     HiSup-image's DDP step at world size 1 over NCCL (22, one batch for
+     both steps), FFL over UNet-ResNet101 and ConvNeXt-V2-T (23) and
+     HiSup-LiDAR over the dense encoder at 512 px (25 (d)). This phase runs
+     p2p_fusion (batch 16, host loader) and hisup_fusion with remat from the
+     device cache (batch 8, REPEAT_FUSION_BATCH: the time), prints the
+     table and fails unless every path of TRAIN_REPEAT_PATHS was held.
 The repeat checks (ROADMAP 3.21): every prediction path predicts twice
 from the same weights on the same tiles, and the two must be bitwise equal:
 hisup_image, p2p_image and ffl_image on the first test batch of phases 5,
@@ -273,7 +306,7 @@ byte), and two eval forwards on 2 tiles of phase 17's hisup_lidar and on
 1 tile of phase 19's p2p_lidar, hisup_fusion, ffl_lidar and ffl_fusion.
 Each LiDAR and fusion path sets the pillar_sums counter to 0 just before it
 and reads it just after, and fails if the kernel was launched no time.
-They run in the order 1-5, 10-15, 6-9, 16-26; each phase prints its
+They run in the order 1-5, 10-15, 6-9, 16-27; each phase prints its
 seconds. The run has 1,200 s, and its host-bound phases read up to a third
 slower on one machine than on another, so depth is cut where a path is
 driven at full width elsewhere: 2 train steps before phase 25
@@ -291,6 +324,7 @@ import collections
 import contextlib
 import gc
 import importlib
+import itertools
 import json
 import math
 import mmap
@@ -362,6 +396,9 @@ P2P_CPU_TILES = 1
 # the early-exit check raises EOS's output bias so that every row of the
 # batch stops by this step
 P2P_EXIT_BY = 150
+# the fixed-length decode replayed from its CUDA graph is held to its step
+# run as it is over this many steps (every step replays the same graph)
+P2P_GRAPH_CHECK_STEPS = 64
 P2P_SEED = 0
 P2P_SHARPEN = 4.0
 # Pix2Poly training, one step on 2 tiles from the trainer's initial weights,
@@ -532,6 +569,12 @@ ASM_MEDIAN_PX = 0.1
 #   HISUP_BF16_REL_L2 in relative L2 at bfloat16. hisup_fusion (HRNetV2-W48
 #   and the pillar ViT) runs at LIDAR_STEP_DTYPE's dtype.
 LIDAR_CAPS = (4, 64, 512)
+# csrc/run_sums.cu launches in a LiDAR train step's backward: the gather of
+# the first PFN layer's pooled rows, and each of the two layers' tie counts
+RUN_SUMS_PER_STEP = 3
+# the gradient rows phase 3 holds it to its plain version at: the first
+# PFN layer's width
+RUN_SUMS_CHANNELS = 64
 LIDAR_SEED = 0
 LIDAR_CANVAS_TILES = 1
 LIDAR_CANVAS_TOL = 1e-4
@@ -1224,6 +1267,189 @@ def phase_pillar_sums() -> dict:
     }
 
 
+def run_sums_ids(pid_s: torch.Tensor, cap: int, n_cells: int) -> torch.Tensor:
+    """The PillarFeatureNet's flat ids for sorted pillar ids (B, N) at
+    `cap`, as `PillarCanvas` gives them: each kept point's pillar, every
+    other row its sample's dump cell, offset by sample."""
+    from pixelspointspolygons_torch.ops.segment import rank_in_run
+    from pixelspointspolygons_torch.ops.voxelize import cell_offsets
+
+    keep = (pid_s < n_cells) & (rank_in_run(pid_s) < cap)
+    return (torch.where(keep, pid_s, n_cells) + cell_offsets(pid_s.shape[0], n_cells, pid_s.device)).reshape(-1)
+
+
+def run_rows(n: int, channels: int, seed: int, dtype: torch.dtype) -> torch.Tensor:
+    """(n, channels) rows drawn on the card from `seed`, spanning nine orders
+    of magnitude with either sign: a sum in any other order than the rows'
+    gives other bits."""
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    scale = 10.0 ** (torch.rand((n, 1), generator=gen, device=CARD) * 9.0 - 3.0)
+    return (torch.randn((n, channels), generator=gen, device=CARD) * scale).to(dtype)
+
+
+def run_sums_layouts_against_plain() -> int:
+    """`run_sums_cuda` bitwise against its plain version, and against itself
+    over three calls, at RUN_SUMS_CHANNELS channels on the layouts of
+    `ops/pillar_layouts.py`, flattened as the PillarFeatureNet flattens
+    them: the small ones at the caps LIDAR_CAPS in float32, float64 and
+    bfloat16, the 16 x 200,000-point one at cap 64 in float32 and the dense
+    grid at its cap 4 in float64 (the plain version takes seconds there: a
+    loop over the longest chain). Returns the number of cases."""
+    from pixelspointspolygons_torch.ops.pillar_layouts import DENSE_CAP, dense_layout, large_layout, small_layouts
+    from pixelspointspolygons_torch.ops.run_sums import run_sums, run_sums_cuda
+
+    cases = [(name, pid, n_cells, cap, dtype) for name, (_, pid, n_cells) in small_layouts().items()
+             for cap in LIDAR_CAPS for dtype in (torch.float32, torch.float64, torch.bfloat16)]
+    _, pid, n_cells = large_layout()
+    cases.append(("large", pid, n_cells, 64, torch.float32))
+    _, pid, n_cells = dense_layout()
+    cases.append(("dense", pid, n_cells, DENSE_CAP, torch.float64))
+    for i, (name, pid, n_cells, cap, dtype) in enumerate(cases):
+        pid_s = torch.from_numpy(pid).to(CARD)
+        B = pid_s.shape[0]
+        ids = run_sums_ids(pid_s, cap, n_cells)
+        x = run_rows(len(ids), RUN_SUMS_CHANNELS, i, dtype)
+        S = B * (n_cells + 1)
+        got = run_sums_cuda(x, ids, S, B)
+        want = run_sums(x, ids, S)
+        again = [run_sums_cuda(x, ids, S, B) for _ in range(3)]
+        torch.cuda.synchronize()
+        equal, repeat = same_bits(got, want), all(same_bits(got, a) for a in again)
+        if not (equal and repeat):
+            err = (got.double() - want.double()).abs().max().item()
+            fail(f"run_sums on the layout {name} ({str(dtype)[6:]}, cap {cap}): the kernel differs from its plain "
+                 f"version ({equal}, largest gap {err:.3e}) or from itself ({repeat})")
+    return len(cases)
+
+
+def run_sums_plain_check(x: torch.Tensor, ids: torch.Tensor, S: int, B: int, what: str) -> float:
+    """One call of the plain version `run_sums` (seconds: a loop over the
+    longest chain), held bitwise against `run_sums_cuda` on the same
+    inputs; returns the plain version's CUDA-event ms."""
+    from pixelspointspolygons_torch.ops.run_sums import run_sums, run_sums_cuda
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = run_sums(x, ids, S)
+    end.record()
+    got = run_sums_cuda(x, ids, S, B)
+    torch.cuda.synchronize()
+    if not same_bits(got, want):
+        err = (got.double() - want.double()).abs().max().item()
+        fail(f"run_sums {what}: the kernel differs from its plain version (largest gap {err:.3e})")
+    return start.elapsed_time(end)
+
+
+def run_sums_times(x: torch.Tensor, ids: torch.Tensor, S: int, B: int, what: str, plain: bool = True) -> dict:
+    """CUDA-event times of `run_sums_cuda` warm (back-to-back calls, and
+    replayed in a CUDA graph), cold (the L2 flushed before each call), of
+    the plain version (with `plain`, whose result the kernel's must equal
+    bitwise) and of the route it replaced (`index_put_` with accumulate,
+    autograd's backward of `pooled[pillar_id]`), and the bound."""
+    from pixelspointspolygons_torch.ops.run_sums import run_sums_cuda
+
+    ms = cuda_ms(lambda: run_sums_cuda(x, ids, S, B), launches=10, rounds=5)
+    graph = graph_ms(lambda: run_sums_cuda(x, ids, S, B), launches=10, rounds=3)
+    cold = cold_ms(lambda: run_sums_cuda(x, ids, S, B), rounds=5)
+    plain = run_sums_plain_check(x, ids, S, B, what) if plain else None
+    library = cuda_ms(lambda: x.new_zeros((S, x.shape[1])).index_put_((ids,), x, accumulate=True), launches=2,
+                      rounds=3)
+    size = x.element_size()
+    nbytes = x.numel() * size + ids.numel() * 8 + S * x.shape[1] * size
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, x.numel() / PEAK_FP32_FLOPS * 1e3
+    bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
+    print(f"run_sums {what}: kernel {ms:.5f} ms warm ({graph:.5f} ms replayed in a CUDA graph), {cold:.5f} ms cold "
+          f"(L2 flushed), plain {plain} ms{' (bitwise equal to the kernel)' if plain else ''}, index_put_ with accumulate (the route it replaced) {library:.4f} ms "
+          f"(CUDA events); bound {bound_ms:.5f} ms ({bound_by}: {nbytes / 1e6:.2f} MB of rows, ids and sums)",
+          flush=True)
+    return {"ms": ms, "graph_ms": graph, "cold_ms": cold, "plain_ms": plain, "library_ms": library,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes}
+
+
+def phase_run_sums() -> dict:
+    """Phase 3, the PillarFeatureNet's backward kernel: `run_sums_cuda`
+    against its plain version `run_sums` on the layouts of
+    `ops/pillar_layouts.py` (bitwise, and over three calls); its registers,
+    shared memory and spills (ptxas) and blocks per SM; on the synthetic
+    train split's first 16 clouds at 200,000 points, at cap 64 (the main
+    path's ids): at 64 channels (the gather's gradient and the first
+    layer's tie count) times of the kernel warm, in a CUDA graph and cold,
+    of the plain version and of the `index_put_` it replaced; at 384 (the
+    second layer's) the kernel's time warm and the plain version's; at both
+    widths the kernel bitwise equal to the plain version; and times on the
+    dense encoder's grid."""
+    from pixelspointspolygons_torch.ops import build
+    from pixelspointspolygons_torch.ops.pillar_layouts import DENSE_CAP, dense_layout
+    from pixelspointspolygons_torch.ops.run_sums import run_sums_config
+    from pixelspointspolygons_torch.ops.voxelize import sort_by_pillar
+
+    conf = run_sums_config()
+    design = (f"one launch: a block of {conf['warps']} warps per (sample, 32 channels) walks the sample's dump-cell "
+              f"chain, 8 warps staging its rows in tiles of {conf['tile_bytes']} bytes in two buffers while warp 0 "
+              f"adds the flagged rows in order, lane c channel c; the other blocks take 32 rows a warp, a lane a "
+              f"row, and for each pillar run that starts there find its end 32 ids a round and add its rows in "
+              f"order, lane c channel c")
+    print(f"run_sums kernel: {design}; blocks per SM: {conf['blocks_per_sm_float']} float32, "
+          f"{conf['blocks_per_sm_double']} float64, {conf['blocks_per_sm_bfloat16']} bfloat16", flush=True)
+    log_path = build.library_path("run_sums") + ".log"
+    build_log = ""
+    if os.path.isfile(log_path):
+        with open(log_path) as f:
+            build_log = f.read()
+    ptxas = ptxas_usage(build_log, "run_sums_kernel")
+    for entry, usage in ptxas.items():
+        kind = ("float32" if "kernelIf" in entry else "float64" if "kernelId" in entry
+                else "bfloat16" if "bfloat16" in entry else entry)
+        print(f"run_sums ptxas, {kind}: {usage}", flush=True)
+    print(f"run_sums on {run_sums_layouts_against_plain()} layout cases ({RUN_SUMS_CHANNELS} channels): bitwise "
+          f"equal to the plain version and over three calls", flush=True)
+
+    pts, valid, grid = lidar_batch(lidar_overrides("hisup_lidar"))
+    _, pid_s, n_cells = sort_by_pillar(pts, valid, **grid)
+    B = pid_s.shape[0]
+    ids = run_sums_ids(pid_s, 64, n_cells)
+    S = B * (n_cells + 1)
+    main = run_sums_times(run_rows(len(ids), RUN_SUMS_CHANNELS, 0, torch.float32), ids, S, B,
+                          f"main path ids ({B} x {pid_s.shape[1]} rows, cap 64), {RUN_SUMS_CHANNELS} channels")
+    from pixelspointspolygons_torch.ops.run_sums import run_sums_cuda
+
+    wide = run_rows(len(ids), 384, 1, torch.float32)
+    wide_ms = cuda_ms(lambda: run_sums_cuda(wide, ids, S, B), launches=5, rounds=3)
+    wide_plain = run_sums_plain_check(wide, ids, S, B, "on the main path's ids at 384 channels")
+    wide_bound = (wide.numel() * 4 + ids.numel() * 8 + S * 384 * 4) / PEAK_BYTES_PER_S * 1e3
+    print(f"run_sums main path ids at 384 channels (the second PFN layer's tie count): kernel {wide_ms:.4f} ms warm, "
+          f"plain {wide_plain:.1f} ms (bitwise equal to the kernel), bound {wide_bound:.4f} ms (bytes)", flush=True)
+    del wide
+    torch.cuda.empty_cache()
+    _, pid, n_cells = dense_layout()
+    pid_s = torch.from_numpy(pid).to(CARD)
+    ids = run_sums_ids(pid_s, DENSE_CAP, n_cells)
+    dense = run_sums_times(run_rows(len(ids), RUN_SUMS_CHANNELS, 2, torch.float32), ids,
+                           pid_s.shape[0] * (n_cells + 1), pid_s.shape[0],
+                           f"dense grid ({n_cells} pillars, cap {DENSE_CAP}), {RUN_SUMS_CHANNELS} channels", plain=False)
+    return {
+        "name": "run_sums",
+        "route": "cuda",
+        "source": "pixelspointspolygons_torch/csrc/run_sums.cu",
+        "replaces": ("none (the backward of the PillarFeatureNet's gather and segment max, XLA scatter-adds: "
+                     "pixelspointspolygons_tpu/models/pointpillars.py:31-57)"),
+        "launches": None,
+        "max_abs_err": 0.0,
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],  # index_put_ with accumulate, the route it replaced
+        "graph_ms": main["graph_ms"],
+        "cold_ms": main["cold_ms"],
+        "design": design,
+        "ptxas": ptxas,
+        "wide_ms": wide_ms,
+        "wide_plain_ms": wide_plain,
+        "dense": dense,
+    }
+
+
 def record_steps(trainer, step_losses: list, iou_pass_s: list, first: dict | None = None,
                  loader_ms: list | None = None) -> None:
     """Have the trainer's set-up wrap its train step so that it records
@@ -1355,6 +1581,7 @@ def phase_train(cfg_overrides: list[str], dtype: str = "float32") -> tuple[dict,
         check_against_cpu(trainer, batches[0])
     else:
         hisup_bf16_card_against_cpu(trainer.cfg, first)
+    train_twice(f"hisup_image_{dtype}", trainer, batches, (), {"afm": True, "pillar_sums": False, "run_sums": False})
     return launches, {"step_ms": step_ms, "val_ms": val_ms, "peak_bytes": peak, "iou_pass_ms": iou_pass_s[0] * 1e3,
                       "val_iou": val_iou, "losses": losses, "breakdown": breakdown,
                       "output_dir": cfg.output_dir}
@@ -1855,6 +2082,7 @@ def p2p_fixed_length(model, inputs: dict, tokenizer, dev: torch.device, rounds: 
     stages by CUDA events, whose tokens and permutation must equal the
     call's."""
     from pixelspointspolygons_torch.models.pix2poly import greedy_decode, greedy_generate
+    from pixelspointspolygons_torch.models.pix2poly.model import _greedy_decode
     from pixelspointspolygons_torch.ops.sinkhorn import log_optimal_transport
 
     steps = model.max_len - 1
@@ -1883,8 +2111,16 @@ def p2p_fixed_length(model, inputs: dict, tokenizer, dev: torch.device, rounds: 
         perm2 = torch.softmax(log_optimal_transport(scores, model.bin_score, model.sinkhorn_iterations)[:, :V, :V], -1)
         ev[4].record()
         torch.cuda.synchronize()
+        short = min(steps, P2P_GRAPH_CHECK_STEPS)
+        graphed = greedy_decode(model, enc, tokenizer.BOS_code, short)
+        looped = _greedy_decode(model, enc, tokenizer.BOS_code, short, None, capture=False)
     if not torch.equal(tok2, tokens) or not float((perm2 - perm).abs().max()) <= 1e-6:
         fail("the staged fixed-length decode differs from greedy_generate's")
+    if not all(same_bits(a, b) for a, b in zip(graphed[:2], looped[:2])) or graphed[2] != looped[2]:
+        fail(f"the fixed-length decode replayed from its CUDA graph differs from its step run as it is over {short} "
+             f"steps")
+    print(f"pix2poly fixed-length decode{what}: the steps replayed from one CUDA graph bitwise equal to the step run "
+          f"as it is over {short} steps (tokens and feats)", flush=True)
     names = ("encoder", "decode", "scorenets", "sinkhorn")
     ms = {k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(names)}
     out = {"tiles_s": n / statistics.median(walls), "walls_ms": [w * 1e3 for w in walls], "steps": ran,
@@ -1899,49 +2135,60 @@ def p2p_fixed_length(model, inputs: dict, tokenizer, dev: torch.device, rounds: 
 
 
 def p2p_decode_profile(model, enc: torch.Tensor, tokenizer, what: str = "") -> dict:
-    """What one step of the decode loop costs, from decodes of 8 and 24
-    steps (their difference over 16 steps, so the set-up drops out): the
-    step's time unprofiled (host clock, synchronized), and from
-    torch.profiler traces the host's top-level aten calls, the kernels
-    launched and their summed device time; the device's busy share of a
-    step is that time over this model's own unprofiled step."""
+    """What one step of the decode costs, as `greedy_decode` runs it on the
+    card (each step after the first replayed from its CUDA graph): the
+    step's time unprofiled (host clock, synchronized), from decodes of 8
+    and up to 264 steps (their difference, medians of 3, so the set-up and
+    the capture, whose time varies by more than 16 steps, drop out); from
+    torch.profiler traces of decodes of 8 and 24 steps the kernels recorded
+    and their summed device time, whose share of the unprofiled step is the
+    device's busy share; and from traces of the same step run as it is (the
+    operations the graph holds) the host's top-level aten calls a step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from pixelspointspolygons_torch.models.pix2poly import greedy_decode
+    from pixelspointspolygons_torch.models.pix2poly.model import _greedy_decode
 
-    walls = {}
+    far = min(264, model.max_len - 1)
+    walls = {8: [], far: []}
     with torch.inference_mode():
         greedy_decode(model, enc, tokenizer.BOS_code, 8)  # warm-up
+        for _ in range(3):
+            for steps in walls:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                greedy_decode(model, enc, tokenizer.BOS_code, steps)
+                torch.cuda.synchronize()
+                walls[steps].append(time.perf_counter() - t)
+    ms_per_step = (statistics.median(walls[far]) - statistics.median(walls[8])) * 1e3 / (far - 8)
+
+    def traced(capture: bool) -> list[float]:
+        counts = []
         for steps in (8, 24):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            greedy_decode(model, enc, tokenizer.BOS_code, steps)
-            torch.cuda.synchronize()
-            walls[steps] = time.perf_counter() - t
-    ms_per_step = (walls[24] - walls[8]) * 1e3 / 16
-    counts = []
-    for steps in (8, 24):
-        with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            greedy_decode(model, enc, tokenizer.BOS_code, steps)
-            torch.cuda.synchronize()
-        events = prof.events()
-        aten = [e for e in events if e.name.startswith("aten::")
-                and (e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::"))]
-        kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-        counts.append((len(aten), len(kernels), sum(e.time_range.elapsed_us() for e in kernels)))
-    per = [(b - a) / 16 for a, b in zip(*counts)]
-    out = {"aten_per_step": per[0], "kernels_per_step": per[1], "kernel_us_per_step": per[2],
-           "profiled_step_ms": ms_per_step}
-    if per[1] <= 0:
+            with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                _greedy_decode(model, enc, tokenizer.BOS_code, steps, None, capture=capture)
+                torch.cuda.synchronize()
+            events = prof.events()
+            aten = [e for e in events if e.name.startswith("aten::")
+                    and (e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::"))]
+            kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+            counts.append((len(aten), len(kernels), sum(e.time_range.elapsed_us() for e in kernels)))
+        return [(b - a) / 16 for a, b in zip(*counts)]
+
+    replayed, as_is = traced(True), traced(False)
+    out = {"aten_per_step": as_is[0], "kernels_per_step": replayed[1], "kernel_us_per_step": replayed[2],
+           "replayed_aten_per_step": replayed[0], "profiled_step_ms": ms_per_step}
+    if replayed[1] <= 0:
         print("pix2poly decode step profile: the profiler recorded no device kernels (busy share not measured)",
               flush=True)
         return out
-    out["busy_share"] = per[2] / (ms_per_step * 1e3)
-    print(f"pix2poly decode step profile{what} (torch.profiler, steps 8..24): {per[0]:.1f} top-level aten calls and "
-          f"{per[1]:.1f} kernels per step, {per[2]:.1f} us of kernel time per step: the card is busy "
-          f"{100 * out['busy_share']:.1f} % of this model's {ms_per_step:.3f} ms step (unprofiled, steps 8..24)",
-          flush=True)
+    out["busy_share"] = replayed[2] / (ms_per_step * 1e3)
+    print(f"pix2poly decode step profile{what} (torch.profiler, steps 8..24): the step holds {as_is[0]:.1f} "
+          f"top-level aten calls; replayed from its graph, {replayed[0]:.1f} aten calls and {replayed[1]:.1f} kernels "
+          f"per step, {replayed[2]:.1f} us of kernel time per step: the card is busy "
+          f"{100 * out['busy_share']:.1f} % of this model's {ms_per_step:.3f} ms step (unprofiled, steps 8..{far}, "
+          f"medians of 3)", flush=True)
     return out
 
 
@@ -2016,6 +2263,7 @@ def p2p_early_exit(model, inputs: dict, tokenizer) -> list[int]:
     import copy
 
     from pixelspointspolygons_torch.models.pix2poly import greedy_decode
+    from pixelspointspolygons_torch.models.pix2poly.model import _greedy_decode
 
     bos, eos, pad = tokenizer.BOS_code, tokenizer.EOS_code, tokenizer.PAD_code
     steps = model.max_len - 1
@@ -2031,6 +2279,11 @@ def p2p_early_exit(model, inputs: dict, tokenizer) -> list[int]:
         tokens, feats, ran = greedy_decode(m, enc, bos, steps, eos_code=eos)
         sync(enc.device)
         exit_ms = (time.perf_counter() - t) * 1e3
+        loop = _greedy_decode(m, enc, bos, steps, eos, capture=False)
+    if enc.device.type == "cuda" and not (same_bits(loop[0], tokens) and same_bits(loop[1], feats) and loop[2] == ran):
+        fail(f"early exit: the decode replayed from its CUDA graph differs from its step run as it is (steps {ran} "
+             f"and {loop[2]})")
+    with torch.inference_mode():
         ref_scores = m.raw_scores_from_feats(ref_feats).cpu()
         scores = m.raw_scores_from_feats(feats).cpu()
     ref_tokens, tokens = ref_tokens.cpu(), tokens.cpu()
@@ -2137,6 +2390,9 @@ def phase_p2p_train(overrides: list[str], dtype: str, steps: int = TRAIN_STEPS, 
            "output_dir": cfg.output_dir}
     if dtype == "float32" and card_against_cpu:
         p2p_train_card_against_cpu(trainer, batches[0])
+    if name == "pix2poly":
+        train_twice(f"p2p_image_{dtype}", trainer, batches, (trainer.generator,),
+                    {"afm": False, "pillar_sums": False, "run_sums": False})
     return out
 
 
@@ -2939,6 +3195,8 @@ def phase_ffl_train(overrides: list[str], dtype: str, steps: int = TRAIN_STEPS, 
         card_losses = ffl_train_card_against_cpu(cfg, first, name, exact=bool(exact_tiles))
     else:
         ffl_bf16_card_against_cpu(cfg, first)
+    train_twice(f"ffl_image_{dtype}" if name == "ffl" else name.replace(" ", "_"), trainer, batches, (weights,),
+                {"afm": False, "pillar_sums": False, "run_sums": False})
     return {"first": first, "card_losses": card_losses if dtype == "float32" else None, "step_ms": step_ms,
             "val_ms": val_ms, "peak_bytes": peak, "iou_pass_ms": iou_pass_s[0] * 1e3, "val_iou": val_iou, "losses": losses, "breakdown": breakdown, "launches": launches,
             "loader_cold_ms": cold, "loader_warm_ms": warm_ms, "val_acm": dict(acm)}
@@ -3310,6 +3568,228 @@ def hold_repeat(path: str, first, second, launches) -> None:
     REPEATS[path] = list(launches)
 
 
+# --- repeatable training (phase 27, ROADMAP 3.25) ---------------------------------
+
+# every training path of the port, each run twice from one seed, the same
+# weights and the same data; the phase that builds the path's trainer runs
+# it, phase 27 the ones no earlier phase builds, and checks them all
+TRAIN_REPEAT_PATHS = (
+    "hisup_image_float32", "hisup_image_bfloat16", "p2p_image_float32", "p2p_image_bfloat16",
+    "ffl_image_float32", "ffl_image_cache_float32", "ffl_image_cache_bfloat16", "hisup_lidar", "p2p_fusion",
+    "hisup_fusion_cache_remat", "hisup_image_ddp", "ffl_unetresnet101", "ffl_convnext", "hisup_lidar_dense")
+REPEAT_STEPS = 2
+# phase 27's own paths: p2p_fusion at batch 16, hisup_fusion from the cache
+# with remat at REPEAT_FUSION_BATCH (8: the time)
+REPEAT_FUSION_BATCH = 8
+# path -> what its two runs held (tensors, bytes, each run's kernel launches)
+TRAIN_REPEATS: dict[str, dict] = {}
+
+
+def kernel_counters() -> dict:
+    """Each kernel's wrapper, whose `launches` counts its launches."""
+    from pixelspointspolygons_torch.ops.afm import afm_cuda
+    from pixelspointspolygons_torch.ops.run_sums import run_sums_cuda
+    from pixelspointspolygons_torch.ops.voxelize import pillar_sums_cuda
+
+    return {"afm": afm_cuda, "pillar_sums": pillar_sums_cuda, "run_sums": run_sums_cuda}
+
+
+def deterministic_flags() -> dict:
+    """The process's settings that `device.set_deterministic` makes."""
+    return {"use_deterministic_algorithms": torch.are_deterministic_algorithms_enabled(),
+            "warn_only": torch.is_deterministic_algorithms_warn_only_enabled(),
+            "cudnn.deterministic": torch.backends.cudnn.deterministic,
+            "cudnn.benchmark": torch.backends.cudnn.benchmark,
+            "CUBLAS_WORKSPACE_CONFIG": os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
+            "fill_uninitialized_memory": torch.utils.deterministic.fill_uninitialized_memory}
+
+
+def check_deterministic(where: str) -> None:
+    flags = deterministic_flags()
+    print(f"{where}: {json.dumps(flags)}", flush=True)
+    want = {"use_deterministic_algorithms": True, "warn_only": False, "cudnn.deterministic": True,
+            "cudnn.benchmark": False, "CUBLAS_WORKSPACE_CONFIG": ":4096:8", "fill_uninitialized_memory": False}
+    if flags != want:
+        fail(f"{where}: the deterministic set-up is not in force: {flags}, expected {want}")
+
+
+def number_calls(model, order: dict) -> list:
+    """Hooks that number each module of `model` into `order` (name -> the
+    rank of its first call); remove them after."""
+    def hook(name):
+        def record(module, inputs):
+            order.setdefault(name, len(order))
+        return record
+
+    return [m.register_forward_pre_hook(hook(name)) for name, m in model.named_modules()]
+
+
+def training_run(trainer, batches, args: tuple, order: dict | None = None) -> dict:
+    """REPEAT_STEPS train steps through the trainer's own step, from the
+    seeds set anew, with the kernel counters set to 0 just before and read
+    just after. `batches()` gives the steps' batches. With `order`, each
+    module's first call is numbered into it. Returns the batches, every
+    step's losses, the first step's gradients, then every parameter and
+    buffer, the optimizer's state and the launches."""
+    state, model = trainer.state, trainer.state.model
+    seed = int(trainer.cfg.get("seed", 42))
+    torch.manual_seed(seed)
+    if getattr(trainer, "generator", None) is not None:
+        trainer.generator.manual_seed(seed)
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    hooks = [] if order is None else number_calls(model, order)
+    data = batches()
+    losses, grads = [], {}
+    try:
+        for s in range(REPEAT_STEPS):
+            metrics = trainer._train_step(state, data[s % len(data)], *args)
+            losses.append({k: v.detach().clone() for k, v in metrics.items()})
+            if s == 0:
+                grads = {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.grad is not None}
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    optim = {f"{i}.{k}": v.detach().clone() for i, st in state.optimizer.state_dict()["state"].items()
+             for k, v in st.items() if isinstance(v, torch.Tensor)}
+    return {"batches": data[:REPEAT_STEPS], "losses": losses, "grads": grads,
+            "state": {k: v.detach().clone() for k, v in model.state_dict().items()}, "optimizer": optim,
+            "launches": {k: c.launches for k, c in counters.items()}}
+
+
+def runs_differ(first: dict, second: dict) -> tuple[list, list, int]:
+    """The leaves of two runs' records (but their launches), the paths where
+    they differ (tensors compared bitwise on their device) and the bytes
+    compared."""
+    a = list(leaves({k: v for k, v in first.items() if k != "launches"}))
+    b = list(leaves({k: v for k, v in second.items() if k != "launches"}))
+    differ = [p for (p, x), (q, y) in zip(a, b) if p != q or not (
+        same_bits(x, y) if isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor) else leaf_bits(x) == leaf_bits(y))]
+    if len(a) != len(b):
+        differ.append(f"{len(a)} against {len(b)} leaves")
+    size = sum(x.numel() * x.element_size() for _, x in a if isinstance(x, torch.Tensor))
+    return a, differ, size
+
+
+def first_differing_module(order: dict, a: dict, b: dict) -> str:
+    """The first module in forward order whose gradient differs between two
+    runs' (name -> gradient), with the parameter and its largest gap."""
+    differ = [n for n in a if n not in b or not same_bits(a[n], b[n])]
+    if not differ:
+        return "none"
+
+    def rank(n):
+        mod = n.rpartition(".")[0]
+        return order.get(mod, len(order)), n
+
+    n = min(differ, key=rank)
+    gap = (a[n].double() - b[n].double()).abs().max().item() if n in b else float("nan")
+    return f"{n.rpartition('.')[0] or '(model)'} ({n}, largest gap {gap:.3e}; {len(differ)} of {len(a)} differ)"
+
+
+def train_twice(path: str, trainer, batches, args: tuple = (), expect: dict | None = None) -> dict:
+    """Phase 27's check on one training path: from a snapshot of the
+    trainer's weights, buffers, optimizer and schedule, two runs of
+    REPEAT_STEPS steps from one seed on the same data (`training_run`),
+    held bitwise: the batches, the losses, every gradient of the first
+    step, every parameter and buffer (the BatchNorm running statistics),
+    the optimizer's state and the kernel launches. `expect` names kernels
+    that must launch in a run. On a mismatch prints the first module in
+    forward order whose gradient differs, then fails. Leaves the trainer
+    at its snapshot."""
+    import copy
+
+    state, model = trainer.state, trainer.state.model
+    snap = {"model": {k: v.detach().clone() for k, v in model.state_dict().items()},
+            "optimizer": copy.deepcopy(state.optimizer.state_dict()),
+            "scheduler": copy.deepcopy(state.scheduler.state_dict()), "step": state.step}
+    fetch = batches if callable(batches) else (lambda: list(batches))
+    runs, order = [], {}
+    t0 = time.perf_counter()
+    for run in range(2):
+        model.load_state_dict(snap["model"])
+        state.optimizer.load_state_dict(copy.deepcopy(snap["optimizer"]))
+        state.scheduler.load_state_dict(snap["scheduler"])
+        state.step = snap["step"]
+        runs.append(training_run(trainer, fetch, args, order if run == 0 else None))
+    wall = time.perf_counter() - t0
+    model.load_state_dict(snap["model"])
+    state.optimizer.load_state_dict(snap["optimizer"])
+    state.scheduler.load_state_dict(snap["scheduler"])
+    state.step = snap["step"]
+    a, differ, size = runs_differ(runs[0], runs[1])
+    launches = [r["launches"] for r in runs]
+    losses = {k: float(v) for k, v in runs[0]["losses"][-1].items()}
+    print(f"train repeat {path}: two runs of {REPEAT_STEPS} steps from one seed, the same weights and data, "
+          f"{len(a)} tensors ({size} bytes: batches, losses, step-1 gradients, parameters and buffers, optimizer "
+          f"state) bitwise equal {not differ}; launches {launches}; last losses {json.dumps(losses)}; "
+          f"{wall:.1f} s", flush=True)
+    if differ:
+        print(f"train repeat {path}: first module in forward order whose gradient differs: "
+              f"{first_differing_module(order, runs[0]['grads'], runs[1]['grads'])}; differing: {differ[:12]}",
+              flush=True)
+        fail(f"{path}: two training runs from one seed differ at {differ[:8]}")
+    if launches[0] != launches[1]:
+        fail(f"{path}: the two training runs launched the kernels {launches[0]} and {launches[1]} times")
+    missing = [k for k, want in (expect or {}).items() if bool(launches[0][k]) != want]
+    if missing:
+        fail(f"{path}: kernel launches {launches[0]} against the expected {expect}")
+    if not all(np.isfinite(v) for v in losses.values()):
+        fail(f"{path}: non-finite losses {losses}")
+    TRAIN_REPEATS[path] = {"tensors": len(a), "bytes": size, "launches": launches[0], "wall_s": wall}
+    del runs
+    gc.collect()
+    return TRAIN_REPEATS[path]
+
+
+def phase_repeat_training(smi: str) -> dict:
+    """Phase 27: every training path run twice in one process from one seed
+    (ROADMAP 3.25). The paths whose trainer an earlier phase builds were run
+    there (`train_twice`); this phase prints the flags, runs p2p_fusion
+    (batch 16, float32) and hisup_fusion from the device cache with remat
+    (batch REPEAT_FUSION_BATCH, float32), and fails if a path was not held."""
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.data.loader import device_prefetch
+    from pixelspointspolygons_torch.train.trainer_hisup import _DEV_KEYS, HiSupTrainer
+    from pixelspointspolygons_torch.train import trainer_pix2poly
+
+    check_deterministic("phase 27, deterministic set-up")
+    # p2p_fusion from the host loader
+    cfg = compose(lidar_overrides("p2p_fusion") + ["host.compute_dtype=float32"])
+    torch.cuda.empty_cache()
+    trainer = trainer_pix2poly.Pix2PolyTrainer(cfg, device=CARD)
+    trainer.generator = torch.Generator(device=CARD).manual_seed(int(cfg.get("seed", 42)))
+    trainer.setup()
+    host = list(itertools.islice(iter(trainer.train_loader), REPEAT_STEPS))
+    batches = list(device_prefetch(host, CARD, trainer_pix2poly._DEV_KEYS))
+    train_twice("p2p_fusion", trainer, batches, (trainer.generator,),
+                {"afm": False, "pillar_sums": True, "run_sums": True})
+    del trainer, batches, host
+    # hisup_fusion from the device cache, with remat
+    cfg = compose(lidar_overrides("hisup_fusion") + [
+        "host.compute_dtype=float32", "training.remat=true", "training.device_cache=true",
+        f"experiment.model.batch_size={REPEAT_FUSION_BATCH}", f"run_type.train_subset={REPEAT_STEPS * REPEAT_FUSION_BATCH}"])
+    torch.cuda.empty_cache()
+    trainer = HiSupTrainer(cfg, device=CARD)
+    trainer.generator = torch.Generator(device=CARD).manual_seed(int(cfg.get("seed", 42)))
+    trainer.setup()
+    if trainer.cache is None:
+        fail("hisup_fusion with remat: the trainer took the host loader, not the device cache")
+    train_twice("hisup_fusion_cache_remat", trainer,
+                lambda: list(itertools.islice(trainer.epoch_batches("train", 0, _DEV_KEYS), REPEAT_STEPS)), (),
+                {"afm": True, "pillar_sums": True, "run_sums": True})
+    del trainer
+    torch.cuda.empty_cache()
+    missing = [p for p in TRAIN_REPEAT_PATHS if p not in TRAIN_REPEATS]
+    print(f"train repeats: {len(TRAIN_REPEATS)} training paths gave the same bits twice from one seed: "
+          f"{json.dumps(TRAIN_REPEATS)}; card {smi}", flush=True)
+    if missing:
+        fail(f"the training repeat checks did not run for {missing}")
+    return dict(TRAIN_REPEATS)
+
+
 def predict_repeat(path: str, predictor) -> None:
     """The first test batch predicted twice through `predictor` (its device
     outputs as fetched to the host, then its host stage's polygons), held
@@ -3593,6 +4073,7 @@ def phase_hisup_lidar_train(overrides: list[str], name: str = "hisup_lidar",
     from pixelspointspolygons_torch.data.loader import device_prefetch
     from pixelspointspolygons_torch.models.hisup.factory import build_hisup
     from pixelspointspolygons_torch.ops.afm import afm_cuda
+    from pixelspointspolygons_torch.ops.run_sums import run_sums_cuda
     from pixelspointspolygons_torch.ops.voxelize import pillar_sums_cuda
     from pixelspointspolygons_torch.train.hisup_step import make_train_step
     from pixelspointspolygons_torch.train.state import TrainState, make_optimizer, make_scheduler
@@ -3603,12 +4084,12 @@ def phase_hisup_lidar_train(overrides: list[str], name: str = "hisup_lidar",
     iou_pass_s, step_losses, first, loader_ms = [], [], {}, []
     record_steps(trainer, step_losses, iou_pass_s, first, loader_ms)
     torch.cuda.reset_peak_memory_stats()
-    afm_cuda.launches = pillar_sums_cuda.launches = 0
+    afm_cuda.launches = pillar_sums_cuda.launches = run_sums_cuda.launches = 0
     t0 = time.perf_counter()
     history = trainer.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, pillar_launches = afm_cuda.launches, pillar_sums_cuda.launches
+    launches, pillar_launches, run_launches = afm_cuda.launches, pillar_sums_cuda.launches, run_sums_cuda.launches
     peak = torch.cuda.max_memory_allocated()
     run_loader_ms = list(loader_ms)
     n_train, n_val = len(trainer.train_loader), len(trainer.val_loader)
@@ -3616,7 +4097,7 @@ def phase_hisup_lidar_train(overrides: list[str], name: str = "hisup_lidar",
     losses = [{k: float(v) for k, v in m.items()} for m in step_losses]
     print(f"{name} train path (float32): {n_train} train + {n_val} val steps and the val-IoU pass in {wall:.1f} s "
           f"(set-up included), peak memory {peak / 2**30:.2f} GiB; afm launches {launches}, pillar_sums launches "
-          f"{pillar_launches}; encoder {type(model.encoder).__name__}", flush=True)
+          f"{pillar_launches}, run_sums launches {run_launches}; encoder {type(model.encoder).__name__}", flush=True)
     print(f"{name} history: " + json.dumps(history), flush=True)
     print(f"{name} step losses: " + json.dumps(losses), flush=True)
     if (n_train, n_val) != (steps, VAL_STEPS) or len(losses) != n_train:
@@ -3629,6 +4110,9 @@ def phase_hisup_lidar_train(overrides: list[str], name: str = "hisup_lidar",
     # a forward a train and a val step, and a batch of the val-IoU pass
     if pillar_launches != n_train + 2 * n_val:
         fail(f"{name}: the pillar_sums kernel launched {pillar_launches} times, expected {n_train + 2 * n_val}")
+    # a train step's backward: the gather once, the two segment maxes' tie counts
+    if run_launches != RUN_SUMS_PER_STEP * n_train:
+        fail(f"{name}: the run_sums kernel launched {run_launches} times, expected {RUN_SUMS_PER_STEP * n_train}")
     if type(model.encoder).__name__ != encoder or first["batch"].get("images") is not None:
         fail(f"{name}: not the {encoder} on a LiDAR-only batch")
     if not trainer.manager.exists("latest") or not trainer.manager.exists("best_val_loss"):
@@ -3665,11 +4149,12 @@ def phase_hisup_lidar_train(overrides: list[str], name: str = "hisup_lidar",
           flush=True)
     small = {**first, "batch": {k: v[:cpu_tiles] for k, v in first["batch"].items()}}
     card_cpu = lidar_train_card_against_cpu(cfg, small, name)
+    train_twice(name, trainer, batches, (), {"afm": True, "pillar_sums": True, "run_sums": True})
     if bf16_step:
         forward_repeat(name, model, "hisup", {k: v[:2] for k, v in batches[0].items()})
     out = {"step_ms": step_ms, "val_ms": val_ms, "peak_bytes": peak, "iou_pass_ms": iou_pass_s[0] * 1e3,
            "val_iou": val_iou, "losses": losses, "breakdown": breakdown, "launches": launches,
-           "pillar_launches": pillar_launches, "loader_ms": loader, "card_cpu": card_cpu}
+           "pillar_launches": pillar_launches, "run_launches": run_launches, "loader_ms": loader, "card_cpu": card_cpu}
     if not bf16_step:
         out["forward_err"] = forward_against_cpu(name, model, "hisup", {k: v[:2] for k, v in batches[0].items()},
                                                  "float32")
@@ -4078,6 +4563,9 @@ def ffl_cache_train(overrides: list[str], dtype: str, smi: str) -> dict:
            "cache_bytes": sum(c.nbytes for c in trainer.cache.values()),
            "pack_s": {k: c.pack_s for k, c in trainer.cache.items()},
            "upload_s": {k: c.upload_s for k, c in trainer.cache.items()}}
+    train_twice(f"ffl_image_cache_{dtype}", trainer,
+                lambda: list(itertools.islice(trainer.epoch_batches("train", 0, FFL_BATCH_KEYS), REPEAT_STEPS)),
+                (weights, None), {"afm": False, "pillar_sums": False, "run_sums": False})
     if dtype != "float32":
         return out
 
@@ -4509,6 +4997,10 @@ def ddp_hisup(overrides: list[str], smi: str, dev: torch.device = CARD) -> dict:
         fail(f"hisup DDP step: collectives {coll}, expected 2 per BatchNorm ({n_norms}) and the gradient buckets")
     if launches != (2 * DDP_TURNS if dev.type == "cuda" else 0):
         fail(f"hisup DDP steps launched the afm kernel {launches} times, expected {2 * DDP_TURNS}")
+    with world_of_one(trainer.device):
+        trainer.state.wrap()
+        train_twice("hisup_image_ddp", trainer, [batch], (), {"afm": True, "pillar_sums": False, "run_sums": False})
+        unwrap(trainer.state)
     del trainer, batch
     return {**out, "median_ms": med, "collectives": coll, "n_norms": n_norms, "launches": launches, "check": check}
 
@@ -4591,11 +5083,12 @@ def _gloo_rank(rank: int, go: str, out_file: str, dev_type: str, spawned: float)
     formed and to the steps done."""
     import torch.distributed as dist
 
-    from pixelspointspolygons_torch.device import set_tf32
+    from pixelspointspolygons_torch.device import set_deterministic, set_tf32
 
     marks = {"entered": time.time() - spawned}
-    set_tf32(False)
     dev = torch.device(dev_type, 0) if dev_type == "cuda" else torch.device(dev_type)
+    set_deterministic(dev)
+    set_tf32(False)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     torch.zeros(1, device=dev)
@@ -5871,17 +6364,22 @@ def main() -> None:
     os.environ["P3_DATASET_ROOT"] = os.path.join(WORK, "data")
     os.environ["P3_MODEL_ROOT"] = os.path.join(WORK, "outputs")
     from pixelspointspolygons_torch.config import compose
-    from pixelspointspolygons_torch.device import set_tf32
+    from pixelspointspolygons_torch.device import set_deterministic, set_tf32
 
+    # before any tensor reaches the card: cuBLAS reads its workspace setting
+    # when its handle is created
+    set_deterministic(CARD)
+    set_tf32(False)
     smi = phase_host()
     print(f"card: {smi}", flush=True)
-    set_tf32(False)
+    check_deterministic("deterministic set-up, for every phase")
     phase_build()
     trained_prebuild = start_trained_prebuild()
     phase_done("1-2")
     overrides = smoke_overrides(TRAIN_STEPS * B)
     afm_row = phase_afm(compose(overrides))
     pillar_row = phase_pillar_sums()
+    run_row = phase_run_sums()
     phase_done("3")
     launches, train = phase_train(overrides)
     phase_done("4")
@@ -6017,6 +6515,8 @@ def main() -> None:
     phase_done("25")
     trained_ffl = phase_trained_ffl(ffl, trained_prebuild, smi)
     phase_done("26")
+    repeats = phase_repeat_training(smi)
+    phase_done("27")
     rows = {part: grid[part]["rows"] for part in ("modality", "density", "countries")}
     missing = [p for p in REPEAT_PATHS if p not in REPEATS]
     print(f"repeat checks: {len(REPEATS)} prediction paths held bitwise equal from one prediction to the next; "
@@ -6071,9 +6571,16 @@ def main() -> None:
         **{f"repeat_{p}": n for p, n in REPEATS.items()},
     }
     pillar_row["launches"] = lidar["pillar_launches"]
+    run_row["launches"] = lidar["run_launches"]
+    run_row["launches_by_path"] = {"hisup_lidar_train": lidar["run_launches"],
+                                   "hisup_lidar_dense_train": grid["dense"]["run_launches"],
+                                   **{f"repeat_{p}": r["launches"]["run_sums"] for p, r in repeats.items()}}
+    if not all(run_row["launches_by_path"][k] for k in ("hisup_lidar_train", "hisup_lidar_dense_train",
+                                                         "repeat_hisup_lidar", "repeat_p2p_fusion")):
+        fail(f"the run_sums kernel did not launch on a LiDAR training path: {run_row['launches_by_path']}")
     print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in PHASE_S.items()})}", flush=True)
     print(f"smoke run: {time.perf_counter() - T0:.1f} s", flush=True)
-    print(json.dumps({"kernels": [afm_row, pillar_row]}), flush=True)
+    print(json.dumps({"kernels": [afm_row, pillar_row, run_row]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -39,11 +39,12 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 def entry(device: str | torch.device | None = None):
     from pixelspointspolygons_torch.config import compose
-    from pixelspointspolygons_torch.device import resolve_device, set_tf32
+    from pixelspointspolygons_torch.device import resolve_device, set_deterministic, set_tf32
     from pixelspointspolygons_torch.models.pix2poly import Tokenizer, build_pix2poly
 
     dev = resolve_device(device)
     set_tf32(False)
+    set_deterministic(dev)
     cfg = compose(["experiment=p2p_image", "run_type=debug"])
     tokenizer = Tokenizer(cfg)
     # drawn on the CPU, so that every device gets the same weights
@@ -151,7 +152,7 @@ def dryrun_batches(n_rows: int, seed: int = 0, size: int = S) -> dict:
 
 def _dryrun_worker(rank: int, n: int, device: str | None, init_method: str) -> None:
     from pixelspointspolygons_torch.config import compose
-    from pixelspointspolygons_torch.device import set_tf32
+    from pixelspointspolygons_torch.device import set_deterministic, set_tf32
     from pixelspointspolygons_torch.models.ffl.losses import make_ffl_loss
     from pixelspointspolygons_torch.parallel import all_reduce_mean, destroy_distributed, init_distributed
     from pixelspointspolygons_torch.train import ffl_step, hisup_step, pix2poly_step
@@ -160,6 +161,7 @@ def _dryrun_worker(rank: int, n: int, device: str | None, init_method: str) -> N
 
     dev = init_distributed(device, world_size=n, rank=rank, init_method=init_method)
     set_tf32(False)
+    set_deterministic(dev)
     try:
         batches = dryrun_batches(2 * n)
         rows = slice(2 * rank, 2 * rank + 2)

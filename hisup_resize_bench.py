@@ -5,7 +5,8 @@ Usage (from the repository root, on a machine with a CUDA card):
     python3 hisup_resize_bench.py [--batch 16] [--rounds 3]
 
 At float32 the port resizes with `F.interpolate` (HRNet's align-corners
-fusions and the decoder's 56 -> 224 enlargement); at bfloat16 it computes
+fusions and the decoder's 56 -> 224 enlargement), its backward the
+products with the interpolation matrices; at bfloat16 it computes
 JAX's two products with interpolation matrices, which round as JAX does.
 This script builds `experiment=hisup_image` at full width (HRNetV2-W48,
 head width 256) at float32 with TF32 off, and times one train-mode forward
@@ -42,14 +43,15 @@ def main() -> None:
         sys.exit("no CUDA device: this script times the port on the card")
     sys.path.insert(0, ROOT)
     from pixelspointspolygons_torch.config import compose
-    from pixelspointspolygons_torch.device import set_tf32
+    from pixelspointspolygons_torch.device import set_deterministic, set_tf32
     from pixelspointspolygons_torch.models import hrnet
     from pixelspointspolygons_torch.models.hisup import model as hisup
     from pixelspointspolygons_torch.models.hisup.factory import build_hisup
     from pixelspointspolygons_torch.models.layers import _resize_matrix, layout_of
 
-    set_tf32(False)
     card = torch.device("cuda")
+    set_deterministic(card)
+    set_tf32(False)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip().splitlines()[0]
     cfg = compose(["experiment=hisup_image", "dataset=synthetic", "run_type=debug"])

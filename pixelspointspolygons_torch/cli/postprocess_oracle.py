@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..config.engine import compose
-from ..device import resolve_device
+from ..device import resolve_device, set_deterministic
 from ..utils.coco import CocoIndex, generate_coco_ann
 from ._common import print_line, run, split_device
 
@@ -152,7 +152,7 @@ def main(argv: list[str] | None = None) -> dict:
     from ..data.synthetic import ensure_synthetic_dataset
 
     overrides, device = split_device(argv)
-    resolve_device(device)
+    set_deterministic(resolve_device(device))
     kv = dict(a.split("=", 1) for a in overrides if "=" in a)
     which = kv.pop("model", "all")
     n = int(kv.pop("n", "12"))

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..config.engine import compose
-from ..device import resolve_device
+from ..device import resolve_device, set_deterministic, set_tf32
 from ._common import print_line, run, split_device
 
 B = 8
@@ -40,6 +40,8 @@ def main(argv: list[str] | None = None) -> dict:
     mode = args[1] if len(args) > 1 else "generate"
     runs = int(args[2]) if len(args) > 2 else 3
     dev = resolve_device(device)
+    set_tf32(False)
+    set_deterministic(dev)
 
     cfg = compose(["experiment=p2p_image", "run_type=debug"] + [a for a in overrides if "=" in a])
     tok = Tokenizer(cfg)

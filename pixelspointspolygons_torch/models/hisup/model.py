@@ -191,7 +191,13 @@ def _abs(x: torch.Tensor) -> torch.Tensor:
 
 
 def ce_loss_2d(logits_nchw: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    return F.cross_entropy(logits_nchw.float(), labels.long())
+    """JAX's (:216-220): log_softmax over the classes in float32, the
+    one-hot product and the mean. `F.cross_entropy` on NCHW logits is
+    `nll_loss2d`, whose reduction on the card has no ordered form."""
+    logp = torch.log_softmax(logits_nchw.float(), dim=1)
+    classes = torch.arange(logits_nchw.shape[1], device=labels.device)
+    onehot = (labels.long()[:, None] == classes[None, :, None, None]).to(logp.dtype)
+    return -(onehot * logp).sum(dim=1).mean()
 
 
 def sigmoid_l1_loss(logits, targets, offset: float = 0.0, mask=None):

@@ -16,8 +16,10 @@ The align-corners bilinear resize is JAX's two products with interpolation
 matrices (hrnet.py:39-66) built in the input's dtype: at bfloat16 the
 weights are rounded and each product is rounded to bfloat16, which
 `F.interpolate` (one rounding, exact weights) does not reproduce. At
-float32 and float64 it is `F.interpolate(..., align_corners=True)`, which
-agrees with the products to the last bits.
+float32 and float64 the forward is `F.interpolate(..., align_corners=True)`,
+which agrees with the products to the last bits, and the backward is the
+transposed products (`layers.InterpolateByProducts`), as JAX's gradient
+is: `upsample_bilinear2d`'s own backward adds with atomics on the card.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import BatchNorm, Conv2d, layout_of
+from .layers import BatchNorm, Conv2d, InterpolateByProducts, cached_matrix, layout_of
 from .pointpillars import PointPillarsViTEncoder
 
 
@@ -37,6 +39,7 @@ def _conv(cin: int, cout: int, k: int, stride: int = 1, bias: bool = False, dtyp
     return Conv2d(cin, cout, k, stride, padding=k // 2, bias=bias, dtype=dtype, device=device)
 
 
+@cached_matrix
 def _interp_matrix(n_out: int, n_in: int, dtype: torch.dtype, device=None) -> torch.Tensor:
     """(n_out, n_in) align-corners interpolation matrix, with JAX's
     arithmetic (hrnet.py:39-52): positions in float32, the fraction `w` and
@@ -65,7 +68,8 @@ def resize_align_corners(x: torch.Tensor, out_hw: Sequence[int]) -> torch.Tensor
     if (H, W) == (H2, W2):
         return x
     if x.dtype in (torch.float32, torch.float64):
-        return F.interpolate(x, size=(H2, W2), mode="bilinear", align_corners=True)
+        return InterpolateByProducts.apply(x, _interp_matrix(H2, H, x.dtype, x.device),
+                                           _interp_matrix(W2, W, x.dtype, x.device), True)
     # JAX's einsum contracts H first, then W, each product rounded to x.dtype;
     # the result in x's memory layout, as F.interpolate gives it
     y = torch.matmul(_interp_matrix(H2, H, x.dtype, x.device), x)

@@ -17,7 +17,10 @@
   (`causal_bias`, `padding_bias`); `project_kv` and `attend` let the
   KV-cached decode reuse the weights.
 - `resize_bilinear`: `jax.image.resize(..., "bilinear")` of an NCHW map
-  (HiSup's decoder input, `ViTCNNEncoder`'s token map, FFL's HRNet map).
+  (HiSup's decoder input, `ViTCNNEncoder`'s token map, FFL's HRNet map);
+  its backward is always products with the interpolation matrices, as
+  JAX's gradient is (`InterpolateByProducts` where the forward is
+  `F.interpolate`), so it adds in one order on the card.
 - `init_flax_defaults`: flax's default initializers — conv and dense
   kernels and embeddings `lecun_normal` (truncated normal on [-2σ, 2σ],
   fan_in), zero biases, BatchNorm and LayerNorm scale 1 and bias 0 —
@@ -39,6 +42,7 @@ KV-cached decode cast none per step.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 
 import torch
@@ -67,6 +71,21 @@ def widen(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
+def cached_matrix(build):
+    """`build` (a function of sizes, dtype and device) evaluated once per
+    arguments and kept: the interpolation matrices are constants, and each
+    takes a dozen small operations to build, which a train step would pay
+    at every one of HRNet's resizes. Built outside inference mode, so that
+    a matrix a predictor built first can be saved for a backward later."""
+    @functools.lru_cache(maxsize=None)
+    def cached(*args):
+        with torch.inference_mode(False), torch.no_grad():
+            return build(*args)
+
+    return functools.wraps(build)(cached)
+
+
+@cached_matrix
 def _resize_matrix(n_in: int, n_out: int, device=None) -> torch.Tensor:
     """(n_in, n_out) weights of `jax.image.resize(..., "bilinear")` along one
     axis (jax/_src/image/scale.py::compute_weight_mat, antialiased, in
@@ -85,18 +104,42 @@ def _resize_matrix(n_in: int, n_out: int, device=None) -> torch.Tensor:
     return torch.where(inside[None, :], w, 0.0)
 
 
+class InterpolateByProducts(torch.autograd.Function):
+    """`F.interpolate`'s bilinear forward, kept for its bits, with the
+    backward as the products with the interpolation matrices that JAX's
+    gradient of its resize is: W contracted first, then H, in x's dtype, in
+    x's memory layout. On the card `upsample_bilinear2d`'s own backward adds
+    with atomics, in another order each run. `rows` (H2, H) and `cols`
+    (W2, W) are the matrices for which the forward is rows @ x @ cols.T."""
+
+    @staticmethod
+    def forward(ctx, x, rows, cols, align_corners: bool):
+        ctx.save_for_backward(rows, cols)
+        ctx.layout = layout_of(x)
+        return F.interpolate(x, size=(rows.shape[0], cols.shape[0]), mode="bilinear", align_corners=align_corners)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, cols = ctx.saved_tensors
+        gx = torch.matmul(rows.T, torch.matmul(g, cols))
+        return gx.contiguous(memory_format=ctx.layout), None, None, None
+
+
 def resize_bilinear(x: torch.Tensor, size: int) -> torch.Tensor:
     """`jax.image.resize(x, ..., "bilinear")` of an NCHW map to size x size.
     Enlarging at float32 or float64 it is `F.interpolate` (half-pixel
-    centres; jax applies no antialiasing when it enlarges). Otherwise it is
-    JAX's arithmetic: the weight matrices cast to x's dtype, H contracted
-    first, then W, each product rounded to x's dtype; the result in x's
-    memory layout, as `F.interpolate` gives it."""
+    centres; jax applies no antialiasing when it enlarges), whose gradient
+    is JAX's: the transposed products with the weight matrices
+    (`InterpolateByProducts`). Otherwise it is JAX's arithmetic: the weight
+    matrices cast to x's dtype, H contracted first, then W, each product
+    rounded to x's dtype; the result in x's memory layout, as
+    `F.interpolate` gives it; autograd's gradient of those products."""
     H, W = x.shape[2:]
     if (H, W) == (size, size):
         return x
     if x.dtype in (torch.float32, torch.float64) and H <= size and W <= size:
-        return F.interpolate(x, size=(size, size), mode="bilinear", align_corners=False)
+        return InterpolateByProducts.apply(x, _resize_matrix(H, size, x.device).to(x.dtype).T,
+                                           _resize_matrix(W, size, x.device).to(x.dtype).T, False)
     y = torch.matmul(_resize_matrix(H, size, x.device).to(x.dtype).T, x)
     y = torch.matmul(y, _resize_matrix(W, size, x.device).to(x.dtype))
     return y.contiguous(memory_format=layout_of(x))

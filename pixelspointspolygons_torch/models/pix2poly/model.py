@@ -4,20 +4,24 @@ port of pixelspointspolygons_tpu/models/pix2poly/model.py (:35-357).
 - `DecoderLayer`: post-norm (self-attention → LN, cross-attention → LN,
   ReLU FFN → LN), with the explicit attention of `layers.py`, so the same
   weights serve the teacher-forced pass and the KV-cached decode.
-- `Decoder.decode_step` writes position `pos` of preallocated (B, T, D)
-  self-attention caches, one pair per layer, in place and attends over all
-  T slots, the slots after `pos` masked at −1e9, as the JAX step does.
+- `Decoder.decode_step` writes position `pos`, a device tensor, of
+  preallocated (B, T, D) self-attention caches, one pair per layer, in
+  place and attends over all T slots, the slots after `pos` masked at
+  −1e9, as the JAX step does.
 - `ScoreNet`: the 1x1-conv stack over vertex pairs as a per-pair MLP over a
   (B, V, V, 2D) tensor; its BatchNorm normalizes the channel-last axis.
 - `greedy_decode` / `greedy_generate`: greedy decoding with the KV cache,
-  in the fixed-length mode of `bench.py` or with an early exit at EOS.
+  in the fixed-length mode of `bench.py` or with an early exit at EOS; on
+  the card each step after the first is a replay of the step captured in a
+  CUDA graph, bitwise the step run as it is.
 - encoders (JAX :200-232): `vit` (`models/vit.py::ViTEncoder`), the LiDAR
   `pointpillars_vit` (`models/pointpillars.py::PointPillarsViTEncoder`) and
   the early-fusion `early_fusion_vit` (`models/fusion.py`), each giving
   (B, N, dim) tokens.
 
 Plain PyTorch: in the JAX package these are XLA fusions, not Pallas
-kernels. Hopper kernels are planned for the decode step (K2), Sinkhorn (K3)
+kernels. Hopper kernels are planned for the decode step (K2; its first
+step, the step replayed from a CUDA graph, is done), Sinkhorn (K3)
 and the ScoreNet pair MLP (K4) (ROADMAP §2). Module names follow the flax
 tree (`utils/bridge.py`): flax Dense_i in a ScoreNet is dense{i} here,
 BatchNorm_i bn{i}.
@@ -31,6 +35,8 @@ decoder's parameters once per call (`layers.cast_once`), not once per step.
 """
 
 from __future__ import annotations
+
+from collections.abc import Callable
 
 import torch
 import torch.nn.functional as F
@@ -134,20 +140,21 @@ class Decoder(nn.Module):
         memory = encoder_out + cast_to(self.encoder_pos_embed, encoder_out.dtype)
         return [layer.cross_attn.project_kv(memory) for layer in self.layers()]
 
-    def decode_step(self, tok, pos: int, caches, memory_kv, slot_bias):
-        """One greedy step at position `pos` (a host int: no device sync).
+    def decode_step(self, tok, pos: torch.Tensor, caches, memory_kv, slot_bias):
+        """One greedy step at position `pos`, a (1,) int64 tensor read on the
+        device (so that a CUDA graph can replay the step at every position).
 
         tok: (B,) input tokens; caches: per layer the (B, T, D) self-attention
         K and V, position `pos` written in place; slot_bias: (T, T)
         `causal_bias`, whose row `pos` masks the slots after `pos`. Returns
         (logits (B, V), feats (B, D))."""
         (pos_embed,) = self.cached or self.cast_params()
-        x = self.embedding(tok)[:, None, :] + pos_embed[:, pos : pos + 1]
-        bias = slot_bias[pos]
+        x = self.embedding(tok)[:, None, :] + pos_embed.index_select(1, pos)
+        bias = slot_bias.index_select(0, pos)[0]
         for layer, (cache_k, cache_v), kv in zip(self.layers(), caches, memory_kv):
             k_cur, v_cur = layer.self_attn.project_kv(x)  # (B, 1, D)
-            cache_k[:, pos : pos + 1] = k_cur
-            cache_v[:, pos : pos + 1] = v_cur
+            cache_k.index_copy_(1, pos, k_cur)
+            cache_v.index_copy_(1, pos, v_cur)
             x = layer.step(x, cache_k, cache_v, *kv, bias)
         feats = x[:, 0]
         return self.output(feats), feats
@@ -238,8 +245,8 @@ def greedy_decode(model: Pix2Poly, enc: torch.Tensor, bos_code: int, generation_
 
     Returns (tokens (B, T), feats (B, T, D), steps run), T = max_len − 1;
     tokens[:, t] is the token generated at step t (BOS not included). The
-    host issues every step without waiting for the device: positions are
-    host ints and no step reads a device value.
+    host issues every step without waiting for the device: the position is
+    a tensor on the device and no step reads a device value.
 
     eos_code=None: the fixed-length mode (`bench.py`), `generation_steps`
     steps; feats past them are zero.
@@ -249,7 +256,23 @@ def greedy_decode(model: Pix2Poly, enc: torch.Tensor, bos_code: int, generation_
     may run up to EXIT_CHECK_EVERY − 1 steps past that point. A row that is
     done emits PAD and zero feats, which is what those positions already
     hold, so the extra steps change neither tokens nor feats and the result
-    is identical to the JAX loop's."""
+    is identical to the JAX loop's.
+
+    Each step is one in-place function of the device position. On the CPU it
+    runs as it is; on a card step 0 runs as it is and every later step is a
+    replay of that function captured in a CUDA graph (`_capture`): the same
+    kernels on the same values, so the same bits, without the host's cost
+    of each of the step's ~300 operations (cuBLAS's configuration for
+    ordered results, `device.set_deterministic`, costs each product on the
+    host)."""
+    return _greedy_decode(model, enc, bos_code, generation_steps, eos_code, capture=enc.is_cuda)
+
+
+def _greedy_decode(model: Pix2Poly, enc: torch.Tensor, bos_code: int, generation_steps: int,
+                   eos_code: int | None, capture: bool) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """`greedy_decode`, its steps after the first replayed from a CUDA
+    graph with `capture`, else each run as it is (what the card's tests hold
+    the graph against)."""
     dec = model.decoder
     B, dev, dt = enc.shape[0], enc.device, enc.dtype
     T = model.max_len - 1
@@ -259,22 +282,46 @@ def greedy_decode(model: Pix2Poly, enc: torch.Tensor, bos_code: int, generation_
     feats = torch.zeros((B, T, model.dim), dtype=dt, device=dev)
     tok = torch.full((B,), bos_code, dtype=torch.long, device=dev)
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
-    pos = 0
+    at = torch.zeros((1,), dtype=torch.long, device=dev)
     with cast_once(dec):
         memory_kv = dec.init_memory_kv(enc)
-        while pos < generation_steps:
-            logits, f = dec.decode_step(tok, pos, caches, memory_kv, slot_bias)
-            tok = torch.argmax(logits, dim=-1)  # the first maximum, as jnp.argmax
+
+        def step():
+            logits, f = dec.decode_step(tok, at, caches, memory_kv, slot_bias)
+            nxt = torch.argmax(logits, dim=-1)  # the first maximum, as jnp.argmax
             if eos_code is not None:
-                tok = tok.masked_fill(done, model.pad_idx)
+                nxt = nxt.masked_fill(done, model.pad_idx)
                 f = f.masked_fill(done[:, None], 0.0)
-                done = done | (tok == eos_code)
-            tokens[:, pos] = tok
-            feats[:, pos] = f
-            pos += 1
-            if eos_code is not None and pos % EXIT_CHECK_EVERY == 0 and bool(done.all()):
+                done.logical_or_(nxt == eos_code)
+            tokens.index_copy_(1, at, nxt[:, None])
+            feats.index_copy_(1, at, f[:, None])
+            tok.copy_(nxt)
+
+        run, pos = step, 0
+        while pos < generation_steps:
+            if eos_code is not None and pos and pos % EXIT_CHECK_EVERY == 0 and bool(done.all()):
                 break
+            at.fill_(pos)
+            if capture and pos == 0:
+                run = _capture(step)  # runs step 0 too
+            else:
+                run()
+            pos += 1
     return tokens, feats, pos
+
+
+def _capture(step) -> Callable[[], None]:
+    """Run `step` once on a side stream (the warm-up that capture asks
+    for), capture it in a CUDA graph, and return the graph's replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    return graph.replay
 
 
 def greedy_generate(model: Pix2Poly, batch: dict, bos_code: int, generation_steps: int,

@@ -8,6 +8,10 @@ pixelspointspolygons_tpu/models/pointpillars.py (:31-192).
   pillar's kept points (`ops/voxelize.py::masked_segment_max`), which
   every layer but the last concatenates back to its points. Two layers,
   8 → 64 → dim, as the reference's feat_channels [64, patch_feature_dim].
+  The gradients of the pooling's tie counts and of the gather back to the
+  points are segment sums over the 3.2M rows, taken in row order as JAX's
+  scatter-adds on the CPU take them: on the card by the hand-written kernel
+  `csrc/run_sums.cu` (`ops/run_sums.py`), so training repeats its bits.
 - `PillarCanvas` (JAX :61-104): the batch is voxelized at once and then
   flattened into one point set of B·N rows with offset pillar ids, so the
   train-mode BatchNorm takes its statistics over all B·N rows, the padded
@@ -37,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.run_sums import gather_rows
 from ..ops.voxelize import assign_pillars, grid_shape, masked_segment_max, cell_offsets
 from .layers import BatchNorm, Dense, RowBatchNorm, SameConv2d, adaptive_avg_pool1d, cast_to, resize_bilinear
 from .vit import ViTBackbone
@@ -58,16 +63,19 @@ class PillarFeatureNet(nn.Module):
             cin = 2 * ch
 
     def forward(self, feats: torch.Tensor, pillar_id: torch.Tensor, keep: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
-        """feats (N, 8), pillar_id (N,) in [0, num_segments), keep (N,) bool
-        → (num_segments, C_last) pooled features."""
+                num_segments: int, samples: int) -> torch.Tensor:
+        """feats (N, 8), pillar_id (N,) int64 in [0, num_segments), keep (N,)
+        bool → (num_segments, C_last) pooled features. The ids are those of
+        `samples` voxelized samples, flattened as `PillarCanvas` does: the
+        backwards of the max pooling and of the gather to the points are
+        ordered run sums over them (`ops/run_sums.py`)."""
         x = cast_to(feats, self.compute_dtype)
         for i in range(self.n_layers):
             x = F.relu(getattr(self, f"bn{i}")(getattr(self, f"dense{i}")(x)))
             x = x * keep[:, None]
-            pooled = masked_segment_max(x, keep, pillar_id, num_segments)
+            pooled = masked_segment_max(x, keep, pillar_id, num_segments, samples)
             if i < self.n_layers - 1:
-                x = torch.cat([x, pooled[pillar_id]], dim=-1)
+                x = torch.cat([x, gather_rows(pooled, pillar_id, samples)], dim=-1)
         return pooled
 
 
@@ -87,7 +95,7 @@ class PillarCanvas(nn.Module):
         a = assign_pillars(points, valid, max_points_per_voxel=self.max_points_per_voxel, **self.grid)
         B, N = valid.shape
         flat_pid = (a.pillar_id + cell_offsets(B, a.n_cells, points.device)).reshape(-1)
-        pooled = self.pfn(a.features.reshape(B * N, -1), flat_pid, a.keep.reshape(-1), B * (a.n_cells + 1))
+        pooled = self.pfn(a.features.reshape(B * N, -1), flat_pid, a.keep.reshape(-1), B * (a.n_cells + 1), B)
         # each sample's dump cell dropped, the pillars laid out as the canvas
         return pooled.reshape(B, a.n_cells + 1, -1)[:, : a.n_cells].reshape(B, ny, nx, -1)
 

@@ -25,7 +25,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 
 # kernel name -> source file under csrc/
-SOURCES = {"afm": "afm.cu", "pillar_sums": "pillar_sums.cu"}
+SOURCES = {"afm": "afm.cu", "pillar_sums": "pillar_sums.cu", "run_sums": "run_sums.cu"}
 
 # --fmad=false and IEEE division/sqrt: the kernels keep their plain
 # versions' rounding (see the note at the top of each source)

@@ -1,14 +1,20 @@
 """Segment reductions over flat-packed ids — port of
 pixelspointspolygons_tpu/ops/segment.py.
 
-`segment_sum` is `index_add_` (on the card its atomics sum in no fixed
-order, so sums differ from the CPU's in the last bits); `segment_max` is
+`segment_sum` is `index_add_`: no path of the port's calls it any more
+(the voxelizer's sums are `ops/voxelize.py::pillar_sums_cuda`, the
+PillarFeatureNet's gradients `ops/run_sums.py`); on the card, where the
+entry points turn `torch.use_deterministic_algorithms` on, PyTorch takes
+its sorted form instead of atomics. `segment_max` is
 `scatter_reduce(..., "amax", include_self=False)` over an index expanded
 along the feature axes (a stride-0 view, never a (N, C) int64 copy), and
 leaves an empty segment at -inf, as `jax.ops.segment_max` does. Its
 gradient is split evenly over the elements that tie for a segment's
-maximum, as JAX's is. `rank_in_run` is JAX's associative max-scan of run
-starts as `torch.cummax`.
+maximum, as JAX's is; the tie count is exact in any order of its adds
+(adds of 1 and 0), but autograd's `scatter_add` takes it under the flag
+through two (N, C) int64 index tensors, so the PillarFeatureNet takes
+`ops/run_sums.py::segment_max_rows` instead. `rank_in_run` is JAX's
+associative max-scan of run starts as `torch.cummax`.
 """
 
 from __future__ import annotations

@@ -38,7 +38,8 @@ from typing import NamedTuple
 import torch
 
 from .build import load
-from .segment import rank_in_run, segment_max
+from .run_sums import segment_max_rows
+from .segment import rank_in_run
 
 
 class PillarAssignment(NamedTuple):
@@ -222,13 +223,15 @@ def cell_offsets(batch: int, n_cells: int, device=None) -> torch.Tensor:
 
 
 def masked_segment_max(x: torch.Tensor, keep: torch.Tensor, segment_ids: torch.Tensor,
-                       num_segments: int) -> torch.Tensor:
+                       num_segments: int, samples: int) -> torch.Tensor:
     """The max over each segment's kept rows of x (N, C), 0 where a segment
     has none (JAX pointpillars.py:31-35): rows not kept read finfo.min, and
     a result at or below finfo.min/2 (an empty segment's -inf, a segment of
-    rows not kept) becomes 0, at x's dtype."""
+    rows not kept) becomes 0, at x's dtype. The ids are `samples` samples'
+    pillar ids as `PillarCanvas` flattens them (`run_sums.run_sums_cuda`'s
+    layout), so the gradient's tie counts are ordered run sums."""
     neg = torch.finfo(x.dtype).min
-    pooled = segment_max(torch.where(keep[:, None], x, neg), segment_ids, num_segments)
+    pooled = segment_max_rows(torch.where(keep[:, None], x, neg), segment_ids, num_segments, samples)
     return torch.where(pooled > neg / 2, pooled, 0.0)
 
 
@@ -236,5 +239,5 @@ def scatter_pillars(point_feats: torch.Tensor, pillar_id: torch.Tensor, keep: to
                     ny: int, nx: int) -> torch.Tensor:
     """Max-pool per-point features (N, C) of one sample into its pillars and
     lay them out as a dense (ny, nx, C) canvas; an empty pillar is zero."""
-    return masked_segment_max(point_feats, keep, pillar_id, n_cells + 1)[:n_cells].reshape(ny, nx, -1)
+    return masked_segment_max(point_feats, keep, pillar_id, n_cells + 1, 1)[:n_cells].reshape(ny, nx, -1)
 

@@ -23,7 +23,7 @@ import torch
 from ..config.engine import Config
 from ..data.dataset import load_image_file, load_lidar_file
 from ..data.loader import device_prefetch
-from ..device import resolve_device, set_tf32
+from ..device import resolve_device, set_deterministic, set_tf32
 from ..parallel import all_gather_objects, process_count, process_index, sync_processes
 from ..utils.checkpoint import CheckpointManager
 from ..utils.coco import save_annotations
@@ -43,6 +43,7 @@ class Predictor:
         self.cfg = cfg
         self.device = resolve_device(device)
         set_tf32(False)
+        set_deterministic(self.device)
         self.logger = make_logger(self.__class__.__name__)
         self.manager = CheckpointManager(cfg.output_dir)
 

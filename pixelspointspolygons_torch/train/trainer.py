@@ -3,7 +3,9 @@ template method of reference train/trainer.py:22-220 (seed → model →
 loaders → optimizer → train_val_loop → checkpoints) on one device.
 
 Float32 runs as float32: TF32 is off for matmuls and cuDNN convolutions
-(the JAX package's host.compute_dtype=float32).
+(the JAX package's host.compute_dtype=float32). On the card every
+operation takes an ordered form (`device.set_deterministic`): a run gives
+the same bits twice from one seed.
 
 `checkpoint=<name>` resumes a run (weights, optimizer, schedule, epoch);
 without it, `init_weights_from=<file>` warm-starts from the weights of
@@ -35,7 +37,7 @@ import torch
 from ..config.engine import Config
 from ..data.device_cache import CacheFitError
 from ..data.loader import device_prefetch
-from ..device import resolve_device, set_tf32
+from ..device import resolve_device, set_deterministic, set_tf32
 from ..parallel import all_reduce_mean, sync_processes
 from ..utils.checkpoint import CheckpointManager, save_best_and_latest, smart_restore_params
 from ..utils.logger import make_logger
@@ -54,6 +56,7 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         set_tf32(False)
+        set_deterministic(self.device)
         self.logger = make_logger(self.__class__.__name__)
         self.manager = CheckpointManager(cfg.output_dir)
         self.best = {

@@ -151,12 +151,13 @@ def main() -> None:
     sys.path.insert(0, ROOT)
     from pixelspointspolygons_torch import parallel
     from pixelspointspolygons_torch.config import compose
-    from pixelspointspolygons_torch.device import set_tf32
+    from pixelspointspolygons_torch.device import set_deterministic, set_tf32
     from pixelspointspolygons_torch.models.hisup.factory import build_hisup
     from pixelspointspolygons_torch.models.layers import BatchNorm
 
-    set_tf32(False)
     card = torch.device("cuda")
+    set_deterministic(card)
+    set_tf32(False)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip().splitlines()[0]
     parallel.init_distributed("cuda", world_size=1, rank=0, init_method=f"tcp://127.0.0.1:{parallel.free_port()}")

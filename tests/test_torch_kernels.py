@@ -1,5 +1,7 @@
 """The port's hand-written CUDA kernels against their plain PyTorch versions
-on the card (the AFM and the voxelizer's pillar sums). This file imports
+on the card (the AFM, the voxelizer's pillar sums and the PillarFeatureNet's
+ordered backward), and one train step of each family repeating its bits
+under the entry points' deterministic set-up. This file imports
 neither JAX nor the JAX package, so it runs where only the port is
 installed:
 
@@ -308,3 +310,160 @@ def test_pillar_sums_kernel_searches_a_run_past_its_look_ahead(cuda_device, dtyp
         torch.cuda.synchronize()
         assert _same_bits(sums, want_sums) and torch.equal(counts, want_counts), f"cap {cap}"
         assert int(counts.max()) == min(cap, 2500)
+
+
+# --- the PillarFeatureNet's ordered backward (csrc/run_sums.cu) -------------------------
+
+
+def _pfn_ids(pid: np.ndarray, n_cells: int, cap: int, device) -> torch.Tensor:
+    """The PillarFeatureNet's flat ids of a layout at `cap` (`PillarCanvas`)."""
+    pid_s = torch.from_numpy(pid).to(device)
+    keep = (pid_s < n_cells) & (rank_in_run(pid_s) < cap)
+    offsets = torch.arange(pid.shape[0], device=device)[:, None] * (n_cells + 1)
+    return (torch.where(keep, pid_s, n_cells) + offsets).reshape(-1)
+
+
+def _grad_rows(n: int, channels: int, seed: int, dtype, device) -> torch.Tensor:
+    r = np.random.RandomState(seed)
+    x = r.standard_normal((n, channels)).astype(np.float32) * (10.0 ** r.uniform(-3, 6, (n, 1))).astype(np.float32)
+    return torch.from_numpy(x).to(device).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["long_run", "run_lengths", "empty_pillars", "all_padding", "cap_above_n",
+                                    "grid_5x7"])
+def test_run_sums_kernel_on_layouts(cuda_device, layout, dtype):
+    """Bitwise the plain version at 64 and 40 channels and caps 4, 64 and
+    512, dump cells included, and the same bits over three calls."""
+    from pixelspointspolygons_torch.ops.run_sums import run_sums, run_sums_cuda
+
+    _, pid, n_cells = small_layouts()[layout]
+    B = pid.shape[0]
+    for cap in CAPS:
+        ids = _pfn_ids(pid, n_cells, cap, cuda_device)
+        for channels in (64, 40):
+            x = _grad_rows(len(ids), channels, cap + channels, dtype, cuda_device)
+            before = run_sums_cuda.launches
+            got = run_sums_cuda(x, ids, B * (n_cells + 1), B)
+            again = [run_sums_cuda(x, ids, B * (n_cells + 1), B) for _ in range(3)]
+            want = run_sums(x, ids, B * (n_cells + 1))
+            torch.cuda.synchronize()
+            assert run_sums_cuda.launches == before + 4
+            assert _same_bits(got, want), f"cap {cap}, {channels} channels"
+            assert all(_same_bits(got, a) for a in again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_run_sums_kernel_at_the_main_paths_size(cuda_device, dtype):
+    """16 samples of 200,000 rows (a sample of padding only, a run of
+    100,000 points) at cap 64, and the dense encoder's 65,536 pillars at
+    cap 4: bitwise the plain version."""
+    from pixelspointspolygons_torch.ops.run_sums import run_sums, run_sums_cuda
+
+    for (_, pid, n_cells), cap in ((large_layout(), 64), (dense_layout(), 4)):
+        B = pid.shape[0]
+        ids = _pfn_ids(pid, n_cells, cap, cuda_device)
+        x = _grad_rows(len(ids), 64, cap, dtype, cuda_device)
+        got = run_sums_cuda(x, ids, B * (n_cells + 1), B)
+        want = run_sums(x, ids, B * (n_cells + 1))
+        torch.cuda.synchronize()
+        assert _same_bits(got, want), n_cells
+
+
+@pytest.mark.cuda
+def test_run_sums_kernel_refuses_what_it_cannot_take(cuda_device):
+    from pixelspointspolygons_torch.ops.run_sums import run_sums_config, run_sums_cuda
+
+    x = torch.zeros(12, 4, device=cuda_device)
+    ids = torch.zeros(12, dtype=torch.int64, device=cuda_device)
+    before = run_sums_cuda.launches
+    for bad in (lambda: run_sums_cuda(x.half(), ids, 6, 2), lambda: run_sums_cuda(x, ids.int(), 6, 2),
+                lambda: run_sums_cuda(x, ids, 6, 5), lambda: run_sums_cuda(x.t(), ids[:4], 6, 2),
+                lambda: run_sums_cuda(x.cpu(), ids.cpu(), 6, 2)):
+        with pytest.raises(ValueError):
+            bad()
+    assert run_sums_cuda.launches == before
+    conf = run_sums_config()
+    assert conf["warps"] == 9 and conf["tile_bytes"] == 16384
+    assert min(conf["blocks_per_sm_float"], conf["blocks_per_sm_double"], conf["blocks_per_sm_bfloat16"]) >= 1
+
+
+@pytest.fixture()
+def deterministic(cuda_device):
+    """The entry points' set-up (`device.set_deterministic`), put back after."""
+    import os
+
+    from pixelspointspolygons_torch.device import set_deterministic
+
+    found = (torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.utils.deterministic.fill_uninitialized_memory)
+    set_deterministic(cuda_device)
+    yield cuda_device
+    torch.use_deterministic_algorithms(found[0], warn_only=found[1])
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = found[2], found[3]
+    torch.utils.deterministic.fill_uninitialized_memory = found[4]
+    assert os.environ["CUBLAS_WORKSPACE_CONFIG"] == ":4096:8"
+
+
+def _two_steps(make_model, make_step, batch, args=()):
+    """Two runs of two train steps from one seed: losses, the first step's
+    gradients and the parameters and buffers after."""
+    from pixelspointspolygons_torch.train.state import TrainState, make_optimizer, make_scheduler
+
+    runs = []
+    for _ in range(2):
+        torch.manual_seed(0)
+        model = make_model()
+        opt = make_optimizer("adamw", model.parameters(), 1e-3)
+        state = TrainState(model, opt, make_scheduler(opt, lambda n: 1e-3, 1e-3))
+        step = make_step()
+        losses, grads = [], None
+        for s in range(2):
+            losses.append({k: v.detach().clone() for k, v in step(state, batch, *args).items()})
+            if s == 0:
+                grads = {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.grad is not None}
+        torch.cuda.synchronize()
+        runs.append((losses, grads, {k: v.detach().clone() for k, v in model.state_dict().items()}))
+    return runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["hisup_hrnet", "hisup_vit_cnn", "pix2poly_fusion", "ffl"])
+def test_train_step_repeats_under_the_flag(deterministic, family):
+    """One tiny model of each family (`graft_entry_torch`'s; Pix2Poly's is
+    the early-fusion ViT, with the PillarFeatureNet) takes two train steps
+    on the card under `torch.use_deterministic_algorithms(True)`: nothing
+    raises, and two runs from one seed give the same bits."""
+    import graft_entry_torch as g
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.models.ffl.losses import make_ffl_loss
+    from pixelspointspolygons_torch.ops.run_sums import run_sums_cuda
+    from pixelspointspolygons_torch.train import ffl_step, hisup_step, pix2poly_step
+
+    dev = deterministic
+    name = family.split("_")[0]
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in g.dryrun_batches(4)[name].items()}
+    args = ()
+    if name == "hisup":
+        enc = family.split("_", 1)[1]
+        make_model = lambda: g.tiny_hisup(enc, torch.Generator().manual_seed(3)).to(dev)  # noqa: E731
+        make_step = lambda: hisup_step.make_train_step(g.HISUP_WEIGHTS, g.S)  # noqa: E731
+    elif name == "pix2poly":
+        make_model = lambda: g.tiny_pix2poly(torch.Generator().manual_seed(0)).to(dev)  # noqa: E731
+        make_step = lambda: pix2poly_step.make_train_step(1.0, 10.0, 34)  # noqa: E731
+    else:
+        loss_fn, weights_for_epoch = make_ffl_loss(compose(["experiment=ffl_image", "dataset=synthetic",
+                                                            "run_type=debug"]))
+        make_model = lambda: g.tiny_ffl(torch.Generator().manual_seed(2)).to(dev)  # noqa: E731
+        make_step = lambda: ffl_step.make_train_step(loss_fn)  # noqa: E731
+        args = (weights_for_epoch(0),)
+    before = run_sums_cuda.launches
+    (l0, g0, s0), (l1, g1, s1) = _two_steps(make_model, make_step, batch, args)
+    assert (run_sums_cuda.launches > before) == (name == "pix2poly")
+    assert all(torch.isfinite(v).all() for step in l0 for v in step.values())
+    assert all(_same_bits(a[k], b[k]) for a, b in zip(l0, l1) for k in a)
+    assert g0.keys() == g1.keys() and all(_same_bits(g0[k], g1[k]) for k in g0)
+    assert all(_same_bits(s0[k], s1[k]) for k in s0)

@@ -28,6 +28,7 @@ import io
 import json
 import os
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -206,7 +207,7 @@ def test_measure_predict_e2e_prints_the_scripts_line(tiny_vit, tmp_path, monkeyp
 
     class Idle:
         def predict_dataset(self, split):
-            return None
+            time.sleep(0.001)  # a wall the script can divide by: an instant call can read 0.0 s
 
     predict_script = _script("predict")
     monkeypatch.setattr(predict_script, "get_predictor", lambda cfg: Idle())
@@ -240,7 +241,7 @@ def test_measure_predict_e2e_counts_the_tiles_it_predicted(tiny_vit, tmp_path, m
 
     class Idle:
         def predict_dataset(self, split):
-            return None
+            time.sleep(0.001)  # a wall the script can divide by: an instant call can read 0.0 s
 
     monkeypatch.setattr(_script("predict"), "get_predictor", lambda cfg: Idle())
     monkeypatch.setattr(sys, "argv", ["measure_predict_e2e.py"] + args)

@@ -17,8 +17,10 @@ scores tolerance 1, `acm_method.eval_tolerance`).
 
 Prints one line per epoch (every loss term's mean, the val loss, the LR of
 the epoch's last step, FFL's loss weights, the val IoU and C-IoU where the
-val pass ran, wall seconds, peak device memory, AFM launches), then the
-metric row, the card's name and power limit, and writes all of it as JSON
+val pass ran, wall seconds, peak device memory, AFM launches), the SHA-256
+of the `best_val_iou` checkpoint's model and optimizer tensors (two runs
+from one seed give the same one: training repeats its bits on the card),
+then the metric row, the card's name and power limit, and writes all of it as JSON
 to `--out` (default `build/trained_run/trained_<family>.json`).
 """
 
@@ -139,6 +141,35 @@ def record_epochs(trainer_cls, epochs: list[dict], trainers: list | None = None)
         experiment_log.RunLogger.log = saved_log
 
 
+def checkpoint_digest(path: str) -> str:
+    """SHA-256 over a checkpoint's model and optimizer tensors (name,
+    dtype, shape and bytes, in sorted order) and its epoch: two runs that
+    wrote the same bits give the same digest."""
+    import hashlib
+
+    import torch
+
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    h = hashlib.sha256(str(payload.get("epoch")).encode())
+
+    def walk(prefix: str, x) -> None:
+        if isinstance(x, dict):
+            for k in sorted(x, key=str):
+                walk(f"{prefix}.{k}", x[k])
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(f"{prefix}.{i}", v)
+        elif isinstance(x, torch.Tensor):
+            h.update(f"{prefix}:{x.dtype}:{tuple(x.shape)}".encode())
+            h.update(x.detach().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+        else:
+            h.update(f"{prefix}={x!r}".encode())
+
+    walk("model", payload["model"])
+    walk("optimizer", payload["optimizer"])
+    return h.hexdigest()
+
+
 def epoch_line(rec: dict) -> str:
     """One epoch's record on one line."""
     skip = {"epoch", "step", "steps", "lrs", "lr_first", "lr_last", "weights", "weights_constant", "wall_s",
@@ -171,7 +202,11 @@ def main(argv: list[str] | None = None) -> dict:
     from pixelspointspolygons_torch.cli import evaluate as cli_evaluate
     from pixelspointspolygons_torch.cli import predict as cli_predict
     from pixelspointspolygons_torch.cli import train as cli_train
+    from pixelspointspolygons_torch.config import compose
+    from pixelspointspolygons_torch.device import set_deterministic
     from pixelspointspolygons_torch.ops.afm import afm_cuda
+
+    set_deterministic("cuda")
 
     if args.family == "ffl":
         from pixelspointspolygons_torch.train.trainer_ffl import FFLTrainer as trainer_cls
@@ -190,6 +225,9 @@ def main(argv: list[str] | None = None) -> dict:
     for rec in epochs:
         print(epoch_line(rec), flush=True)
     out = {"family": args.family, "card": smi, "overrides": base, "train_s": train_s, "epochs": epochs}
+    best = os.path.join(compose(base).output_dir, "checkpoints", "best_val_iou.pt")
+    out["best_val_iou_sha256"] = checkpoint_digest(best) if os.path.isfile(best) else None
+    print(f"best_val_iou checkpoint: model and optimizer SHA-256 {out['best_val_iou_sha256']}", flush=True)
     afm_cuda.launches = 0
     t = time.perf_counter()
     results = cli_predict.main(base + ["evaluation=val", "checkpoint=best_val_iou", EVAL_MODES])
@@ -199,8 +237,6 @@ def main(argv: list[str] | None = None) -> dict:
     print(f"val row ({args.family}, best_val_iou): {json.dumps(row)}; prediction {out['predict_s']:.1f} s, "
           f"afm launches {out['predict_afm']}", flush=True)
     if args.family == "ffl":
-        from pixelspointspolygons_torch.config import compose
-
         pred_file = compose(base + ["evaluation=val", "checkpoint=best_val_iou"]).evaluation.pred_file
         out["by_tolerance"] = {}
         for tol in (1, 2, 3):
