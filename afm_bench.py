@@ -46,29 +46,6 @@ from pixelspointspolygons_torch.ops.afm import _launch, afm
 OUT = os.path.join(chip_smoke.ROOT, "build", "afm_bench")
 
 
-def compile_all(sources: dict) -> dict:
-    """{name: (.cu path, extra nvcc flags)} -> {name: .so path}, one nvcc
-    each, all at once."""
-    nvcc = build.nvcc_path()
-    procs = {}
-    for name, (src, defines) in sources.items():
-        so = os.path.join(OUT, f"lib{name}.so")
-        cmd = [nvcc, *build.NVCC_FLAGS, *defines, "-o", so, src]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
-    libs = {}
-    for name, (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            chip_smoke.fail(f"nvcc failed for {name}:\n{log}")
-        lines = log.splitlines()
-        # ptxas prints "Compiling entry function '<name>'", then its registers
-        at = next((i for i, line in enumerate(lines) if "Compiling entry" in line and "afm_kernel" in line), None)
-        regs = next((line.strip() for line in lines[at:] if "registers" in line), "") if at is not None else ""
-        print(f"built {name}: afm_kernel {regs}", flush=True)
-        libs[name] = so
-    return libs
-
-
 def sass_pair_loop(so: str, out: str) -> dict | None:
     """The pair loop of the AFM kernel's SASS: of the innermost loops, the
     one with the most floating-point instructions. Returns its instruction
@@ -132,7 +109,7 @@ def main() -> None:
     for spec in filter(None, args.sweep.split(",")):
         r, c, w = (int(x) for x in spec.split("x"))
         sources[spec] = (current, [f"-DAFM_ROWS={r}", f"-DAFM_COLS={c}", f"-DAFM_WARPS={w}"])
-    libs = {name: ctypes.CDLL(so) for name, so in compile_all(sources).items()}
+    libs = {name: ctypes.CDLL(so) for name, so in build.compile_versions(sources, OUT, "afm_kernel").items()}
 
     lines, valid = chip_smoke.afm_inputs(compose(chip_smoke.smoke_overrides(chip_smoke.TRAIN_STEPS * chip_smoke.B)))
     S = chip_smoke.S

@@ -963,19 +963,6 @@ def phase_build() -> None:
                 print(f"  {name}: {line.strip()}", flush=True)
 
 
-def ptxas_usage(log: str, kernel: str) -> dict:
-    """{entry function: its registers, shared memory and spills} for each
-    entry of `-Xptxas -v`'s log whose mangled name holds `kernel`."""
-    usage, entry = {}, None
-    for line in log.splitlines():
-        found = re.search(r"Compiling entry function '(\w+)'", line)
-        if found:
-            entry = found.group(1) if kernel in found.group(1) else None
-        elif entry and ("registers" in line or "spill" in line):
-            usage.setdefault(entry, []).append(line.split(":", 1)[-1].strip() if "Used" in line else line.strip())
-    return {k: "; ".join(v) for k, v in usage.items()}
-
-
 def afm_inputs(cfg) -> tuple[torch.Tensor, torch.Tensor]:
     """B=16 samples of L=256 segments at 224 px: 12 with the edges of
     synthetic training tiles, 3 with 256 random segments, 1 with none."""
@@ -1211,7 +1198,7 @@ def phase_pillar_sums() -> dict:
     if os.path.isfile(log_path):
         with open(log_path) as f:
             build_log = f.read()
-    for entry, usage in ptxas_usage(build_log, "pillar_sums_kernel").items():
+    for entry, usage in build.ptxas_usage(build_log, "pillar_sums_kernel").items():
         kind = "float32" if "kernelIf" in entry else "float64" if "kernelId" in entry else entry
         print(f"pillar_sums ptxas, {kind}: {usage}", flush=True)
     print(f"pillar_sums on {sums_layouts_against_plain()} layout cases (float32 and float64, caps {LIDAR_CAPS}): "
@@ -1291,14 +1278,15 @@ def run_sums_layouts_against_plain() -> int:
     """`run_sums_cuda` bitwise against its plain version, and against itself
     over three calls, at RUN_SUMS_CHANNELS channels on the layouts of
     `ops/pillar_layouts.py`, flattened as the PillarFeatureNet flattens
-    them: the small ones at the caps LIDAR_CAPS in float32, float64 and
+    them: the small ones (`run_layouts`: the pillar sums' and the run sums'
+    own edges) at the caps LIDAR_CAPS in float32, float64 and
     bfloat16, the 16 x 200,000-point one at cap 64 in float32 and the dense
     grid at its cap 4 in float64 (the plain version takes seconds there: a
     loop over the longest chain). Returns the number of cases."""
-    from pixelspointspolygons_torch.ops.pillar_layouts import DENSE_CAP, dense_layout, large_layout, small_layouts
+    from pixelspointspolygons_torch.ops.pillar_layouts import DENSE_CAP, dense_layout, large_layout, run_layouts
     from pixelspointspolygons_torch.ops.run_sums import run_sums, run_sums_cuda
 
-    cases = [(name, pid, n_cells, cap, dtype) for name, (_, pid, n_cells) in small_layouts().items()
+    cases = [(name, pid, n_cells, cap, dtype) for name, (_, pid, n_cells) in run_layouts().items()
              for cap in LIDAR_CAPS for dtype in (torch.float32, torch.float64, torch.bfloat16)]
     _, pid, n_cells = large_layout()
     cases.append(("large", pid, n_cells, 64, torch.float32))
@@ -1384,11 +1372,15 @@ def phase_run_sums() -> dict:
     from pixelspointspolygons_torch.ops.voxelize import sort_by_pillar
 
     conf = run_sums_config()
-    design = (f"one launch: a block of {conf['warps']} warps per (sample, 32 channels) walks the sample's dump-cell "
-              f"chain, 8 warps staging its rows in tiles of {conf['tile_bytes']} bytes in two buffers while warp 0 "
-              f"adds the flagged rows in order, lane c channel c; the other blocks take 32 rows a warp, a lane a "
-              f"row, and for each pillar run that starts there find its end 32 ids a round and add its rows in "
-              f"order, lane c channel c")
+    design = (f"one launch of {conf['warps']}-warp blocks, {conf['smem_bytes']} bytes of dynamic shared memory "
+              f"(float32): a block per (sample, 32 channels) walks the sample's dump-cell chain, "
+              f"{conf['warps'] - 1} producer warps copying only its dump rows, compacted, by cp.async into a ring "
+              f"of {conf['stages']} slots of {conf['tile_bytes']} bytes, +0.0 after them, under full and empty "
+              f"mbarriers while warp 0 adds every slot's rows in order, {conf['group_rows']} rows read ahead, "
+              f"without a branch, lane c channel c; "
+              f"the other blocks take {conf['run_tile_rows']} positions of a sample, stop after one read of their "
+              f"ids where no pillar run starts, else find the runs' starts and ends in that read and add each "
+              f"run's rows in order, staged by cp.async, lane c channel c")
     print(f"run_sums kernel: {design}; blocks per SM: {conf['blocks_per_sm_float']} float32, "
           f"{conf['blocks_per_sm_double']} float64, {conf['blocks_per_sm_bfloat16']} bfloat16", flush=True)
     log_path = build.library_path("run_sums") + ".log"
@@ -1396,7 +1388,7 @@ def phase_run_sums() -> dict:
     if os.path.isfile(log_path):
         with open(log_path) as f:
             build_log = f.read()
-    ptxas = ptxas_usage(build_log, "run_sums_kernel")
+    ptxas = build.ptxas_usage(build_log, "run_sums_kernel")
     for entry, usage in ptxas.items():
         kind = ("float32" if "kernelIf" in entry else "float64" if "kernelId" in entry
                 else "bfloat16" if "bfloat16" in entry else entry)
@@ -1409,6 +1401,10 @@ def phase_run_sums() -> dict:
     B = pid_s.shape[0]
     ids = run_sums_ids(pid_s, 64, n_cells)
     S = B * (n_cells + 1)
+    # the chain's length: the longest sample's dump rows, one dependent add each
+    dump_rows = int((ids.reshape(B, -1) == torch.arange(1, B + 1, device=CARD)[:, None] * (n_cells + 1) - 1)
+                    .sum(dim=1).max())
+    print(f"run_sums main path ids: the longest sample holds {dump_rows} dump rows of {pid_s.shape[1]}", flush=True)
     main = run_sums_times(run_rows(len(ids), RUN_SUMS_CHANNELS, 0, torch.float32), ids, S, B,
                           f"main path ids ({B} x {pid_s.shape[1]} rows, cap 64), {RUN_SUMS_CHANNELS} channels")
     from pixelspointspolygons_torch.ops.run_sums import run_sums_cuda
@@ -1443,6 +1439,8 @@ def phase_run_sums() -> dict:
         "graph_ms": main["graph_ms"],
         "cold_ms": main["cold_ms"],
         "design": design,
+        "config": conf,
+        "longest_dump_rows": dump_rows,
         "ptxas": ptxas,
         "wide_ms": wide_ms,
         "wide_plain_ms": wide_plain,

@@ -40,7 +40,6 @@ import ctypes
 import json
 import os
 import statistics
-import subprocess
 import sys
 
 import torch
@@ -50,26 +49,6 @@ from pixelspointspolygons_torch.ops import build
 from pixelspointspolygons_torch.ops.voxelize import _launch, bind, pillar_sums, sort_by_pillar
 
 OUT = os.path.join(chip_smoke.ROOT, "build", "pillar_sums_bench")
-
-
-def compile_all(sources: dict) -> dict:
-    """{name: (.cu path, extra nvcc flags)} -> {name: .so path}, one nvcc
-    each, all at once; prints each version's ptxas usage."""
-    nvcc = build.nvcc_path()
-    procs = {}
-    for name, (src, defines) in sources.items():
-        so = os.path.join(OUT, f"lib{name}.so")
-        cmd = [nvcc, *build.NVCC_FLAGS, *defines, "-o", so, src]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
-    libs = {}
-    for name, (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            chip_smoke.fail(f"nvcc failed for {name}:\n{log}")
-        for entry, usage in chip_smoke.ptxas_usage(log, "pillar_sums_kernel").items():
-            print(f"built {name}: {entry}: {usage}", flush=True)
-        libs[name] = so
-    return libs
 
 
 def trace_steps(lib: ctypes.CDLL, pts_s: torch.Tensor, pid_s: torch.Tensor, n_cells: int) -> dict:
@@ -131,7 +110,8 @@ def main() -> None:
         sources[spec] = (current, [f"-D{m}={int(x)}" for m, x in zip(macros, spec.split("x"))])
     if args.trace:
         sources["trace"] = (current, ["-DPS_TRACE"])
-    libs = {name: bind(ctypes.CDLL(so)) for name, so in compile_all(sources).items()}
+    built = build.compile_versions(sources, OUT, "pillar_sums_kernel")
+    libs = {name: bind(ctypes.CDLL(so)) for name, so in built.items()}
 
     pts, valid, grid = chip_smoke.lidar_batch(chip_smoke.lidar_overrides("hisup_lidar"))
     inputs = {}

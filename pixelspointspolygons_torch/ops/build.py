@@ -5,7 +5,10 @@ shared library with a plain C interface and loaded with ctypes. A library is
 built at first use, into `build/torch_kernels/` under the repository root,
 under a name that carries a hash of its source and flags, so an edited
 source is never served by a stale build. `build()` compiles several sources
-at once, one `nvcc` process each, all started together.
+at once, one `nvcc` process each, all started together;
+`compile_versions()` does the same for the kernel benchmarks' variants
+(other copies of a source, or other `-D` settings), with ptxas's usage of
+each.
 
 No CUDA toolkit is needed to import this module; only building needs one.
 """
@@ -16,6 +19,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -99,3 +103,42 @@ def load(name: str) -> ctypes.CDLL:
     if not os.path.isfile(path):
         build([name])
     return ctypes.CDLL(path)
+
+
+def ptxas_usage(log: str, kernel: str) -> dict:
+    """{entry function: its registers, shared memory and spills} for each
+    entry of `-Xptxas -v`'s log whose mangled name holds `kernel`."""
+    usage, entry = {}, None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '(\w+)'", line)
+        if found:
+            entry = found.group(1) if kernel in found.group(1) else None
+        elif entry and ("registers" in line or "spill" in line):
+            usage.setdefault(entry, []).append(line.split(":", 1)[-1].strip() if "Used" in line else line.strip())
+    return {k: "; ".join(v) for k, v in usage.items()}
+
+
+def compile_versions(sources: dict, out_dir: str, kernel: str) -> dict:
+    """{name: (.cu path, extra nvcc flags)} -> {name: .so path}: each built
+    with the port's flags into `out_dir`, one nvcc each, all started
+    together; prints ptxas's usage of each entry function whose name holds
+    `kernel`. Raises on the first failure, after all have ended."""
+    os.makedirs(out_dir, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for name, (src, defines) in sources.items():
+        so = os.path.join(out_dir, f"lib{name}.so")
+        cmd = [nvcc, *NVCC_FLAGS, *defines, "-o", so, src]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    libs, failed = {}, []
+    for name, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}:\n{log}")
+            continue
+        for entry, usage in ptxas_usage(log, kernel).items():
+            print(f"built {name}: {entry}: {usage}", flush=True)
+        libs[name] = so
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs

@@ -4,7 +4,14 @@ their edge cases: runs longer than a staged chunk and than a tile, runs of
 exactly a cap or a chunk and one more or less, empty pillars at either end
 of the grid and between full ones, a sample that is all padding, a cap
 above the number of points, and a grid whose pillars do not fill the
-kernel's pass of 64.
+kernel's pass of 64. The PillarFeatureNet's ordered run sums
+(`ops/run_sums.py` and `csrc/run_sums.cu`) take these too, flattened as the
+network flattens them (a pillar's first `cap` points its run, every other
+row its sample's dump cell), and theirs besides: a sample without a dump
+row, a sample of dump rows only, runs and dump stretches across the ring's
+slots and a run block's tile, rows per sample not a multiple of any of the
+kernel's tiles, one sample; and, in `run_layouts` only (the voxelizer never
+leaves it, so the pillar sums do not take it), dump rows before the runs.
 
 Each layout is given in the form `sort_by_pillar` returns: points (B, N, 3)
 and int64 pillar ids (B, N) sorted within each sample, every pillar a run,
@@ -35,6 +42,10 @@ DENSE_CELLS, DENSE_CAP = 256 * 256, 4
 SYNTHETIC_POINTS = (30_000, 60_000)
 # run lengths around every cap and one and two float32 chunks
 EDGE_RUNS = (3, 4, 5, 63, 64, 65, 244, 245, 246, 489, 490, 491, 511, 512, 513)
+# csrc/run_sums.cu: a ring slot holds 128 float32 rows (64 float64, 256
+# bfloat16), a run block owns 1,280 positions, a warp 256 of them
+RING_ROWS = (64, 128, 256)
+RUN_TILE_ROWS, RUN_PART_ROWS = 1280, 256
 
 
 def sorted_layout(runs: np.ndarray, n_points: int, seed: int, dtype=np.float32):
@@ -83,6 +94,39 @@ def small_layouts(dtype=np.float32) -> dict:
     runs = r.randint(0, 90, (3, 35))  # a 5 x 7 grid: 36 cells, not a multiple of 64
     runs[2, 34] = 200
     out["grid_5x7"] = sorted_layout(runs, 3300, 6, dtype)
+
+    runs = r.randint(1, 5, (2, 400))  # at most 4 points a pillar: below every cap
+    runs[1] = r.randint(0, 3, 400)
+    out["no_dump"] = sorted_layout(runs, int(runs[0].sum()), 11, dtype)  # sample 0 without padding
+
+    runs = r.randint(0, 30, (2, 16))
+    runs[0] = 0  # 1,000 rows of padding: several ring slots of dump rows only
+    out["only_dump"] = sorted_layout(runs, 1000, 12, dtype)
+
+    # runs and dump stretches across the ring's slots (64, 128, 256 rows) and
+    # the run block's part and tile (256, 1,280 positions)
+    runs = np.zeros((2, 12), np.int64)
+    runs[0, :5] = 100, 200, 700, 600, 51  # rows 100-299, 300-999, 1000-1599, ...
+    runs[1, 1:6] = 255, 2, 1030, 3, 290  # rows 0-254, ..., 257-1286, ...
+    out["ring_crossing"] = sorted_layout(runs, 2000, 13, dtype)
+
+    runs = r.randint(0, 60, (3, 20))  # 1,283 rows: no multiple of 16, 64, 128, 256 or 1,280
+    out["odd_rows"] = sorted_layout(runs, 1283, 14, dtype)
+
+    runs = r.randint(0, 80, (1, 50))
+    runs[0, 7] = 700
+    out["one_sample"] = sorted_layout(runs, 2900, 15, dtype)
+    return out
+
+
+def run_layouts(dtype=np.float32) -> dict:
+    """`small_layouts` and "dump_first": each sample's first 300 rows and its
+    last are padding, its pillars' runs between them, so the rows of the
+    dump cell come first (ids not sorted; only for the run sums)."""
+    out = small_layouts(dtype)
+    runs = np.random.RandomState(16).randint(0, 40, (2, 40))
+    pts, pid, n_cells = sorted_layout(runs, 1500, 17, dtype)
+    out["dump_first"] = pts, np.roll(pid, 300, axis=1), n_cells
     return out
 
 

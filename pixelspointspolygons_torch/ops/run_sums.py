@@ -108,13 +108,7 @@ def run_sums_cuda(x: torch.Tensor, ids: torch.Tensor, num_segments: int, samples
     N, C = x.shape
     if samples < 1 or N % samples or num_segments % samples:
         raise ValueError(f"run_sums_cuda takes N = {N} rows and {num_segments} segments in {samples} equal samples")
-    out = torch.zeros((num_segments, C), dtype=x.dtype, device=x.device)  # an empty segment's sum
-    with torch.cuda.device(x.device):
-        err = _lib().run_sums_launch(x.data_ptr(), ids.data_ptr(), out.data_ptr(), N, C, samples,
-                                     num_segments // samples, _DTYPES[x.dtype],
-                                     torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"run_sums kernel launch failed with CUDA error {err}")
+    out = _launch(_lib(), x, ids, num_segments, samples)
     run_sums_cuda.launches += 1
     return out
 
@@ -122,9 +116,9 @@ def run_sums_cuda(x: torch.Tensor, ids: torch.Tensor, num_segments: int, samples
 run_sums_cuda.launches = 0
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = load("run_sums")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare `run_sums_launch` and `run_sums_config` of a library built
+    from a version of `csrc/run_sums.cu`, once rather than on every call."""
     lib.run_sums_launch.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                                              ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
     lib.run_sums_launch.restype = ctypes.c_int
@@ -133,11 +127,45 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _launch(lib: ctypes.CDLL, x: torch.Tensor, ids: torch.Tensor, num_segments: int, samples: int) -> torch.Tensor:
+    """Run `lib.run_sums_launch` (a library declared by `bind`) on tensors
+    that `run_sums_cuda` has checked, and count nothing: the port launches
+    through `run_sums_cuda` only. The timing tool `run_sums_bench.py` calls
+    it with libraries built from other versions of `csrc/run_sums.cu`.
+
+    The kernel copies rows in 16-byte units: where x's start or a row's
+    bytes are not a multiple of 16 (no caller of the port gives such rows;
+    the PFN's are 64 or 384 channels in fresh tensors), x is copied into
+    zero channels padded to the next multiple, and the sums of the padding
+    are dropped. Each channel's sums are added apart, so the bits are the
+    same."""
+    N, C = x.shape
+    unit = 16 // x.element_size()
+    width = -(-C // unit) * unit
+    if width != C or x.data_ptr() % 16:
+        x = torch.nn.functional.pad(x, (0, width - C))
+    out = torch.zeros((num_segments, width), dtype=x.dtype, device=x.device)  # an empty segment's sum
+    with torch.cuda.device(x.device):
+        err = lib.run_sums_launch(x.data_ptr(), ids.data_ptr(), out.data_ptr(), N, width, samples,
+                                  num_segments // samples, _DTYPES[x.dtype], torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"run_sums kernel launch failed with CUDA error {err}")
+    return out if width == C else out[:, :C].contiguous()
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    return bind(load("run_sums"))
+
+
 def run_sums_config() -> dict:
-    """The warps a block and the bytes a staged tile that
-    `csrc/run_sums.cu` was built with, and the blocks an SM of the current
-    card holds at once in each dtype."""
-    keys = ("warps", "tile_bytes", "blocks_per_sm_float", "blocks_per_sm_double", "blocks_per_sm_bfloat16")
+    """What `csrc/run_sums.cu` was built with: warps a block, bytes a ring
+    slot holds (rows x 32 channels), ring slots, rows the chain reads
+    ahead, positions a run block owns, dynamic shared memory a block
+    (float32 rows); and the blocks an SM of the current card holds at once
+    in each dtype."""
+    keys = ("warps", "tile_bytes", "stages", "group_rows", "run_tile_rows", "smem_bytes",
+            "blocks_per_sm_float", "blocks_per_sm_double", "blocks_per_sm_bfloat16")
     out = (ctypes.c_int * len(keys))()
     err = _lib().run_sums_config(out)
     if err != 0:

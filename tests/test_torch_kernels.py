@@ -28,6 +28,7 @@ from pixelspointspolygons_torch.ops.pillar_layouts import (
     TILE_ROWS,
     dense_layout,
     large_layout,
+    run_layouts,
     small_layouts,
 )
 from pixelspointspolygons_torch.ops.segment import rank_in_run
@@ -332,17 +333,21 @@ def _grad_rows(n: int, channels: int, seed: int, dtype, device) -> torch.Tensor:
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
 @pytest.mark.parametrize("layout", ["long_run", "run_lengths", "empty_pillars", "all_padding", "cap_above_n",
-                                    "grid_5x7"])
+                                    "grid_5x7", "no_dump", "only_dump", "ring_crossing", "odd_rows", "one_sample",
+                                    "dump_first"])
 def test_run_sums_kernel_on_layouts(cuda_device, layout, dtype):
-    """Bitwise the plain version at 64 and 40 channels and caps 4, 64 and
-    512, dump cells included, and the same bits over three calls."""
+    """Bitwise the plain version at 1, 33, 40, 64, 384 and 385 channels
+    (rows of 16 bytes, and others that the wrapper pads; one 32-channel
+    chunk, several, and a short last one) and caps 4, 64 and 512, dump
+    cells included, and the same bits over three calls, on every layout of
+    `run_layouts`; and from rows whose start is not 16-byte aligned."""
     from pixelspointspolygons_torch.ops.run_sums import run_sums, run_sums_cuda
 
-    _, pid, n_cells = small_layouts()[layout]
+    _, pid, n_cells = run_layouts()[layout]
     B = pid.shape[0]
     for cap in CAPS:
         ids = _pfn_ids(pid, n_cells, cap, cuda_device)
-        for channels in (64, 40):
+        for channels in (1, 33, 40, 64, 384, 385):
             x = _grad_rows(len(ids), channels, cap + channels, dtype, cuda_device)
             before = run_sums_cuda.launches
             got = run_sums_cuda(x, ids, B * (n_cells + 1), B)
@@ -352,6 +357,8 @@ def test_run_sums_kernel_on_layouts(cuda_device, layout, dtype):
             assert run_sums_cuda.launches == before + 4
             assert _same_bits(got, want), f"cap {cap}, {channels} channels"
             assert all(_same_bits(got, a) for a in again)
+            shifted = torch.empty(x.numel() + 1, dtype=dtype, device=cuda_device)[1:].view_as(x).copy_(x)
+            assert _same_bits(run_sums_cuda(shifted, ids, B * (n_cells + 1), B), want), "an unaligned start"
 
 
 @pytest.mark.cuda
@@ -386,7 +393,8 @@ def test_run_sums_kernel_refuses_what_it_cannot_take(cuda_device):
             bad()
     assert run_sums_cuda.launches == before
     conf = run_sums_config()
-    assert conf["warps"] == 9 and conf["tile_bytes"] == 16384
+    assert conf["warps"] == 5 and conf["tile_bytes"] == 16384 and conf["stages"] == 6 and conf["group_rows"] == 16
+    assert conf["run_tile_rows"] == 1280 and 48 * 1024 < conf["smem_bytes"] <= 113 * 1024
     assert min(conf["blocks_per_sm_float"], conf["blocks_per_sm_double"], conf["blocks_per_sm_bfloat16"]) >= 1
 
 

@@ -51,7 +51,7 @@ from pixelspointspolygons_torch.ops.voxelize import assign_pillars, cell_offsets
 from pixelspointspolygons_torch.utils.bridge import flax_to_state_dict
 from test_torch_ffl import _bridged
 
-LAYOUTS = sorted(pillar_layouts.small_layouts())
+LAYOUTS = sorted(pillar_layouts.run_layouts())
 
 
 def _flat_ids(pid: np.ndarray, n_cells: int, cap: int) -> torch.Tensor:
@@ -74,7 +74,7 @@ def test_run_sums_plain_is_autograds_gather_gradient(layout, dtype, cap):
     """The plain version of the gather's ordered backward against autograd's
     gradient of `pooled[pillar_id]` on each layout of `ops/pillar_layouts.py`
     at 64 channels, dump cells included; and through `gather_rows`."""
-    _, pid, n_cells = pillar_layouts.small_layouts()[layout]
+    _, pid, n_cells = pillar_layouts.run_layouts()[layout]
     B = pid.shape[0]
     ids = _flat_ids(pid, n_cells, cap)
     S = B * (n_cells + 1)
@@ -92,6 +92,38 @@ def test_run_sums_plain_is_autograds_gather_gradient(layout, dtype, cap):
         assert ((got.double() - table.grad.double()).abs() <= 1e-6 * scale).all()
     dump = torch.arange(B) * (n_cells + 1) + n_cells
     assert (got[dump] != 0).any() or not (ids[:, None] == dump).any()
+
+
+def test_run_layouts_hold_their_edge_cases():
+    """The layouts the run sums' kernel splits its work on hold what they
+    are named for, at every cap, flattened as the PillarFeatureNet flattens
+    them: every id but the dump cell's one contiguous run; a sample without
+    a dump row, one of dump rows only, one whose dump rows come first; runs
+    and dump stretches across the ring's slots and a run block's part and
+    tile; rows per sample no multiple of any of the kernel's tiles; one
+    sample."""
+    lay = pillar_layouts.run_layouts()
+    ring, part, tile = pillar_layouts.RING_ROWS, pillar_layouts.RUN_PART_ROWS, pillar_layouts.RUN_TILE_ROWS
+    for cap in (4, 64, 512):
+        dumps, crossed = {}, set()
+        for name, (_, pid, n_cells) in lay.items():
+            ids = _flat_ids(pid, n_cells, cap).reshape(pid.shape).numpy() % (n_cells + 1)
+            dumps[name] = (ids == n_cells).sum(axis=1)
+            for row in ids:
+                starts = np.flatnonzero(np.diff(row, prepend=-1) != 0)
+                ends = np.append(starts[1:], len(row))
+                kept = row[starts] != n_cells
+                assert len(set(row[starts[kept]])) == kept.sum(), f"{name}: a pillar in two runs"
+                for a, e, k in zip(starts, ends, kept):  # stretches over a boundary of the kernel's tiles
+                    crossed |= {(bool(k), step) for step in (*ring, part, tile) if a // step != (e - 1) // step}
+        assert dumps["no_dump"][0] == 0 and dumps["only_dump"][0] == lay["only_dump"][1].shape[1]
+        _, pid, n_cells = lay["dump_first"]
+        assert (pid[:, :300] == n_cells).all() and (pid[:, 300:] < n_cells).any(axis=1).all()
+        assert {(k, step) for k in (True, False) for step in ring} <= crossed, cap
+        assert (True, part) in crossed and (cap < 512 or (True, tile) in crossed)
+    n = lay["odd_rows"][1].shape[1]
+    assert all(n % step for step in (16, *ring, part, tile))
+    assert lay["one_sample"][1].shape[0] == 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
